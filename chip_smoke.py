@@ -6,8 +6,9 @@ Drives kubedtn_tpu_torch's main path at the BASELINE size — the
 100k-link Clos (200,000 directed rows in capacity 2^18), churned by
 batched UpdateLinks and shaped through netem -> TBF by the drop-in step
 (kernel K1) and the fused steady-state steps (kernels K2 and K3) — then
-holds every kernel against its plain torch version on the card at those
-shapes and times both.
+the live tick's device program on the same Clos, unsharded and sharded
+(its mailbox ring steps are kernel K4), and holds every kernel against
+its plain torch version on the card at those shapes and times both.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi) and the kernels' build (set-up time);
@@ -18,7 +19,18 @@ Phases, each fatal on failure:
   4. K1 and K2 against their plain versions; K3 bit for bit against K2
      fed the same Philox draws, its loss share against the configured
      loss, flag_counts against a host count;
-  5. the fat-tree entry step against known one-way delays.
+  5. the fat-tree entry step against known one-way delays;
+  6. the live tick, unsharded: a fresh Clos reshaped into the three
+     kernel classes, 4,000 busy rows per class (padded to 4,096), K = 64
+     slots; 8 chained ticks through fused_tick and the same 8 through
+     the per-class ladder, bit for bit equal;
+  7. the sharded tick on S = 2 and 4 virtual shards of the one card,
+     with the launch counts set to 0 just before and read just after:
+     bit for bit the unsharded tick; K4 must have launched;
+  8. the sharded tick over two cards when there are two or more (a line
+     says so when there are not);
+  9. K4 alone against its plain version, bit for bit, at R = 4,096 and
+     32,768, timed against its byte bound and torch.roll.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -56,6 +68,20 @@ SRC = "kubedtn_tpu_torch/ops/cuda/csrc/shaping.cu"
 PALLAS = "kubedtn_tpu/ops/pallas/shaping.py"
 STATE_TOL = dict(rtol=1e-6, atol=1e-3)   # the repo's Pallas parity
 DEPART_TOL = dict(rtol=1e-5, atol=1e-2)  # tolerances
+
+# The live tick (runtime.fused_tick) at the Clos's full width.
+LIVE_ROWS = 4000            # busy rows per class and tick, padded to 4096
+LIVE_SLOTS = 64             # K, runtime's seq_slots default
+LIVE_TICKS = 8
+LIVE_ELAPSED_US = 1000.0    # wall time between two ticks
+LIVE_SHARDS = (2, 4)        # virtual shards of the one card
+LIVE_TIMED_TICKS = 3
+LIVE_JAMMED = 40            # TBF busy rows that start with a full queue
+K4_SRC = "kubedtn_tpu_torch/ops/cuda/csrc/exchange.cu"
+K4_REPLACES = "kubedtn_tpu/parallel/exchange.py:70"
+K4_SHARDS = 4
+K4_ROWS = (4096, 32768)     # the live tick's R, and the byte regime
+MAIL_WORDS = 24             # 21 float + 3 int payload words per row
 
 
 def fail(msg: str):
@@ -142,7 +168,8 @@ def section(run, n: int, prof: dict, name: str) -> float:
     by_op = sorted(((a.key, a.self_device_time_total / PROFILE_CALLS)
                     for a in p.key_averages()
                     if a.self_device_time_total > 0
-                    and (a.device_type == cpu or "shape_step" in a.key)),
+                    and (a.device_type == cpu or "shape_step" in a.key
+                         or "ring_step" in a.key)),
                    key=lambda kv: -kv[1])
     per_call = device_us / PROFILE_CALLS
     prof[name] = {"wall_us_per_call": wall * 1e6,
@@ -458,6 +485,276 @@ def check_entry(dev):
     return int(res.delivered.sum())
 
 
+# -- the live tick ------------------------------------------------------------
+
+def same(a, b, name: str) -> None:
+    """Nested tuples / lists / dicts of tensors (or plain values), bit for
+    bit; a tensor pair may lie on two devices."""
+    if isinstance(a, dict):
+        check(a.keys() == b.keys(), f"{name}: keys differ")
+        for k in a:
+            same(a[k], b[k], f"{name}.{k}")
+    elif isinstance(a, (tuple, list)):
+        check(len(a) == len(b), f"{name}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{name}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{name}: {a.dtype}{tuple(a.shape)} vs {b.dtype}"
+              f"{tuple(b.shape)}")
+        y = b.to(a.device)
+        if a.dtype == torch.float32:
+            a, y = a.view(torch.int32), y.view(torch.int32)
+        check(torch.equal(a, y), f"{name}: differs bitwise")
+    else:
+        check(a == b, f"{name}: {a} vs {b}")
+
+
+def tick_runs(state, groups, dev):
+    """Closures running n chained ticks from `state`, returning (outs per
+    tick, dyn, tel): the fused program, and the per-class ladder."""
+    from kubedtn_tpu_torch import runtime
+    from kubedtn_tpu_torch import telemetry as tele
+
+    E = state.capacity
+    seq, tbf, ind = groups["seq"], groups["tbf"], groups["ind"]
+
+    def fused(n):
+        key, dyn, tel = runtime.tick_key(1), None, tele.init_acc(E, dev)
+        outs = []
+        for _ in range(n):
+            key, _sub, dyn, o, tel = runtime.fused_tick(
+                state, dyn, key, LIVE_ELAPSED_US, seq, tbf, ind, tel)
+            outs.append(o)
+        return outs, dyn, tel
+
+    def ladder(n):
+        key, dyn, tel = runtime.tick_key(1), None, tele.init_acc(E, dev)
+        outs = []
+        for _ in range(n):
+            key, sub = runtime.split(key)
+            el, o = LIVE_ELAPSED_US, {}
+            for kind in runtime.CLASS_ORDER:
+                dyn, o[kind], tel = runtime.class_tick(
+                    state, dyn, sub, el, groups[kind], tel, kind=kind)
+                el = 0.0
+            outs.append(o)
+        return outs, dyn, tel
+
+    return fused, ladder
+
+
+def sharded_run(state, groups, mesh):
+    """n chained sharded ticks on `mesh`: (outs, dyn, tel) with dyn and
+    tel joined on the first mesh device."""
+    from kubedtn_tpu_torch import convert, runtime
+    from kubedtn_tpu_torch import telemetry as tele
+
+    fn = runtime.make_sharded_fused(mesh)
+    shards = convert.shard(state, mesh)
+    tel0 = convert.shard(tele.init_acc(state.capacity, mesh[0]), mesh)
+
+    def run(n):
+        key, dyn, tel, outs = runtime.tick_key(1), None, tel0, []
+        for _ in range(n):
+            key, _sub, dyn, o, tel = fn(shards, dyn, key, LIVE_ELAPSED_US,
+                                        groups["seq"], groups["tbf"],
+                                        groups["ind"], tel)
+            outs.append(o)
+        return outs, convert.unshard(dyn), convert.unshard(tel)
+
+    return run
+
+
+def check_live_outputs(state, groups, fused_res, dev):
+    """What comes out is right by the repo's own means: the outcome
+    partition (delivered + loss + queue drops == offered, exactly, per
+    the telemetry window), finite departures for every delivered frame,
+    the TBF fallback raised, and the max-plus TBF core equal to the
+    sequential core on the rows it did not flag."""
+    from kubedtn_tpu_torch import runtime
+    from kubedtn_tpu_torch import telemetry as tele
+    from kubedtn_tpu_torch.ops import netem
+
+    outs, dyn, tel = fused_res
+    m = {}
+    for name, x in zip(("tokens", "t_last", "backlog_until", "corr"), dyn):
+        check(bool(torch.isfinite(x).all()), f"live tick: non-finite {name}")
+    check(tuple(tel.shape) == (state.capacity, tele.KCOLS),
+          "live tick: telemetry window shape")
+    tot = tel.double().sum(0)
+    check(float(tot[tele.T_TX]) == float(
+        tot[tele.T_DELIVERED] + tot[tele.T_DROP_LOSS]
+        + tot[tele.T_DROP_QUEUE]), "live tick: outcomes do not partition "
+        "the offered frames")
+    check(float(tot[tele.T_HIST0:].sum()) == float(tot[tele.T_DELIVERED]),
+          "live tick: latency histogram does not count every delivery")
+    m["tel_totals"] = {c: float(tot[i]) for i, c in enumerate(
+        tele.COLUMN_NAMES[:tele.T_HIST0])}
+    fallback = []
+    for t, o in enumerate(outs):
+        for kind, out in o.items():
+            delivered, depart = out[0], out[1]
+            check(tuple(depart.shape) == (runtime._pad_rows(LIVE_ROWS),
+                                          LIVE_SLOTS),
+                  f"live tick {t} {kind}: depart shape")
+            check(bool(torch.isfinite(depart[delivered]).all()),
+                  f"live tick {t} {kind}: a delivered frame has no finite "
+                  "departure")
+            check(bool(delivered.any()), f"live tick {t} {kind}: nothing "
+                  "delivered")
+        fallback.append(int(o["tbf"][5].sum()))
+    m["tbf_fallback_rows_per_tick"] = fallback
+    check(sum(fallback) > 0, "live tick: no TBF row raised the fallback")
+
+    # max-plus TBF core vs the sequential core, same draws, first tick
+    rows, sizes, valid, kids = groups["tbf"]
+    g = lambda col: netem.gather_rows(col, rows)  # noqa: E731
+    sub = runtime.split(runtime.tick_key(1))[1]
+    u = netem.uniform_rows(sub, netem.CLASS_TBF, kids, *sizes.shape, dev)
+    st = runtime._roll_clocks(state, LIVE_ELAPSED_US)
+    res, *_rest, fbk = netem.shape_rows_tbf(
+        g(st.props), g(st.active), g(st.corr), g(st.pkt_count),
+        g(st.tokens), g(st.t_last), g(st.backlog_until), sizes, valid, sub,
+        kids, u=u)
+    _, sres = netem.shape_rows_seq(
+        g(st.props), g(st.active), (g(st.tokens), g(st.t_last),
+                                    g(st.backlog_until), g(st.corr),
+                                    g(st.pkt_count)),
+        sizes, valid, sub, kids, u=u)
+    ok = ~fbk
+    check(torch.equal(res.delivered[ok], sres.delivered[ok]),
+          "TBF max-plus core and sequential core deliver differently")
+    m["tbf_vs_seq_core_max_abs_err"] = max_err(
+        res.depart_us[ok], sres.depart_us[ok], DEPART_TOL,
+        "TBF max-plus core vs sequential core")
+    return m
+
+
+def cross_shard_rows(groups, n_links: int, E: int, S: int) -> int:
+    """Busy rows of one tick whose link's other direction (row r +- L)
+    lies in another shard's block."""
+    from kubedtn_tpu_torch.parallel.partition import shard_of_rows
+
+    rows = torch.cat([groups[k][0] for k in groups]).cpu().numpy()
+    rows = rows[rows < E].astype(np.int64)
+    peer = np.where(rows < n_links, rows + n_links, rows - n_links)
+    return int((shard_of_rows(rows, E, S) != shard_of_rows(peer, E, S))
+               .sum())
+
+
+def run_live_tick(dev, card):
+    """Phases 6-8. Returns (metrics, K4 launches on the sharded path)."""
+    from kubedtn_tpu_torch import entry, runtime
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    m = {}
+    el, state, _ = entry.build_clos_100k()
+    groups = entry.build_live_tick(el, state, LIVE_ROWS, LIVE_SLOTS, 17)
+    # congested links: some TBF rows start with a 200 ms queue, which the
+    # max-plus core must flag for the fallback re-shape
+    jam = groups["tbf"][0][:min(LIVE_JAMMED, LIVE_ROWS)].long()
+    state.backlog_until[jam] = 2e5
+    for kind, g in groups.items():
+        check(tuple(g[1].shape) == (runtime._pad_rows(LIVE_ROWS),
+                                    LIVE_SLOTS),
+              f"{kind} group shape {tuple(g[1].shape)}")
+    fused, ladder = tick_runs(state, groups, dev)
+    t0 = time.perf_counter()
+    want = fused(LIVE_TICKS)
+    torch.cuda.synchronize()
+    m["first_run_s"] = time.perf_counter() - t0
+    same(ladder(LIVE_TICKS), want, "per-class ladder vs fused tick")
+    log(f"live tick: fused == per-class ladder, bit for bit, over "
+        f"{LIVE_TICKS} ticks (3 x {runtime._pad_rows(LIVE_ROWS)} rows x "
+        f"{LIVE_SLOTS} slots, "
+        f"capacity {state.capacity})")
+    m.update(check_live_outputs(state, groups, want, dev))
+
+    prof = m["profile"] = {}
+    m["fused_wall_ms_per_tick"] = 1e3 * section(
+        fused, LIVE_TIMED_TICKS, prof, "fused_tick")
+    sub = runtime.split(runtime.tick_key(1))[1]
+    for kind in runtime.CLASS_ORDER:
+        def one_class(n, kind=kind):
+            for _ in range(n):
+                runtime.class_tick(state, None, sub, LIVE_ELAPSED_US,
+                                   groups[kind], None, kind=kind)
+        section(one_class, LIVE_TIMED_TICKS, prof, f"class_{kind}")
+        p = prof[f"class_{kind}"]
+        log(f"live tick class {kind}: device {p['device_us_per_call']:.1f} "
+            f"us, wall {p['wall_us_per_call']:.1f} us, busy share "
+            f"{p['busy_share']:.3f} ({card})")
+    p = prof["fused_tick"]
+    log(f"live tick fused: wall {p['wall_us_per_call'] / 1e3:.3f} ms/tick, "
+        f"device {p['device_us_per_call'] / 1e3:.3f} ms/tick, busy share "
+        f"{p['busy_share']:.3f} ({card})")
+
+    pex.reset_launches()
+    for S in LIVE_SHARDS:
+        run = sharded_run(state, groups, make_mesh([dev] * S))
+        same(run(LIVE_TICKS), want, f"sharded tick S={S} vs unsharded")
+        xs = cross_shard_rows(groups, el.n_links, state.capacity, S)
+        check(xs > 0, f"S={S}: no link pair straddles a block")
+        wall = timed(run, LIVE_TIMED_TICKS) / LIVE_TIMED_TICKS
+        m[f"sharded_S{S}"] = {"wall_ms_per_tick": wall * 1e3,
+                              "cross_shard_rows_per_tick": xs}
+        log(f"sharded tick S={S} virtual shards: bit for bit the unsharded "
+            f"tick over {LIVE_TICKS} ticks; {xs} cross-shard rows per "
+            f"tick; wall {wall * 1e3:.3f} ms/tick ({card})")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh = make_mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
+        run = sharded_run(state, groups, mesh)
+        same(run(LIVE_TICKS), want, "sharded tick on two cards vs unsharded")
+        wall = timed(run, LIVE_TIMED_TICKS) / LIVE_TIMED_TICKS
+        m["sharded_two_cards"] = {"wall_ms_per_tick": wall * 1e3}
+        log(f"sharded tick on cuda:0 + cuda:1: bit for bit the unsharded "
+            f"tick; wall {wall * 1e3:.3f} ms/tick")
+    else:
+        log(f"sharded tick on several cards: not run, {n_cards} CUDA "
+            f"device visible and the phase needs 2")
+    launches = pex.LAUNCHES["ring_step"]
+    log(f"sharded path launches {dict(pex.LAUNCHES)}")
+    check(launches > 0, "K4 never launched on the sharded path")
+    return m, launches
+
+
+def check_k4(dev, timer):
+    """K4 against its plain version (the list rotation into new buffers),
+    bit for bit, on 4 virtual shards; timed against its byte bound and
+    torch.roll over the stacked mailbox."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * K4_SHARDS)
+    out = {}
+    for R in K4_ROWS:
+        g = torch.Generator(device=dev).manual_seed(R)
+        blocks = [torch.randint(-2 ** 31, 2 ** 31 - 1, (R, MAIL_WORDS),
+                                generator=g, dtype=torch.int32, device=dev)
+                  for _ in range(K4_SHARDS)]
+        got = pex.ring_right_shift(blocks, mesh)
+        want = pex.ring_right_shift_plain(blocks)
+        same(got, want, f"K4 R={R}")
+        err = max(float((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        stacked = torch.stack(blocks)
+        same(torch.stack(got), torch.roll(stacked, 1, 0),
+             f"K4 R={R} vs torch.roll")
+        moved = 2 * nbytes(*blocks)
+        b, by = bound_ms(moved, 0)
+        out[R] = dict(
+            max_abs_err=err,
+            ms=timer.ms(lambda: pex.ring_right_shift(blocks, mesh)),
+            plain_ms=timer.ms(lambda: pex.ring_right_shift_plain(blocks)),
+            library_ms=timer.ms(lambda: torch.roll(stacked, 1, 0)),
+            bound_ms=b, bound_by=by, bytes=moved, shards=K4_SHARDS)
+        log(f"K4 R={R}: {out[R]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -499,6 +796,9 @@ def main() -> int:
                "K3": check_k3(fresh, dev, timer)}
     entry_delivered = check_entry(dev)
 
+    live_m, k4_launches = run_live_tick(dev, card)
+    k4 = check_k4(dev, timer)
+
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
             "K3": ("shape_steps_cols_philox", 277)}
     kernels = []
@@ -510,8 +810,16 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    r = k4[K4_ROWS[0]]   # the live tick's mailbox shape
+    kernels.append({
+        "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
+        "replaces": K4_REPLACES, "launches": k4_launches,
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    results["K4"] = k4
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
-              "entry_delivered": entry_delivered,
+              "entry_delivered": entry_delivered, "live_tick": live_m,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

@@ -46,6 +46,10 @@ SIGNATURES = {
         "kdt_shape_steps_cols_philox": [ctypes.c_uint32] + [_P] * 16
         + [_I, _I, _P],
     },
+    "exchange": {
+        "kdt_ring_step": [_P, _P, _I, _P],
+        "kdt_enable_peer": [_I, _I],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -38,6 +38,57 @@ def edge_state_to_numpy(s: es.EdgeState) -> dict:
             for f in dataclasses.fields(es.EdgeState)}
 
 
+def dyn_from_numpy(dyn, device=None) -> tuple:
+    """The live tick's five dynamic columns (tokens, t_last,
+    backlog_until, corr, pkt_count) on `device` (None = the CUDA card)
+    from numpy arrays, as a JAX tick returns them."""
+    dev = resolve_device(device)
+    dtypes = (torch.float32,) * 4 + (torch.int32,)
+    return tuple(torch.as_tensor(np.array(x), dtype=t, device=dev)
+                 for x, t in zip(dyn, dtypes))
+
+
+def tel_from_numpy(tel, device=None) -> torch.Tensor:
+    """A [E, KCOLS] telemetry window on `device` (None = the CUDA card)."""
+    return torch.as_tensor(np.array(tel), dtype=torch.float32,
+                           device=resolve_device(device))
+
+
+def shard(x, mesh) -> list:
+    """Split along the edge axis into len(mesh) contiguous blocks, block
+    s on mesh[s]: a tensor gives a list of tensors, a tuple of tensors
+    (the dynamic columns) a list of per-shard tuples, an EdgeState a
+    list of per-shard EdgeStates."""
+    from kubedtn_tpu_torch.parallel.mesh import shard_edge_state
+
+    if isinstance(x, es.EdgeState):
+        return shard_edge_state(x, mesh)
+    if isinstance(x, torch.Tensor):
+        n = len(mesh)
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows not divisible by {n} "
+                             "shards")
+        return [b.to(d, copy=True)
+                for b, d in zip(x.split(x.shape[0] // n), mesh)]
+    fields = [shard(f, mesh) for f in x]
+    return [tuple(f[s] for f in fields) for s in range(len(mesh))]
+
+
+def unshard(blocks, device=None):
+    """The inverse of `shard`: blocks joined on `device` (None = the
+    device of block 0)."""
+    first = blocks[0]
+    if isinstance(first, es.EdgeState):
+        return es.EdgeState(**{
+            f.name: unshard([getattr(b, f.name) for b in blocks], device)
+            for f in dataclasses.fields(es.EdgeState)})
+    if isinstance(first, torch.Tensor):
+        dev = first.device if device is None else torch.device(device)
+        return torch.cat([b.to(dev) for b in blocks])
+    return tuple(unshard([b[i] for b in blocks], device)
+                 for i in range(len(first)))
+
+
 def tiled_state_from_numpy(d: dict, device=None) -> TiledShapeState:
     """TiledShapeState from the numpy fields of a JAX TiledShapeState
     (props/corr [C, R, 128], vectors [R, 128]) plus its `capacity`:

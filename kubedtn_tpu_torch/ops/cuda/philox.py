@@ -49,7 +49,18 @@ def philox4x32(ctr, key):
     dev = next((w.device for w in ctr if isinstance(w, torch.Tensor)),
                None)
     c = [torch.as_tensor(w, dtype=torch.int64, device=dev) for w in ctr]
-    c = list(torch.broadcast_tensors(*c))
+    return _rounds(list(torch.broadcast_tensors(*c)), key)
+
+
+def philox4x32_words(ctr, key) -> tuple:
+    """philox4x32 of four Python int counter words: four Python ints,
+    computed on the host (no tensor, no device)."""
+    return tuple(_rounds([int(w) & MASK32 for w in ctr], key))
+
+
+def _rounds(c: list, key) -> list:
+    """The ten Philox rounds on four uint32 words held in int64 tensors
+    or Python ints (the same operators serve both)."""
     k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
     for r in range(ROUNDS):
         if r > 0:

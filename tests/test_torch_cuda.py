@@ -157,3 +157,191 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         shaping.shape_step(state, sizes, have, t_arr,
                            u.T.contiguous().T, donate=True)
+
+
+# -- K4: the mailbox ring step -------------------------------------------------
+
+def _blocks(S, shape, dev, dtype=torch.int32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                          dtype=torch.int32, device=dev).view(dtype)
+            for _ in range(S)]
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("R", [1, 8, 4096])
+def test_k4_equals_plain_rotation(dev, S, R):
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * S)
+    blocks = _blocks(S, (R, 24), dev, seed=R)
+    before = pex.LAUNCHES["ring_step"]
+    got = pex.ring_right_shift(blocks, mesh)
+    want = pex.ring_right_shift_plain(blocks)
+    torch.cuda.synchronize()
+    assert pex.LAUNCHES["ring_step"] == before + S
+    for s in range(S):
+        assert torch.equal(got[s], want[s])
+        assert got[s].data_ptr() != blocks[s - 1].data_ptr()
+
+
+@pytest.mark.parametrize("n_words,offset", [(15, 0), (4097, 0), (4096, 1)])
+def test_k4_ragged_and_unaligned(dev, n_words, offset):
+    """A word count not divisible by 4 takes the scalar tail; a block that
+    starts 4 bytes into its buffer takes the scalar path throughout."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    bufs = _blocks(2, (n_words + offset,), dev, torch.float32, seed=n_words)
+    blocks = [b[offset:] for b in bufs]
+    got = pex.ring_right_shift(blocks, make_mesh([dev] * 2))
+    torch.cuda.synchronize()
+    for s in range(2):
+        assert torch.equal(got[s].view(torch.int32),
+                           blocks[s - 1].view(torch.int32))
+
+
+def test_k4_rejects_what_it_does_not_take(dev):
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * 2)
+    with pytest.raises(ValueError, match="32-bit words"):
+        pex.ring_right_shift([torch.zeros(4, 3, dtype=torch.int64,
+                                          device=dev)] * 2, mesh)
+    with pytest.raises(ValueError, match="contiguous"):
+        pex.ring_right_shift([torch.zeros(4, 6, dtype=torch.int32,
+                                          device=dev)[:, ::2]] * 2, mesh)
+    with pytest.raises(ValueError, match="block 1"):
+        pex.ring_right_shift([torch.zeros(4, 3, dtype=torch.int32,
+                                          device=dev),
+                              torch.zeros(5, 3, dtype=torch.int32,
+                                          device=dev)], mesh)
+    with pytest.raises(ValueError, match="blocks for a mesh"):
+        pex.ring_right_shift([torch.zeros(4, 3, dtype=torch.int32,
+                                          device=dev)] * 3, mesh)
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the ring step across cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_k4_across_two_cards(two_cards):
+    """Block s lands on the other card: stored over NVLink by the kernel
+    on the writer's card, ordered by an event the reader's stream waits
+    on."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(two_cards)
+    blocks = [_blocks(1, (4096, 24), d, seed=i)[0]
+              for i, d in enumerate(two_cards)]
+    got = pex.ring_right_shift(blocks, mesh)
+    for d in two_cards:
+        torch.cuda.synchronize(d)
+    assert got[0].device == two_cards[0] and got[1].device == two_cards[1]
+    assert torch.equal(got[1].cpu(), blocks[0].cpu())
+    assert torch.equal(got[0].cpu(), blocks[1].cpu())
+
+
+def test_k4_waits_for_work_queued_on_the_receiving_card(two_cards):
+    """The allocator may hand the step a block that work still queued on
+    the receiving card writes: the ring step's store must land after it.
+    A long sleep, then a fill of a freed block of the step's size, sit on
+    cuda:1's stream before the step. Peer access is enabled and every
+    kernel loaded beforehand: either would first wait for the card."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(two_cards)
+    blocks = [_blocks(1, (4096, 24), d, seed=i)[0]
+              for i, d in enumerate(two_cards)]
+    pex.ring_right_shift(blocks, mesh)
+    with torch.cuda.device(two_cards[1]):
+        torch.cuda._sleep(1)
+        torch.empty_like(blocks[1]).fill_(7)
+    for d in two_cards:
+        torch.cuda.synchronize(d)
+    with torch.cuda.device(two_cards[1]):
+        stale = torch.empty_like(blocks[1])
+        stale_ptr = stale.data_ptr()
+        torch.cuda._sleep(200_000_000)
+        stale.fill_(7)
+        del stale
+    got = pex.ring_right_shift(blocks, mesh)
+    assert got[1].data_ptr() == stale_ptr, "the step took another block"
+    for d in two_cards:
+        torch.cuda.synchronize(d)
+    assert torch.equal(got[1].cpu(), blocks[0].cpu())
+    assert torch.equal(got[0].cpu(), blocks[1].cpu())
+
+
+@pytest.mark.parametrize("S", [2, 4, "two_cards"])
+def test_sharded_live_tick_equals_unsharded_on_the_card(dev, S, request):
+    """A small Clos through the live tick on the card: the sharded program
+    on S virtual shards (K4 ring steps), or on two cards, equals the
+    unsharded one bit for bit."""
+    from kubedtn_tpu_torch import entry, runtime
+    from kubedtn_tpu_torch import telemetry as tele
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.models.topologies import (
+        clos, load_edge_list_into_state)
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    el = clos(8, 40, 0, props=LinkProperties(latency="10ms",
+                                              rate="10Gbit"),
+              links_per_pair=2)
+    state, _ = load_edge_list_into_state(el, device=dev)
+    g = entry.build_live_tick(el, state, 60, 16, 5, device=dev)
+    state.backlog_until[g["tbf"][0][:4].long()] = 2e5
+    E = state.capacity
+
+    def unsharded():
+        key, dyn, tel, outs = runtime.tick_key(3), None, \
+            tele.init_acc(E, dev), []
+        for _ in range(3):
+            key, _s, dyn, o, tel = runtime.fused_tick(
+                state, dyn, key, 1000.0, g["seq"], g["tbf"], g["ind"], tel)
+            outs.append(o)
+        return outs, dyn, tel
+
+    if S == "two_cards":
+        mesh = make_mesh(request.getfixturevalue("two_cards"))
+    else:
+        mesh = make_mesh([dev] * S)
+    S = len(mesh)
+
+    def sharded():
+        fn = runtime.make_sharded_fused(mesh)
+        shards = convert.shard(state, mesh)
+        key, dyn, outs = runtime.tick_key(3), None, []
+        tel = convert.shard(tele.init_acc(E, dev), mesh)
+        for _ in range(3):
+            key, _s, dyn, o, tel = fn(shards, dyn, key, 1000.0, g["seq"],
+                                      g["tbf"], g["ind"], tel)
+            outs.append(o)
+        return outs, convert.unshard(dyn, dev), convert.unshard(tel, dev)
+
+    want = unsharded()
+    before = pex.LAUNCHES["ring_step"]
+    got = sharded()
+    torch.cuda.synchronize()
+    assert pex.LAUNCHES["ring_step"] == before + 3 * 3 * (S - 1) * S
+
+    def cmp(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                cmp(a[k], b[k])
+        elif isinstance(a, (tuple, list)):
+            for x, y in zip(a, b):
+                cmp(x, y)
+        else:
+            assert_bitwise(a.to(b.device), b, "sharded vs unsharded")
+
+    cmp(got, want)
+    assert any(bool(o["tbf"][5].any()) for o in want[0])

@@ -36,7 +36,12 @@ def test_port_modules_are_found():
                  "kubedtn_tpu_torch.models.topologies",
                  "kubedtn_tpu_torch.convert", "kubedtn_tpu_torch.entry",
                  "kubedtn_tpu_torch._build",
-                 "kubedtn_tpu_torch.api.types"):
+                 "kubedtn_tpu_torch.api.types",
+                 "kubedtn_tpu_torch.ops.scan", "kubedtn_tpu_torch.runtime",
+                 "kubedtn_tpu_torch.telemetry",
+                 "kubedtn_tpu_torch.parallel.exchange",
+                 "kubedtn_tpu_torch.parallel.mesh",
+                 "kubedtn_tpu_torch.parallel.partition"):
         assert want in mods
 
 
