@@ -18,7 +18,7 @@ Phases, each fatal on failure:
      steps, fused steps with given and with in-kernel uniforms;
   4. K1 and K2 against their plain versions; K3 bit for bit against K2
      fed the same Philox draws, its loss share against the configured
-     loss, flag_counts against a host count;
+     loss, flag_counts against a host count; K3 timed at S = 10 and 1;
   5. the fat-tree entry step against known one-way delays;
   6. the live tick, unsharded: a fresh Clos reshaped into the three
      kernel classes, 4,000 busy rows per class (padded to 4,096), K = 64
@@ -30,7 +30,8 @@ Phases, each fatal on failure:
   8. the sharded tick over two cards when there are two or more (a line
      says so when there are not);
   9. K4 alone against its plain version, bit for bit, at R = 4,096 and
-     32,768, timed against its byte bound and torch.roll.
+     32,768, one launch per ring step on the card, timed against its byte
+     bound and torch.roll.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -42,7 +43,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -53,10 +53,15 @@ import torch
 # non-tensor-core float32 rate (integer work is counted against it too).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Operations per edge and step, counted from csrc/shaping.cu's shape_one
-# (arithmetic, compares and selects) and its Philox (two 10-round calls).
-OPS_STEP = 80
-OPS_PHILOX = 200
+# Operations per edge: SASS instructions of csrc/shaping.cu as nvcc 12.9
+# builds it (cuobjdump -sass, counted by kubedtn_tpu_torch/kernel_bench.py):
+# K1's straight-line body to EXIT; for an active edge, K2's and K3's code
+# outside the step loop once plus the loop's body per step (an inactive
+# edge runs no step). Each thread instruction counts as one operation
+# against the float32 rate.
+OPS_K1 = 262
+OPS_K2 = (183, 165)      # (per active edge, per active edge and step)
+OPS_K3 = (283, 226)
 
 STEPS = 10                  # fused steps per K2/K3 launch, as bench.py
 PROFILE_CALLS = 4
@@ -97,40 +102,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 # -- timing ----------------------------------------------------------------
-
-class Timer:
-    """Median device time of a callable. Each rep flushes L2 (a 64 MiB
-    write), then parks the stream on a spin kernel while the host
-    enqueues the events and the work, so the events bracket device time
-    and not the host's dispatch of the first launch."""
-
-    def __init__(self, dev):
-        self.flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
-
-    def ms(self, fn, reps: int = TIME_REPS) -> float:
-        fn()  # warm
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            torch.cuda._sleep(2_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
 
 def timed(run, n: int) -> float:
     """Median host seconds of run(n), ended by a device sync, after one
@@ -343,7 +315,7 @@ def check_k1(state, dev, timer, gen):
                    state.backlog_until, state.pkt_count, sizes, t_arr, have,
                    state.active, dep, fl, k_state.tokens, k_state.t_last,
                    k_state.backlog_until, k_state.corr, k_state.pkt_count)
-    b, by = bound_ms(moved, OPS_STEP * E)
+    b, by = bound_ms(moved, OPS_K1 * E)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, bytes=moved,
                 delivered=int((fl & shaping.FLAG_DELIVERED != 0).sum()))
@@ -374,11 +346,29 @@ def compare_tiled(k, p, name):
                  for n in ("tokens", "t_last", "backlog", "corr")))
 
 
-def tiled_bytes(ts, sizes, act, t_arr, dep, fl, u_t=None):
-    state = (ts.props, ts.corr, ts.tokens, ts.t_last, ts.backlog, ts.count)
-    extra = (u_t,) if u_t is not None else ()
-    # every input read once; depart, flags and the state written once
-    return nbytes(*state, sizes, act, t_arr, *extra, dep, fl, *state[1:])
+# words of one edge in the fused kernels' layout: every input of an
+# active edge (props, corr, tokens, t_last, backlog, count, size, t_arr,
+# act) and the state it writes back (corr, tokens, t_last, backlog, count)
+EDGE_IN_WORDS = 13 + 5 + 4 + 3
+EDGE_STATE_WORDS = 5 + 4
+
+
+def tiled_bytes(act, dep, fl, uniforms: bool):
+    """Bytes K2/K3 must move on this data: an active edge's inputs (and
+    K2's uniforms for it) read once and its state written once; an
+    inactive edge reads only its act word (it departs nothing and keeps
+    its state); depart and flags written for every edge and step."""
+    E, n = act.numel(), int((act > 0).sum())
+    steps = dep.shape[0]
+    words = n * (EDGE_IN_WORDS + EDGE_STATE_WORDS) + (E - n)
+    if uniforms:
+        words += n * 5 * steps
+    return 4 * words + nbytes(dep, fl)
+
+
+def tiled_ops(act, per_edge: int, per_step: int, steps: int) -> int:
+    """SASS instructions K2/K3 run for the active edges of `act`."""
+    return int((act > 0).sum()) * (per_edge + per_step * steps)
 
 
 def check_k2(state, dev, timer, gen):
@@ -398,8 +388,8 @@ def check_k2(state, dev, timer, gen):
                                                     0, STEPS, u_t))
     plain_ms = timer.ms(lambda: shaping.shape_steps_plain(
         ts, sizes, act, t_arr, u_t, STEPS), reps=3)
-    moved = tiled_bytes(ts, sizes, act, t_arr, kern[1], kern[2], u_t)
-    b, by = bound_ms(moved, OPS_STEP * E * STEPS)
+    moved = tiled_bytes(act, kern[1], kern[2], uniforms=True)
+    b, by = bound_ms(moved, tiled_ops(act, *OPS_K2, STEPS))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, bytes=moved)
 
@@ -456,13 +446,18 @@ def check_k3(state, dev, timer):
     work = clone_tiled(shaping, ts)
     ms = timer.ms(lambda: shaping.shape_steps_tiled(work, sizes, act, t_arr,
                                                     seed, STEPS))
+    # one step per launch: the per-edge part of the time alone
+    ms_s1 = timer.ms(lambda: shaping.shape_steps_tiled(work, sizes, act,
+                                                       t_arr, seed, 1))
     plain_ms = timer.ms(lambda: shaping.shape_steps_plain(
         ts, sizes, act, t_arr, philox.uniforms(seed, E, STEPS, dev), STEPS),
         reps=3)
-    moved = tiled_bytes(ts, sizes, act, t_arr, k3[1], k3[2])
-    b, by = bound_ms(moved, (OPS_STEP + OPS_PHILOX) * E * STEPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, bytes=moved,
+    moved = tiled_bytes(act, k3[1], k3[2], uniforms=False)
+    ops = tiled_ops(act, *OPS_K3, STEPS)
+    b, by = bound_ms(moved, ops)
+    return dict(max_abs_err=err, ms=ms, ms_one_step=ms_s1,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, bytes=moved,
+                ops=ops, ops_ms=ops / F32_OPS_PER_S * 1e3,
                 delivered_share=counts["delivered"] / offered,
                 loss_share=counts["drop_loss"] / offered,
                 configured_loss_share=expect / offered)
@@ -723,8 +718,8 @@ def run_live_tick(dev, card):
 
 def check_k4(dev, timer):
     """K4 against its plain version (the list rotation into new buffers),
-    bit for bit, on 4 virtual shards; timed against its byte bound and
-    torch.roll over the stacked mailbox."""
+    bit for bit, on 4 virtual shards, one launch per ring step; timed
+    against its byte bound and torch.roll over the stacked mailbox."""
     from kubedtn_tpu_torch.parallel import exchange as pex
     from kubedtn_tpu_torch.parallel.mesh import make_mesh
 
@@ -743,6 +738,11 @@ def check_k4(dev, timer):
         stacked = torch.stack(blocks)
         same(torch.stack(got), torch.roll(stacked, 1, 0),
              f"K4 R={R} vs torch.roll")
+        before = pex.LAUNCHES["ring_step"]
+        pex.ring_right_shift(blocks, mesh)
+        per_step = pex.LAUNCHES["ring_step"] - before
+        check(per_step == len(pex.ring_plan(mesh)) == 1,
+              f"K4 R={R}: {per_step} launches for one ring step on one card")
         moved = 2 * nbytes(*blocks)
         b, by = bound_ms(moved, 0)
         out[R] = dict(
@@ -750,7 +750,8 @@ def check_k4(dev, timer):
             ms=timer.ms(lambda: pex.ring_right_shift(blocks, mesh)),
             plain_ms=timer.ms(lambda: pex.ring_right_shift_plain(blocks)),
             library_ms=timer.ms(lambda: torch.roll(stacked, 1, 0)),
-            bound_ms=b, bound_by=by, bytes=moved, shards=K4_SHARDS)
+            bound_ms=b, bound_by=by, bytes=moved, shards=K4_SHARDS,
+            launches_per_step=per_step)
         log(f"K4 R={R}: {out[R]}")
     return out
 
@@ -760,6 +761,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from kubedtn_tpu_torch import _build, entry
+    from kubedtn_tpu_torch.kernel_bench import Timer, card_line
     from kubedtn_tpu_torch.ops.cuda import shaping
 
     dev = torch.device("cuda")
@@ -794,6 +796,11 @@ def main() -> int:
     results = {"K1": check_k1(state, dev, timer, gen),
                "K2": check_k2(state, dev, timer, gen),
                "K3": check_k3(fresh, dev, timer)}
+    k3 = results["K3"]
+    log(f"K3 {k3['ms'] * 1e3:.2f} us at S = {STEPS}, "
+        f"{k3['ms_one_step'] * 1e3:.2f} us at S = 1; bound "
+        f"{k3['bound_ms'] * 1e3:.2f} us ({k3['bound_by']}; ops "
+        f"{k3['ops_ms'] * 1e3:.2f} us) ({card})")
     entry_delivered = check_entry(dev)
 
     live_m, k4_launches = run_live_tick(dev, card)

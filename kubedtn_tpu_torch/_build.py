@@ -42,12 +42,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "shaping": {
         "kdt_shape_step_rows": [_P] * 18 + [_I, _P],
-        "kdt_shape_steps_cols": [_P] * 17 + [_I, _I, _P],
-        "kdt_shape_steps_cols_philox": [ctypes.c_uint32] + [_P] * 16
+        "kdt_shape_steps_cols": [_P] * 12 + [_I, _I, _P],
+        "kdt_shape_steps_cols_philox": [ctypes.c_uint32] + [_P] * 11
         + [_I, _I, _P],
     },
     "exchange": {
-        "kdt_ring_step": [_P, _P, _I, _P],
+        "kdt_ring_step": [_P, _P, _I, _I, _P],
         "kdt_enable_peer": [_I, _I],
     },
 }

@@ -7,22 +7,45 @@
 // payload: the mailbox is one buffer of 32-bit words per shard, [R, 24] =
 // 21 float words (props, clocks, correlation memory) then 3 int words
 // (owner flag, packet count, active), and the float payload is a view of
-// the same words. One ring step is one launch per shard.
+// the same words.
 //
 // What bounds it on an H100: bytes, 2 * R * 96 B per shard and step (read
 // once, written once), against 3.35 TB/s within one card or 450 GB/s each
-// way over NVLink. At the live tick's R = 4096 that is about 0.2 us, well
-// under a launch's own latency, so a step is launch-bound; the byte regime
-// shows only from R ~ 32768 up. The kernel is a grid-stride copy with
-// 16-byte vector loads and stores where both pointers are 16-byte aligned,
-// and a scalar tail for a word count not divisible by four.
+// way over NVLink: 0.94 us for 4 shards at the live tick's R = 4096,
+// 7.5 us at R = 32768.
+//
+// What held the first design back. It launched once per shard, a
+// grid-stride copy of one uint4 per thread and loop trip, its grid capped
+// at 132 x 8 blocks. One ring step on 4 virtual shards took 15.3 us at
+// R = 4096 against torch.roll's 7.7 us over the same bytes, and 23.6 us
+// at R = 32768 against torch.roll's 20.9 us (kubedtn_tpu_torch/
+// kernel_bench.py; NVIDIA H100 80GB HBM3, 700 W): four launches where
+// torch.roll pays one, and one 16-byte load in flight per thread.
+//
+// The design now:
+//   - ONE launch per card and ring step. The launch takes a RingPlan by
+//     value, the (src, dst) pointers of every shard whose block lies on
+//     the launching card; blockIdx.y picks the shard. On virtual shards
+//     (the same card repeated in the mesh) a ring step is one launch.
+//   - Each thread keeps UNROLL 16-byte loads in flight before it stores
+//     them, and the grid is sized to the bytes: one block per
+//     THREADS * UNROLL * 16 bytes of one shard, no cap.
+//   - A shard whose pointers are not both 16-byte aligned copies scalar
+//     words (UNROLL * 4 per thread, the same grid); an aligned shard copies
+//     its word count's remainder mod 4 as a scalar tail.
+// One ring step on 4 virtual shards now takes 7.1 us at R = 4096 and
+// 13.6-14.4 us at R = 32768, against torch.roll's 7.8 and 21.0 us in the
+// same calls (PERF.md): launch latency still dominates at the live tick's
+// R, and the larger step reaches about half of the byte rate.
 //
 // Cross-device ordering. Where the Pallas kernel waits on a send and a recv
-// DMA semaphore, the port orders with CUDA events, outside the kernel:
+// DMA semaphore, the port orders with CUDA events, outside the kernel
+// (kubedtn_tpu_torch/parallel/exchange.py, once per pair of source card
+// and destination card):
 //   - recv side: the wrapper records an event on the writer's stream after
 //     the launch, and the destination card's stream waits on it before the
 //     select-combine reads the buffer;
-//   - send side: the destination buffer is allocated fresh for every step
+//   - send side: every destination buffer is allocated fresh for the step
 //     on its card (as the JAX ring's `rf = shift(rf)` is a new array). The
 //     allocator orders that block on the destination card's stream, where
 //     work queued earlier may still read or write it, so the writer's
@@ -30,8 +53,7 @@
 //     then marked used by the writer's stream (record_stream), so it is
 //     not reused while the write may still run. Both directions are
 //     ordered, as torch's own cross-device copy orders them, with no
-//     in-kernel flag. An in-kernel flag protocol (st.release.sys /
-//     ld.acquire.sys) is later work.
+//     in-kernel flag.
 // With shards on several cards of one process, `dst` lies on the right
 // neighbour's card and the stores go straight over NVLink once
 // kdt_enable_peer has enabled peer access from the writer's card.
@@ -42,39 +64,82 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 8;  // a few waves over the 132 SMs
+constexpr int UNROLL = 4;                       // 16-byte loads in flight
+constexpr int WORDS_PER_THREAD = 4 * UNROLL;    // 64 bytes
+constexpr int WORDS_PER_BLOCK = THREADS * WORDS_PER_THREAD;
+// Shards of one card per launch: parallel/exchange.py's PLAN_MAX.
+constexpr int MAX_PLAN = 32;
 
-__global__ void ring_step(const uint32_t* __restrict__ src,
-                          uint32_t* __restrict__ dst, long long n_vec,
-                          long long n_words) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (long long j = i; j < n_vec; j += stride) d4[j] = s4[j];
-  for (long long j = 4 * n_vec + i; j < n_words; j += stride) dst[j] = src[j];
+struct RingPlan {
+  const uint32_t* src[MAX_PLAN];
+  uint32_t* dst[MAX_PLAN];
+};
+
+__global__ void __launch_bounds__(THREADS)
+ring_step(RingPlan plan, long long n_words) {
+  const uint32_t* src = plan.src[blockIdx.y];
+  uint32_t* dst = plan.dst[blockIdx.y];
+  const long long base = static_cast<long long>(blockIdx.x) *
+                         WORDS_PER_BLOCK;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15u) == 0;
+  if (aligned) {
+    const long long n_vec = n_words / 4;
+    const long long v0 = base / 4 + threadIdx.x;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    uint4 r[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const long long v = v0 + static_cast<long long>(j) * THREADS;
+      if (v < n_vec) r[j] = s4[v];
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const long long v = v0 + static_cast<long long>(j) * THREADS;
+      if (v < n_vec) d4[v] = r[j];
+    }
+    const long long w = 4 * n_vec + threadIdx.x;  // at most 3 tail words
+    if (blockIdx.x == 0 && w < n_words) dst[w] = src[w];
+  } else {
+    const long long w0 = base + threadIdx.x;
+    uint32_t r[WORDS_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < WORDS_PER_THREAD; ++j) {
+      const long long w = w0 + static_cast<long long>(j) * THREADS;
+      if (w < n_words) r[j] = src[w];
+    }
+#pragma unroll
+    for (int j = 0; j < WORDS_PER_THREAD; ++j) {
+      const long long w = w0 + static_cast<long long>(j) * THREADS;
+      if (w < n_words) dst[w] = r[j];
+    }
+  }
 }
 
 }  // namespace
 
-// dst[0:n_words] = src[0:n_words] (32-bit words) on `stream`. Returns the
-// launch's cudaError_t.
-extern "C" int kdt_ring_step(const void* src, void* dst, int n_words,
-                             void* stream) {
-  if (n_words <= 0) return 0;
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15u) == 0;
+// For s < n_shards: dsts[s][0:n_words] = srcs[s][0:n_words] (32-bit words),
+// every pair in ONE launch on `stream`, n_shards <= MAX_PLAN. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a plan that does not
+// fit).
+extern "C" int kdt_ring_step(const void* const* srcs, void* const* dsts,
+                             int n_shards, int n_words, void* stream) {
+  if (n_shards < 0 || n_shards > MAX_PLAN || n_words < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_shards == 0 || n_words == 0) return 0;
+  RingPlan plan{};
+  for (int s = 0; s < n_shards; ++s) {
+    plan.src[s] = static_cast<const uint32_t*>(srcs[s]);
+    plan.dst[s] = static_cast<uint32_t*>(dsts[s]);
+  }
   const long long n = n_words;
-  const long long n_vec = aligned ? n / 4 : 0;
-  const long long items = n_vec + (n - 4 * n_vec);
-  long long blocks = (items + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  ring_step<<<static_cast<unsigned>(blocks), THREADS, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst), n_vec,
-      n);
+  const dim3 grid(
+      static_cast<unsigned>((n + WORDS_PER_BLOCK - 1) / WORDS_PER_BLOCK),
+      static_cast<unsigned>(n_shards));
+  ring_step<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(plan,
+                                                                      n);
   return static_cast<int>(cudaGetLastError());
 }
 

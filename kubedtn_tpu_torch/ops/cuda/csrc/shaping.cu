@@ -15,16 +15,44 @@
 // layout and are not carried over: one thread owns one edge in a 1-D grid,
 // so neighbouring threads touch neighbouring addresses.
 //
-// What bounds them on an H100: bytes. Per edge and step the arithmetic is
-// some hundred flops on data read once, far under the card's ~20 flops per
-// byte, so each kernel reads every input once and writes every output once
-// and keeps everything else in registers:
-//   K1  ~162 B/edge: reads the 13-float props row, 5 corr, 5 uniforms and
-//       the 1-D state; writes depart, flags and the new state.
-//   K2  the state crosses the S steps in registers; per step only the 5
-//       uniforms are read and depart + flags written.
-//   K3  as K2 with the uniforms drawn in the thread: Philox4x32-10 keyed
-//       (seed, 0), counter (edge, step, j, 0), j = 0, 1 — no uniform bytes.
+// What bounds them on an H100. K1 is bound by bytes: about a hundred
+// operations per edge on ~162 B read and written once, so each kernel
+// reads every input once, writes every output once and keeps everything
+// else in registers. K2 and K3 keep the state in registers across the S
+// steps; per step only depart + flags are written (and K2 reads its 5
+// uniforms). K3 draws its uniforms in the thread: Philox4x32-10 keyed
+// (seed, 0), counter (edge, step, j, 0), j = 0, 1 — no uniform bytes.
+//
+// K2 and K3 are bound by the rate the SMs dispatch instructions at, not
+// by bytes (kubedtn_tpu_torch/kernel_bench.py; NVIDIA H100 80GB HBM3,
+// 700 W). At
+// the main path's E = 2^18, S = 10, the first K3 moved 56.6 MB (16.9 us at
+// 3.35 TB/s) but ran 155 + 244 S SASS instructions on every edge: two
+// Philox calls (~85) and shape_one (~160) per step, 6.8e8 thread
+// instructions, ~20 us at one warp instruction per clock on each of the
+// 528 schedulers at 1.98 GHz. It took T(S) = 17.4 + 2.1 S us (39.0 us at
+// S = 10). Per-block %globaltimer stamps showed its loads were not
+// serialised with the steps: a block had its 25 input words 0.2 us after
+// it started, then computed for 12 us beside three other blocks, and the
+// SMs ended between 28.5 and 33.4 us. So overlapping loads with compute
+// had nothing to hide: a persistent grid staging the next tile in shared
+// memory (4-byte cp.async per thread, 16-byte cp.async per block, or TMA
+// 1-D bulk copies on an mbarrier) measured 42.3-47.3 us, slower than the
+// hardware's own scheduling of blocks over SMs.
+//
+// What K2 and K3 do instead is run fewer instructions, with shape_one,
+// Philox and the counter map unchanged:
+//   - an inactive edge (act <= 0; 24 % of the main path's capacity) is
+//     settled without a step: shape_one masks every outcome with act, so
+//     it departs nothing at any step and keeps its state; it reads no
+//     props, draws nothing and writes no state;
+//   - an active edge calls shape_one with act = true, which the compiler
+//     folds into the masks;
+//   - step s+1's uniforms are drawn (K3) or loaded (K2) before step s's
+//     shape_one, so that their work fills the gaps of its dependent chain.
+// K3 now takes 30.6-30.9 us at S = 10 (226 instructions per active edge
+// and step) and K2 41.4-41.5 us, against 38.9-39.1 and 49.1 us before
+// (PERF.md).
 //
 // K1 reads the drop-in EdgeState layout as it lies ([E, 13] props, [E, 5]
 // corr and uniforms, row-major): a warp's 32 rows are one contiguous
@@ -329,52 +357,68 @@ struct PhiloxUniforms {  // K3: key (seed, 0), counter (e, s, j, 0)
 };
 
 // K2 / K3: S steps with the state in registers, on the column-major tiled
-// state ([NPROP, E] props, [NCORR, E] corr, [E] vectors). sizes, t_arr and
-// act stay fixed across the steps. Outputs may alias inputs (in place).
+// state ([NPROP, E] props, [NCORR, E] corr, [E] vectors), updated in
+// place. sizes, t_arr and act stay fixed across the steps.
+//
+// An inactive edge (act <= 0) is settled without a step: shape_one masks
+// every outcome with act and updates the state only where act, so such an
+// edge departs nothing (+inf, no flags) at every step and keeps its state.
+// It reads no props, draws nothing and writes no state. An active edge
+// runs shape_one with act = true, which the compiler folds into the
+// masks. Either way the results are shape_one's, bit for bit.
 template <class Uniforms>
 __global__ void __launch_bounds__(THREADS)
-shape_steps_cols(Uniforms uni, const float* __restrict__ props,
-                 const float* corr_in, const float* tokens_in,
-                 const float* t_last_in, const float* backlog_in,
-                 const int* count_in, const float* __restrict__ sizes,
+shape_steps_cols(Uniforms uni, const float* __restrict__ props, float* corr,
+                 float* tokens, float* t_last, float* backlog, int* count,
+                 const float* __restrict__ sizes,
                  const float* __restrict__ t_arr,
                  const int* __restrict__ act_in, float* __restrict__ depart,
-                 int* __restrict__ flags, float* tokens_out,
-                 float* t_last_out, float* backlog_out, float* corr_out,
-                 int* count_out, int E, int S) {
+                 int* __restrict__ flags, int E, int S) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
+  if (act_in[e] <= 0) {
+    for (int s = 0; s < S; ++s) {
+      depart[static_cast<size_t>(s) * E + e] = __int_as_float(0x7f800000);
+      flags[static_cast<size_t>(s) * E + e] = 0;
+    }
+    return;
+  }
   float p[NPROP];
 #pragma unroll
   for (int k = 0; k < NPROP; ++k) p[k] = props[static_cast<size_t>(k) * E + e];
   EdgeDyn st;
-  st.tokens = tokens_in[e];
-  st.t_last = t_last_in[e];
-  st.next_free = backlog_in[e];
+  st.tokens = tokens[e];
+  st.t_last = t_last[e];
+  st.next_free = backlog[e];
 #pragma unroll
   for (int k = 0; k < NCORR; ++k)
-    st.c[k] = corr_in[static_cast<size_t>(k) * E + e];
-  st.cnt = count_in[e];
+    st.c[k] = corr[static_cast<size_t>(k) * E + e];
+  st.cnt = count[e];
   const float size = sizes[e];
   const float ta = t_arr[e];
-  const bool act = act_in[e] > 0;
 
+  // step s+1's uniforms do not depend on step s: draw (or load) them
+  // before shape_one, so that their work overlaps its dependent chain
+  float uu[NU];
+  uni.draw(e, 0, E, uu);
   for (int s = 0; s < S; ++s) {
-    float uu[NU];
-    uni.draw(e, s, E, uu);
+    float nxt[NU];
+    if (s + 1 < S) uni.draw(e, s + 1, E, nxt);
     float d;
     int f;
-    shape_one(p, uu, st, size, ta, act, &d, &f);
+    shape_one(p, uu, st, size, ta, true, &d, &f);
     depart[static_cast<size_t>(s) * E + e] = d;
     flags[static_cast<size_t>(s) * E + e] = f;
+#pragma unroll
+    for (int k = 0; k < NU; ++k) uu[k] = nxt[k];
   }
-  tokens_out[e] = st.tokens;
-  t_last_out[e] = st.t_last;
-  backlog_out[e] = st.next_free;
+  tokens[e] = st.tokens;
+  t_last[e] = st.t_last;
+  backlog[e] = st.next_free;
 #pragma unroll
   for (int k = 0; k < NCORR; ++k)
-    corr_out[static_cast<size_t>(k) * E + e] = st.c[k];
-  count_out[e] = st.cnt;
+    corr[static_cast<size_t>(k) * E + e] = st.c[k];
+  count[e] = st.cnt;
 }
 
 inline int blocks_for(int E) { return (E + THREADS - 1) / THREADS; }
@@ -398,32 +442,28 @@ extern "C" int kdt_shape_step_rows(
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 / K3 on `stream`; the state (corr, tokens, t_last, backlog, count)
+// is read and written in place.
 extern "C" int kdt_shape_steps_cols(
-    const float* u, const float* props, const float* corr_in,
-    const float* tokens_in, const float* t_last_in, const float* backlog_in,
-    const int* count_in, const float* sizes, const float* t_arr,
-    const int* act, float* depart, int* flags, float* tokens_out,
-    float* t_last_out, float* backlog_out, float* corr_out, int* count_out,
-    int E, int S, void* stream) {
+    const float* u, const float* props, float* corr, float* tokens,
+    float* t_last, float* backlog, int* count, const float* sizes,
+    const float* t_arr, const int* act, float* depart, int* flags, int E,
+    int S, void* stream) {
   shape_steps_cols<GivenUniforms><<<blocks_for(E), THREADS, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-      GivenUniforms{u}, props, corr_in, tokens_in, t_last_in, backlog_in,
-      count_in, sizes, t_arr, act, depart, flags, tokens_out, t_last_out,
-      backlog_out, corr_out, count_out, E, S);
+      GivenUniforms{u}, props, corr, tokens, t_last, backlog, count, sizes,
+      t_arr, act, depart, flags, E, S);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int kdt_shape_steps_cols_philox(
-    uint32_t seed, const float* props, const float* corr_in,
-    const float* tokens_in, const float* t_last_in, const float* backlog_in,
-    const int* count_in, const float* sizes, const float* t_arr,
-    const int* act, float* depart, int* flags, float* tokens_out,
-    float* t_last_out, float* backlog_out, float* corr_out, int* count_out,
-    int E, int S, void* stream) {
+    uint32_t seed, const float* props, float* corr, float* tokens,
+    float* t_last, float* backlog, int* count, const float* sizes,
+    const float* t_arr, const int* act, float* depart, int* flags, int E,
+    int S, void* stream) {
   shape_steps_cols<PhiloxUniforms><<<blocks_for(E), THREADS, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      PhiloxUniforms{seed}, props, corr_in, tokens_in, t_last_in, backlog_in,
-      count_in, sizes, t_arr, act, depart, flags, tokens_out, t_last_out,
-      backlog_out, corr_out, count_out, E, S);
+      PhiloxUniforms{seed}, props, corr, tokens, t_last, backlog, count,
+      sizes, t_arr, act, depart, flags, E, S);
   return static_cast<int>(cudaGetLastError());
 }

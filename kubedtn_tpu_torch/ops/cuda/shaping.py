@@ -311,9 +311,7 @@ def shape_steps_tiled(tstate: TiledShapeState, sizes_t: torch.Tensor,
                 ts.tokens.data_ptr(), ts.t_last.data_ptr(),
                 ts.backlog.data_ptr(), ts.count.data_ptr(),
                 sizes_t.data_ptr(), t_arr_t.data_ptr(), act_t.data_ptr(),
-                depart.data_ptr(), flags.data_ptr(), ts.tokens.data_ptr(),
-                ts.t_last.data_ptr(), ts.backlog.data_ptr(),
-                ts.corr.data_ptr(), ts.count.data_ptr(), E, steps,
+                depart.data_ptr(), flags.data_ptr(), E, steps,
                 _stream(dev))
         if u_t is not None:
             name = "shape_steps_cols"

@@ -18,13 +18,17 @@ shards as a bounded per-tick MAILBOX:
 One ring step is kernel K4 (`ring_right_shift`, csrc/exchange.cu), the
 counterpart of the Pallas remote-DMA kernel `_right_permute_kernel`. The
 two payloads travel as ONE buffer of 32-bit words per shard,
-`[R, Wf + Wi]`, the float payload a view of the same words, so a step is
-one launch per shard. For CPU tensors the wrapper runs the plain
+`[R, Wf + Wi]`, the float payload a view of the same words, and a step
+is one launch per card (`ring_plan`): all the shards whose blocks lie on
+one card copy in one kernel. For CPU tensors the wrapper runs the plain
 version, the list rotation; for CUDA tensors it launches the kernel or
 raises. `LAUNCHES["ring_step"]` counts launches (plain runs do not).
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -36,6 +40,10 @@ OWNER_COL = 0
 
 # Kernel launches since the last reset_launches().
 LAUNCHES = {"ring_step": 0}
+
+# Most shards of one card that one K4 launch takes (MAX_PLAN in
+# csrc/exchange.cu); a card with more makes several launches per step.
+PLAN_MAX = 32
 
 # (card, peer) pairs with peer access enabled in this process
 _PEERS: set = set()
@@ -80,51 +88,99 @@ def _check_blocks(blocks: list, mesh) -> None:
             raise ValueError(f"block {s} must be contiguous")
 
 
+@dataclasses.dataclass(frozen=True)
+class RingLaunch:
+    """One K4 launch of a ring step, on `device`'s current stream: each
+    shard s of `shards` (all lying on `device`) copies its block into a
+    fresh buffer of shard (s + 1) mod S. `peers` are the other cards
+    those buffers lie on, in order of first use: the launch's stream
+    waits on each one's current stream before the launch, and each one's
+    current stream waits on an event recorded after it."""
+
+    device: torch.device
+    shards: tuple
+    peers: tuple
+
+
+def ring_plan(mesh) -> tuple:
+    """The launches of one ring step over `mesh`, a pure function of it:
+    the shards grouped by the card their block lies on, cards in order of
+    first appearance, at most PLAN_MAX shards per launch. Virtual shards
+    of one card make one launch with no peers."""
+    mesh = tuple(mesh)
+    S = len(mesh)
+    by_card: dict = {}
+    for s, dev in enumerate(mesh):
+        by_card.setdefault(dev, []).append(s)
+    plan = []
+    for dev, shards in by_card.items():
+        for i in range(0, len(shards), PLAN_MAX):
+            chunk = tuple(shards[i:i + PLAN_MAX])
+            peers = tuple(dict.fromkeys(
+                mesh[(s + 1) % S] for s in chunk
+                if mesh[(s + 1) % S] != dev))
+            plan.append(RingLaunch(dev, chunk, peers))
+    return tuple(plan)
+
+
 def ring_right_shift(blocks: list, mesh) -> list:
     """One mailbox ring step, K4: returns the list whose block s+1 mod S
     is a copy of blocks[s]; blocks[s] lies on mesh[s] and so does the
     result's block s. CPU blocks take the plain rotation.
 
-    On the card, block s is copied by a launch on mesh[s]'s current
-    stream into a buffer allocated fresh on mesh[s+1]. Where the two
-    differ, the copy stores over NVLink (peer access enabled once per
-    pair) and is ordered both ways, as torch's own cross-device copy is:
-    the writer's stream first waits on the receiving card's current
-    stream, since the allocator may hand back a block that work queued
-    there still reads or writes; the buffer is then marked used by the
-    writer's stream, and the receiving card's stream waits on an event
-    recorded after the launch."""
+    On the card every destination buffer is first allocated fresh on its
+    card; then each launch of `ring_plan(mesh)` copies all the blocks of
+    one card in one kernel on that card's current stream. Where a
+    destination lies on another card, the copy stores over NVLink (peer
+    access enabled once per pair) and is ordered both ways, as torch's
+    own cross-device copy is, once per pair of cards: the writer's stream
+    first waits on the receiving card's current stream, since the
+    allocator may hand back a block that work queued there still reads
+    or writes; the buffers are then marked used by the writer's stream,
+    and the receiving card's stream waits on an event recorded after the
+    launch."""
     if all(b.device.type == "cpu" for b in blocks):
         return ring_right_shift_plain(blocks)
     mesh = tuple(mesh)
     _check_blocks(blocks, mesh)
     S = len(blocks)
+    n = blocks[0].numel()
+    if n > 2 ** 31 - 1:
+        raise ValueError(f"{n} words per block: K4 takes at most 2^31 - 1")
+    plan = ring_plan(mesh)
+    for launch in plan:
+        for peer in launch.peers:
+            _enable_peer(launch.device, peer)
+    out = [torch.empty_like(blocks[s - 1], device=mesh[s]) for s in range(S)]
+    # every wait before any launch, so that no card's launch waits on
+    # another card's copy
+    for launch in plan:
+        with torch.cuda.device(launch.device):
+            stream = torch.cuda.current_stream(launch.device)
+            for peer in launch.peers:
+                stream.wait_stream(torch.cuda.current_stream(peer))
     lib = _build.library("exchange")
-    out = [None] * S
-    for s, src in enumerate(blocks):
-        d = (s + 1) % S
-        sdev, ddev = mesh[s], mesh[d]
-        cross = sdev != ddev
-        if cross:
-            _enable_peer(sdev, ddev)
-        with torch.cuda.device(sdev):
-            stream = torch.cuda.current_stream(sdev)
-            dst = torch.empty_like(src, device=ddev)
-            if cross:
-                stream.wait_stream(torch.cuda.current_stream(ddev))
-            n = src.numel()
+    for launch in plan:
+        with torch.cuda.device(launch.device):
+            stream = torch.cuda.current_stream(launch.device)
             if n:
-                _build.check(lib.kdt_ring_step(src.data_ptr(),
-                                               dst.data_ptr(), n,
+                k = len(launch.shards)
+                srcs = (ctypes.c_void_p * k)(
+                    *(blocks[s].data_ptr() for s in launch.shards))
+                dsts = (ctypes.c_void_p * k)(
+                    *(out[(s + 1) % S].data_ptr() for s in launch.shards))
+                _build.check(lib.kdt_ring_step(srcs, dsts, k, n,
                                                stream.cuda_stream),
                              "ring_step")
                 LAUNCHES["ring_step"] += 1
-            if cross:
-                dst.record_stream(stream)
+            for s in launch.shards:
+                d = (s + 1) % S
+                if mesh[d] != launch.device:
+                    out[d].record_stream(stream)
+            for peer in launch.peers:
                 done = torch.cuda.Event()
                 done.record(stream)
-                torch.cuda.current_stream(ddev).wait_event(done)
-        out[d] = dst
+                torch.cuda.current_stream(peer).wait_event(done)
     return out
 
 

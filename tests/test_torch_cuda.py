@@ -107,7 +107,7 @@ def test_k1_donate_writes_in_place(dev):
     assert_bitwise(got.corr, want.corr, "corr")
 
 
-@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("S", [1, 4, 10])
 def test_k2_equals_plain(dev, S):
     E = 3000
     ts = shaping.tile_state(random_state(E, 4, dev))
@@ -126,24 +126,40 @@ def test_k2_equals_plain(dev, S):
         assert_bitwise(getattr(kern[0], name), getattr(plain[0], name), name)
 
 
-def test_k3_equals_k2_on_philox_draws(dev):
-    E, S, seed = 5000, 3, 99
+# E = 2^18 + 37 is 1,025 blocks of 256 edges: more than one wave over
+# the card's SMs, not a multiple of it, with a ragged last block. `have`
+# leaves about a fifth of the edges inactive, settled without a step.
+@pytest.mark.parametrize("E,S", [(5000, 3), (1, 1), (1, 10), (1000, 1),
+                                 (1000, 10), ((1 << 18) + 37, 1),
+                                 ((1 << 18) + 37, 10)])
+def test_k3_equals_k2_on_philox_draws(dev, E, S):
+    """K3 against K2 fed the materialised draws, bit for bit, both
+    against the plain version, each updating its state in place."""
+    seed = 99
     ts = shaping.tile_state(random_state(E, 6, dev))
-    sizes, _, t_arr, _ = inputs(E, 6, dev)
-    act = torch.ones(E, dtype=torch.int32, device=dev)
+    sizes, have, t_arr, _ = inputs(E, 6, dev)
+    act = have.to(torch.int32)
 
     def fresh():
         return shaping.TiledShapeState(**{k: v.clone() for k, v in
                                           vars(ts).items()})
 
-    k3 = shaping.shape_steps_tiled(fresh(), sizes, act, t_arr, seed, S)
-    k2 = shaping.shape_steps_tiled(fresh(), sizes, act, t_arr, seed, S,
-                                   philox.uniforms(seed, E, S, dev))
+    draws = philox.uniforms(seed, E, S, dev)
+    plain = shaping.shape_steps_plain(ts, sizes, act, t_arr, draws, S)
+    mine3, mine2 = fresh(), fresh()
+    k3 = shaping.shape_steps_tiled(mine3, sizes, act, t_arr, seed, S)
+    k2 = shaping.shape_steps_tiled(mine2, sizes, act, t_arr, seed, S, draws)
     torch.cuda.synchronize()
     for i in (1, 2):
         assert_bitwise(k3[i], k2[i], f"output {i}")
+        assert_bitwise(k3[i], plain[i], f"output {i} vs plain")
     for name in ("tokens", "t_last", "backlog", "corr", "count"):
         assert_bitwise(getattr(k3[0], name), getattr(k2[0], name), name)
+        assert_bitwise(getattr(k3[0], name), getattr(plain[0], name),
+                       f"{name} vs plain")
+        for mine, out in ((mine3, k3[0]), (mine2, k2[0])):
+            assert getattr(out, name).data_ptr() == \
+                getattr(mine, name).data_ptr(), f"{name} not in place"
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -168,7 +184,7 @@ def _blocks(S, shape, dev, dtype=torch.int32, seed=0):
             for _ in range(S)]
 
 
-@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("S", [2, 4, 8])
 @pytest.mark.parametrize("R", [1, 8, 4096])
 def test_k4_equals_plain_rotation(dev, S, R):
     from kubedtn_tpu_torch.parallel import exchange as pex
@@ -180,24 +196,31 @@ def test_k4_equals_plain_rotation(dev, S, R):
     got = pex.ring_right_shift(blocks, mesh)
     want = pex.ring_right_shift_plain(blocks)
     torch.cuda.synchronize()
-    assert pex.LAUNCHES["ring_step"] == before + S
+    assert pex.LAUNCHES["ring_step"] == before + 1  # one per card
     for s in range(S):
         assert torch.equal(got[s], want[s])
         assert got[s].data_ptr() != blocks[s - 1].data_ptr()
 
 
-@pytest.mark.parametrize("n_words,offset", [(15, 0), (4097, 0), (4096, 1)])
-def test_k4_ragged_and_unaligned(dev, n_words, offset):
+@pytest.mark.parametrize("n_words,offsets", [
+    (15, (0, 0)), (4097, (0, 0)), (4096, (1, 1)),
+    (3, (0, 1, 0)), (4097, (1, 0, 2, 3)), (98_307, (0, 0, 0, 0, 1, 0, 0, 0))])
+def test_k4_ragged_and_unaligned(dev, n_words, offsets):
     """A word count not divisible by 4 takes the scalar tail; a block that
-    starts 4 bytes into its buffer takes the scalar path throughout."""
+    starts 4, 8 or 12 bytes into its buffer takes the scalar path
+    throughout. Shards of one launch may differ in alignment; a ring
+    step on one card is still one launch."""
     from kubedtn_tpu_torch.parallel import exchange as pex
     from kubedtn_tpu_torch.parallel.mesh import make_mesh
 
-    bufs = _blocks(2, (n_words + offset,), dev, torch.float32, seed=n_words)
-    blocks = [b[offset:] for b in bufs]
-    got = pex.ring_right_shift(blocks, make_mesh([dev] * 2))
+    S = len(offsets)
+    bufs = _blocks(S, (n_words + 3,), dev, torch.float32, seed=n_words)
+    blocks = [b[o:o + n_words] for b, o in zip(bufs, offsets)]
+    before = pex.LAUNCHES["ring_step"]
+    got = pex.ring_right_shift(blocks, make_mesh([dev] * S))
     torch.cuda.synchronize()
-    for s in range(2):
+    assert pex.LAUNCHES["ring_step"] == before + 1
+    for s in range(S):
         assert torch.equal(got[s].view(torch.int32),
                            blocks[s - 1].view(torch.int32))
 
@@ -331,7 +354,9 @@ def test_sharded_live_tick_equals_unsharded_on_the_card(dev, S, request):
     before = pex.LAUNCHES["ring_step"]
     got = sharded()
     torch.cuda.synchronize()
-    assert pex.LAUNCHES["ring_step"] == before + 3 * 3 * (S - 1) * S
+    # 3 ticks x 3 classes x (S - 1) ring steps, one launch per card each
+    assert pex.LAUNCHES["ring_step"] == \
+        before + 3 * 3 * (S - 1) * len(pex.ring_plan(mesh))
 
     def cmp(a, b):
         if isinstance(a, dict):
