@@ -7,8 +7,10 @@ Drives kubedtn_tpu_torch's main path at the BASELINE size — the
 batched UpdateLinks and shaped through netem -> TBF by the drop-in step
 (kernel K1) and the fused steady-state steps (kernels K2 and K3) — then
 the live tick's device program on the same Clos, unsharded and sharded
-(its mailbox ring steps are kernel K4), and holds every kernel against
-its plain torch version on the card at those shapes and times both.
+(its mailbox ring steps are kernel K4), then the K-slot simulator and
+the routed fabric (each shaping slot one launch of K1), and holds every
+kernel against its plain torch version on the card at those shapes and
+times both.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi) and the kernels' build (set-up time);
@@ -31,7 +33,26 @@ Phases, each fatal on failure:
      says so when there are not);
   9. K4 alone against its plain version, bit for bit, at R = 4,096 and
      32,768, one launch per ring step on the card, timed against its byte
-     bound and torch.roll.
+     bound and torch.roll;
+ 10. the K-slot simulator (sim.run) on the churned Clos, CBR on all
+     200,000 rows, 4 slots and a 128-slot delay line per edge, 200 steps
+     of 1 ms, the launch counts set to 0 just before: K1 launched once
+     per slot and step; per edge the books close exactly (offered +
+     duplicates == delivered + lost + queue-dropped + ring-dropped + in
+     flight); the same run over the plain step is bit for bit the same
+     state; 20 steps equal the port's CPU run on the same draws; every
+     drop class is raised; wall and device time per step, K1's share;
+ 11. the routed fabric: recompute_routes and its ECMP form equal the
+     port's CPU result bit for bit, every next hop realises its
+     distance, leaves reach leaves; an event on the 10 links that carry
+     the most routes (down, then up again) through
+     update_routes_incremental equals a full recompute and restores the
+     first distances; run_routed for 50 steps (each
+     leaf's uplink rows bound for another leaf), the launch counts set
+     to 0 just before: K1 once per slot and step, the per-edge books and
+     the fabric's transit balance close, no packet without a route, a
+     rerun gives the same bits, and so does the same run over the plain
+     step (K1 on 12 slots a step, pending lanes included).
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -41,6 +62,7 @@ package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -87,6 +109,28 @@ K4_REPLACES = "kubedtn_tpu/parallel/exchange.py:70"
 K4_SHARDS = 4
 K4_ROWS = (4096, 32768)     # the live tick's R, and the byte regime
 MAIL_WORDS = 24             # 21 float + 3 int payload words per row
+
+# The K-slot simulator and the routed fabric on the churned Clos. The
+# churn's link rates start at 20 Mbit/s, so 36 Mbit/s of 1,500-byte
+# packets (three per edge and 1 ms step) is what overflows the slowest
+# links' TBF queues, and with latencies up to 100 ms the 128-slot delay
+# lines too: every drop class is raised inside SIM_STEPS.
+SIM_RATE_BPS = 36e6
+SIM_PKTS_PER_STEP = 3
+SIM_K = 4                   # k_slots
+SIM_Q = 128                 # delay-line slots per edge
+SIM_DT_US = 1000.0
+SIM_STEPS = 200
+SIM_CPU_STEPS = 20          # steps repeated on the CPU on the same draws
+SIM_TIMED_STEPS = 20
+ROUTE_HOPS = 4              # max_hops of the full recompute
+ROUTE_K_PATHS = 4
+EVENT_LINKS = 10
+ROUTED_RATE_BPS = 12e6      # one packet per sourcing row and step
+ROUTED_K_FWD = 8
+ROUTED_STEPS = 50
+ROUTED_ECMP_STEPS = 10
+ROUTED_TIMED_STEPS = 5
 
 
 def fail(msg: str):
@@ -148,7 +192,10 @@ def section(run, n: int, prof: dict, name: str) -> float:
                   "device_us_per_call": per_call,
                   "busy_share": per_call / (wall * 1e6),
                   "top_device_us_per_call": [[k[:48], v]
-                                             for k, v in by_op[:6]]}
+                                             for k, v in by_op[:6]],
+                  "own_kernels_us_per_call": {
+                      k[:48]: v for k, v in by_op
+                      if "shape_step" in k or "ring_step" in k}}
     return wall
 
 
@@ -228,7 +275,7 @@ def run_main_path(el, state, dev):
               f"update_links: end {k} counters/corr not reset")
 
     # fresh qdiscs after UpdateLinks: full buckets, empty queues
-    fresh = es.EdgeState(**{k: v.clone() for k, v in vars(state).items()})
+    fresh = clone_state(state)
 
     E = state.capacity
     n_act = int(state.num_active)
@@ -483,9 +530,11 @@ def check_entry(dev):
 # -- the live tick ------------------------------------------------------------
 
 def same(a, b, name: str) -> None:
-    """Nested tuples / lists / dicts of tensors (or plain values), bit for
-    bit; a tensor pair may lie on two devices."""
-    if isinstance(a, dict):
+    """Nested tuples / lists / dicts / dataclasses of tensors (or plain
+    values), bit for bit; a tensor pair may lie on two devices."""
+    if dataclasses.is_dataclass(a):
+        same(vars(a), vars(b), name)
+    elif isinstance(a, dict):
         check(a.keys() == b.keys(), f"{name}: keys differ")
         for k in a:
             same(a[k], b[k], f"{name}.{k}")
@@ -756,6 +805,293 @@ def check_k4(dev, timer):
     return out
 
 
+# -- the K-slot simulator and the routed fabric ------------------------------
+
+def clone_state(state):
+    """A copy of an EdgeState for an in-place batch op to change."""
+    return type(state)(**{k: v.clone() for k, v in vars(state).items()})
+
+
+def close_trees(card, cpu, name: str) -> float:
+    """Nested dataclasses of tensors, card against CPU: counters, masks
+    and integers exactly; float state within STATE_TOL, delivery times
+    within DEPART_TOL. Returns the largest absolute error."""
+    worst = 0.0
+    for k, a in vars(card).items():
+        b, label = getattr(cpu, k), f"{name}.{k}"
+        if dataclasses.is_dataclass(a):
+            worst = max(worst, close_trees(a, b, label))
+        elif a.dtype != torch.float32 or ".counters" in label:
+            check(torch.equal(a.cpu(), b), f"{label}: card and CPU differ")
+        else:
+            tol = DEPART_TOL if label.endswith("inflight.t") else STATE_TOL
+            worst = max(worst, max_err(a.cpu(), b, tol, label))
+    return worst
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of fn(), each ended by a device sync."""
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def k1_share(p: dict) -> float:
+    """Kernel K1's share of a profiled section's device time."""
+    k1 = sum(v for k, v in p["own_kernels_us_per_call"].items()
+             if "shape_step_rows" in k)
+    return k1 / p["device_us_per_call"]
+
+
+def run_sim_phase(el, fresh, dev, card):
+    """Phase 10: the K-slot simulator on the churned Clos. Returns
+    (metrics, K1 launches of the path)."""
+    from kubedtn_tpu_torch import convert, entry, sim
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    m = {}
+    n_rows = 2 * el.n_links
+    sim0, spec = entry.build_sim(el, fresh, SIM_RATE_BPS, 1500.0, q=SIM_Q)
+    shaping.reset_launches()
+    t0 = time.perf_counter()
+    out = sim.run(sim0, spec, SIM_STEPS, SIM_DT_US, SIM_K, seed=21)
+    torch.cuda.synchronize()
+    m["first_run_s"] = time.perf_counter() - t0
+    launches = shaping.LAUNCHES["shape_step_rows"]
+    check(launches == SIM_STEPS * SIM_K,
+          f"sim path: {launches} K1 launches for {SIM_STEPS} steps of "
+          f"{SIM_K} slots")
+    # (a) the books close, per edge
+    check(not bool(sim.conservation_residual(out).any()),
+          "sim: tx + duplicated != rx + drops + in flight on some edge")
+    # (b) K1 per slot against the plain step, through the whole run
+    plain = sim.run(sim0, spec, SIM_STEPS, SIM_DT_US, SIM_K, seed=21,
+                    shape_fn=queues.shape_packets_plain)
+    check(shaping.LAUNCHES["shape_step_rows"] == launches,
+          "the plain path launched K1")
+    same(out, plain, "sim: K1 path vs plain path")
+    log(f"sim: {SIM_STEPS} steps x {SIM_K} slots through K1 == the plain "
+        f"path, bit for bit (E {fresh.capacity}, Q {SIM_Q}, "
+        f"{launches} launches)")
+    # (e) every outcome the configuration can raise was raised
+    c = out.counters
+    totals = {n: float(getattr(c, n).double().sum())
+              for n in queues.COUNTER_NAMES}
+    m["totals"] = totals
+    for name in ("rx_packets", "dropped_loss", "dropped_queue",
+                 "dropped_ring"):
+        check(totals[name] > 0, f"sim: {name} stayed 0")
+    check(totals["tx_packets"] == SIM_STEPS * n_rows * SIM_PKTS_PER_STEP,
+          f"sim: offered {totals['tx_packets']} packets")
+    # (c) the card against the port on the CPU, same draws
+    gen = torch.Generator(device=dev).manual_seed(22)
+    dt = sim.as_dt(SIM_DT_US, dev)
+    draws = [sim.StepDraws(
+        traffic=traffic.draw(spec, dt, SIM_K, gen),
+        shape_u=queues.draw_shape_uniforms(fresh, SIM_K, gen))
+        for _ in range(SIM_CPU_STEPS)]
+    on_card = sim.run(sim0, spec, SIM_CPU_STEPS, SIM_DT_US, SIM_K,
+                      draws=draws)
+    t0 = time.perf_counter()
+    on_cpu = sim.run(convert.tree_to(sim0, "cpu"),
+                     convert.tree_to(spec, "cpu"), SIM_CPU_STEPS, SIM_DT_US,
+                     SIM_K, draws=[convert.tree_to(d, "cpu") for d in draws])
+    m["cpu_steps_s"] = time.perf_counter() - t0
+    m["card_vs_cpu_max_abs_err"] = close_trees(on_card, on_cpu, "sim")
+    log(f"sim: {SIM_CPU_STEPS} steps on the card == the CPU run on the "
+        f"same draws (counters and masks exactly, floats within "
+        f"{m['card_vs_cpu_max_abs_err']:.3g})")
+
+    # steady state: from the run's end, rings filled
+    def steps(n):
+        sim.run(out, spec, n, SIM_DT_US, SIM_K, seed=23)
+
+    prof = m["profile"] = {}
+    wall = section(steps, SIM_TIMED_STEPS, prof, "sim_step")  # s per step
+    p = prof["sim_step"]
+    m.update(wall_ms_per_step=wall * 1e3, steps_per_s=1 / wall,
+             packets_per_s=n_rows * SIM_PKTS_PER_STEP / wall,
+             k1_share_of_device_time=k1_share(p))
+    log(f"sim step: wall {m['wall_ms_per_step']:.3f} ms, device "
+        f"{p['device_us_per_call'] / 1e3:.3f} ms per profiled step, busy "
+        f"share {p['busy_share']:.3f}, K1 {100 * k1_share(p):.2f} % of "
+        f"device time; {m['steps_per_s']:.1f} steps/s, "
+        f"{m['packets_per_s']:.4g} offered packets/s ({card})")
+    log(f"sim step top device ops: {p['top_device_us_per_call']}")
+    return m, launches
+
+
+def realises(state, dist, nh, name: str) -> None:
+    """Every next hop realises its distance exactly, and there is one
+    exactly where a path exists: dist[u, j] == w[nh] + dist[dst[nh], j]."""
+    from kubedtn_tpu_torch.ops import routing
+
+    w, dst = routing.edge_weights_latency(state), state.dst.long()
+    ii, jj = torch.nonzero(nh >= 0, as_tuple=True)
+    e = nh[ii, jj].long()
+    check(torch.equal(w[e] + dist[dst[e], jj], dist[ii, jj]),
+          f"{name}: a next hop does not realise its distance")
+    check(torch.equal(nh >= 0, torch.isfinite(dist) & (dist > 0)),
+          f"{name}: next hops and reachable pairs differ")
+
+
+def run_routed_phase(el, fresh, dev, card):
+    """Phase 11: routes, a link event and the routed fabric on the
+    churned Clos. Returns (metrics, K1 launches of the path)."""
+    from kubedtn_tpu_torch import convert, entry, router, sim
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import queues, routing
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    m = {}
+    n = el.n_nodes
+    leaves = np.arange(entry.N_SPINE, n)
+    build = dict(seed=31, rate_bps=ROUTED_RATE_BPS, q=SIM_Q,
+                 k_fwd=ROUTED_K_FWD, max_hops=ROUTE_HOPS)
+    rs, spec, flow_dst, dist4 = entry.build_routed(el, fresh, leaves,
+                                                   **build)
+    rs_e, _, _, dist_e = entry.build_routed(el, fresh, leaves,
+                                            k_paths=ROUTE_K_PATHS, **build)
+    nh4, nh_e = rs.next_edge, rs_e.next_edge
+    m["recompute_ms"] = host_ms(lambda: routing.recompute_routes(
+        fresh, n, ROUTE_HOPS))
+    m["recompute_ecmp_ms"] = host_ms(lambda: routing.recompute_routes_ecmp(
+        fresh, n, ROUTE_K_PATHS, ROUTE_HOPS), reps=2)
+    # the card against the port on the CPU, bit for bit
+    cpu = convert.tree_to(fresh, "cpu")
+    t0 = time.perf_counter()
+    c_dist, c_nh = routing.recompute_routes(cpu, n, ROUTE_HOPS)
+    _, c_nh_e = routing.recompute_routes_ecmp(cpu, n, ROUTE_K_PATHS,
+                                              ROUTE_HOPS)
+    m["cpu_recompute_s"] = time.perf_counter() - t0
+    same([dist4, nh4, dist_e, nh_e], [c_dist, c_nh, c_dist, c_nh_e],
+         "routes: card vs CPU")
+    same(nh_e[:, :, 0], nh4, "ECMP's first pick vs the single path")
+    leaf_block = dist4[entry.N_SPINE:, entry.N_SPINE:]
+    check(bool(torch.isfinite(leaf_block).all()),
+          "routes: a leaf cannot reach a leaf")
+    # the hop bound cuts paths; the event below needs converged routes
+    dist = routing.refine_dist(fresh, n, dist4, 64)
+    nh = routing.next_hop_edges(fresh, dist, n)
+    m["pairs_shorter_beyond_the_hop_bound"] = int((dist < dist4).sum())
+    realises(fresh, dist, nh, "routes")
+    log(f"routes: card == CPU bit for bit (dist, nh, ECMP k = "
+        f"{ROUTE_K_PATHS}); every next hop realises its distance; "
+        f"recompute {m['recompute_ms']:.2f} ms, ECMP "
+        f"{m['recompute_ecmp_ms']:.2f} ms ({card})")
+
+    # a 10-link event, both directions down, then up again
+    # a random link of this Clos carries no shortest path (routes crowd
+    # onto the few fastest uplinks): take the links that carry the most
+    L = el.n_links
+    used = torch.bincount(nh[nh >= 0].long() % L, minlength=L)
+    top = torch.topk(used, EVENT_LINKS)
+    links = top.indices.cpu().numpy()
+    m["event_links_pairs_routed_over"] = top.values.tolist()
+    both = np.concatenate([links, links + L])
+    rows = torch.as_tensor(both, device=dev)
+    w = routing.edge_weights_latency(fresh)[rows].cpu().numpy()
+    s_k, d_k = fresh.src[rows].cpu().numpy(), fresh.dst[rows].cpu().numpy()
+    inf = np.full(len(both), np.inf, np.float32)
+    ones = np.ones(len(both), dtype=bool)
+    down = es.delete_links(clone_state(fresh), both, ones)
+    unknown = torch.full((n, n), torch.inf, device=dev)
+
+    def event(state, dist, nh, w_old, w_new, name):
+        t0 = time.perf_counter()
+        d2, n2, cells = routing.update_routes_incremental(
+            state, n, dist, nh, s_k, d_k, w_old, w_new)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        full = routing.refine_dist(state, n, unknown, 64)
+        same(d2, full, f"{name}: incremental vs full recompute")
+        realises(state, d2, n2, name)
+        check(cells > 0, f"{name}: the event re-derived nothing")
+        m[name] = {"ms": ms, "cells": cells}
+        return d2, n2
+
+    d_down, n_down = event(down, dist, nh, w, inf, "event_down")
+    up = es.apply_links(clone_state(down), both, fresh.uid[rows],
+                        fresh.src[rows], fresh.dst[rows], fresh.props[rows],
+                        ones)
+    d_up, _ = event(up, d_down, n_down, inf, w, "event_up")
+    same(d_up, dist, "links up again: the first distances")
+    log(f"link event ({EVENT_LINKS} links, both directions): incremental "
+        f"== full recompute; down {m['event_down']}, up {m['event_up']} "
+        f"of {n * n} cells ({card})")
+
+    # the routed fabric: leaf -> spine rows bound for another leaf
+    k_shape = SIM_K + ROUTED_K_FWD
+
+    def run(rs, steps, seed=33, shape_fn=queues.shape_packets):
+        return router.run_routed(rs, spec, flow_dst, steps, SIM_DT_US,
+                                 SIM_K, ROUTED_K_FWD, seed=seed,
+                                 shape_fn=shape_fn)
+
+    shaping.reset_launches()
+    out = run(rs, ROUTED_STEPS)
+    launches = shaping.LAUNCHES["shape_step_rows"]
+    check(launches == ROUTED_STEPS * k_shape,
+          f"routed path: {launches} K1 launches for {ROUTED_STEPS} steps "
+          f"of {k_shape} slots")
+    same(run(rs, ROUTED_STEPS), out, "routed run vs its rerun")
+    # K1 per slot (pending lanes arrive at 0, the state carried through
+    # 12 launches a step) against the plain step, through the whole run
+    plain = run(rs, ROUTED_STEPS, shape_fn=queues.shape_packets_plain)
+    check(shaping.LAUNCHES["shape_step_rows"] == 2 * launches,
+          "the plain routed path launched K1")
+    same(plain, out, "routed: K1 path vs plain path")
+    for name, o, steps in (("single path", out, ROUTED_STEPS),
+                           ("ECMP", run(rs_e, ROUTED_ECMP_STEPS),
+                            ROUTED_ECMP_STEPS)):
+        check(not bool(sim.conservation_residual(o.sim).any()),
+              f"routed {name}: an edge's books do not close")
+        c = o.sim.counters
+        sourced = steps * int((spec.mode == 1).sum())
+        reinjected = float(c.tx_packets.double().sum()) - sourced
+        balance = (float(o.node_rx_packets.double().sum()) + reinjected
+                   + int((o.pend_dst >= 0).sum()) + float(o.fwd_dropped)
+                   + float(o.no_route_dropped))
+        check(float(c.rx_packets.double().sum()) == balance,
+              f"routed {name}: transit packets are unaccounted for")
+        check(float(o.no_route_dropped) == 0,
+              f"routed {name}: packets found no route")
+        check(reinjected > 0, f"routed {name}: nothing was forwarded")
+    check(float(out.node_rx_packets.sum()) > 0,
+          "routed: nothing reached its destination")
+    check(not bool(out.node_rx_packets[:entry.N_SPINE].any()),
+          "routed: a spine took delivery")
+    m.update(node_rx_packets=float(out.node_rx_packets.sum()),
+             fwd_dropped=float(out.fwd_dropped),
+             forwarded=float(out.sim.counters.tx_packets.double().sum())
+             - ROUTED_STEPS * int((spec.mode == 1).sum()))
+    log(f"routed: {ROUTED_STEPS} steps x {k_shape} slots through K1 == "
+        f"the plain path == the rerun, bit for bit; "
+        f"{m['node_rx_packets']:.0f} packets delivered to their leaves, "
+        f"{m['forwarded']:.0f} forwarded, {m['fwd_dropped']:.0f} "
+        f"lost to forwarding overflow, 0 without a route")
+
+    prof = m["profile"] = {}
+    wall = section(lambda k: run(out, k, seed=34), ROUTED_TIMED_STEPS, prof,
+                   "routed_step")
+    p = prof["routed_step"]
+    m.update(wall_ms_per_step=wall * 1e3,
+             k1_share_of_device_time=k1_share(p))
+    log(f"routed step: wall {m['wall_ms_per_step']:.3f} ms, device "
+        f"{p['device_us_per_call'] / 1e3:.3f} ms per profiled step, busy "
+        f"share {p['busy_share']:.3f}, K1 {100 * k1_share(p):.2f} % of "
+        f"device time ({card})")
+    log(f"routed step top device ops: {p['top_device_us_per_call']}")
+    return m, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -805,6 +1141,11 @@ def main() -> int:
 
     live_m, k4_launches = run_live_tick(dev, card)
     k4 = check_k4(dev, timer)
+    sim_m, sim_launches = run_sim_phase(el, fresh, dev, card)
+    routed_m, routed_launches = run_routed_phase(el, fresh, dev, card)
+    k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
+                "routed": routed_launches}
+    log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
             "K3": ("shape_steps_cols_philox", 277)}
@@ -817,6 +1158,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    # K1 carries three paths, each counted from 0: their sum, and each
+    kernels[0].update(launches=sum(k1_paths.values()),
+                      launches_by_path=k1_paths)
     r = k4[K4_ROWS[0]]   # the live tick's mailbox shape
     kernels.append({
         "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
@@ -827,6 +1171,7 @@ def main() -> int:
     results["K4"] = k4
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
               "entry_delivered": entry_delivered, "live_tick": live_m,
+              "sim": sim_m, "routed": routed_m,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

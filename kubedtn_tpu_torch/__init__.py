@@ -10,6 +10,12 @@ kubedtn_tpu's, so each counterpart sits at the same place:
     ops/edge_state   EdgeState + batched apply/update/delete links
     ops/netem        netem + TBF shaping as plain tensor code
     ops/cuda/        hand-written Hopper kernels (ops/pallas's counterpart)
+    ops/queues       K shaping slots per step + the in-flight delay line
+    models/traffic   CBR / Poisson / ON-OFF packet sources
+    sim              the time-stepped K-slot simulator
+    ops/routing      all-pairs distances, next hops, ECMP, incremental
+    router           multi-hop forwarding over the simulated fabric
+    runtime          the live tick's device program (parallel/: sharded)
 
 The package imports torch and never jax, nor anything of kubedtn_tpu.
 Entry points that create tensors take `device=None`, which means the

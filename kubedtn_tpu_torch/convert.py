@@ -3,7 +3,10 @@
 The edge state is this system's "weights": with these functions the JAX
 package and the port are fed one and the same state. A JAX state is
 handed over as `{field: np.asarray(getattr(jax_state, field))}`, so this
-module needs neither JAX nor the JAX package.
+module needs neither JAX nor the JAX package. A SimState or RouterState
+goes over the same way with its nested dataclasses as nested dicts
+(`sim_from_numpy`, `router_from_numpy`), and `tree_to_numpy` gives any of
+the port's states back as such dicts.
 """
 
 from __future__ import annotations
@@ -13,8 +16,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from kubedtn_tpu_torch import resolve_device
+from kubedtn_tpu_torch import resolve_device, router, sim
+from kubedtn_tpu_torch.models import traffic
 from kubedtn_tpu_torch.ops import edge_state as es
+from kubedtn_tpu_torch.ops import queues
 from kubedtn_tpu_torch.ops.cuda.shaping import TiledShapeState
 
 _DTYPES = {"uid": torch.int32, "src": torch.int32, "dst": torch.int32,
@@ -36,6 +41,70 @@ def edge_state_to_numpy(s: es.EdgeState) -> dict:
     """{field: numpy array} of an EdgeState (copied to the host)."""
     return {f.name: np.array(getattr(s, f.name).cpu())
             for f in dataclasses.fields(es.EdgeState)}
+
+
+def _leaf_dtype(x: np.ndarray) -> torch.dtype:
+    """The port's dtype of a state leaf: bool stays, integers are int32,
+    floats float32 (the JAX package's own, with x64 off)."""
+    if x.dtype == np.bool_:
+        return torch.bool
+    return torch.int32 if np.issubdtype(x.dtype, np.integer) \
+        else torch.float32
+
+
+def _tree_from_numpy(cls, d: dict, dev):
+    """A (nested) dataclass of tensors from {field: numpy array or the
+    nested dataclass's dict}."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = d[f.name]
+        if isinstance(v, dict):
+            out[f.name] = _tree_from_numpy(_NESTED[f.name], v, dev)
+        else:
+            x = np.array(v)  # a writable copy (JAX hands read-only)
+            out[f.name] = torch.as_tensor(x, dtype=_leaf_dtype(x),
+                                          device=dev)
+    return cls(**out)
+
+
+def tree_to_numpy(s) -> dict:
+    """{field: numpy array} of a (nested) dataclass of arrays, nested
+    dataclasses as nested dicts (copied to the host). The leaves are the
+    port's tensors or anything numpy reads, so a JAX state goes through
+    too: the result is what sim_from_numpy / router_from_numpy take."""
+    return {f.name: (tree_to_numpy(v) if dataclasses.is_dataclass(v)
+                     else np.array(v.cpu() if isinstance(v, torch.Tensor)
+                                   else v))
+            for f in dataclasses.fields(s)
+            for v in (getattr(s, f.name),)}
+
+
+def tree_to(s, device):
+    """A copy of a (nested) dataclass of tensors on `device`."""
+    if dataclasses.is_dataclass(s):
+        return type(s)(**{f.name: tree_to(getattr(s, f.name), device)
+                          for f in dataclasses.fields(s)})
+    return s.to(device)
+
+
+# the nested dataclass behind each field name of SimState / RouterState
+_NESTED = {"edges": es.EdgeState, "inflight": queues.InFlight,
+           "counters": queues.EdgeCounters, "traffic": traffic.TrafficState,
+           "sim": sim.SimState}
+
+
+def sim_from_numpy(d: dict, device=None) -> sim.SimState:
+    """SimState on `device` (None = the CUDA card) from the leaves of a
+    JAX SimState as numpy arrays: {"edges": {...}, "inflight": {...},
+    "counters": {...}, "traffic": {...}, "clock_us": array}."""
+    return _tree_from_numpy(sim.SimState, d, resolve_device(device))
+
+
+def router_from_numpy(d: dict, device=None) -> router.RouterState:
+    """RouterState on `device` (None = the CUDA card) from the leaves of
+    a JAX RouterState as numpy arrays, its "sim" as sim_from_numpy
+    takes it."""
+    return _tree_from_numpy(router.RouterState, d, resolve_device(device))
 
 
 def dyn_from_numpy(dyn, device=None) -> tuple:

@@ -7,9 +7,15 @@ state (80 switches, 256 links -> 512 directed rows in capacity 1024)
 plus example arguments. On the card the step runs kernel K1.
 `build_live_tick` packs the groups that runtime.fused_tick (and its
 sharded form, whose ring steps run kernel K4) shapes in one tick.
+`build_sim` and `build_routed` assemble the K-slot simulator and the
+routed fabric over a loaded topology (each slot of a step is one launch
+of kernel K1 on the card). Like the others they work on the device the
+state lies on, and the loaders put the state on the card by default.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -111,6 +117,62 @@ def build_live_tick(el, state, n_rows_per_class: int, k_slots: int, seed,
     return {kind: runtime._build_group(batches, groups[kind],
                                        state.capacity, keyid_map, dev)
             for kind in ("tbf", "seq", "ind")}
+
+
+def build_sim(el, state, rate_bps: float = 12e6, pkt_bytes: float = 1500.0,
+              q: int = 128):
+    """The K-slot simulator over the topology `el` loaded in `state`
+    (rows 0..2L-1), on the state's device: CBR at `rate_bps` on every
+    directed row, a delay line of `q` slots per edge. Returns (sim,
+    spec) for sim.run / sim.sim_step."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.models.traffic import cbr_everywhere
+
+    spec = cbr_everywhere(state.capacity, 2 * el.n_links, rate_bps,
+                          pkt_bytes, device=state.device)
+    return sim.init_sim(state, q=q), spec
+
+
+def build_routed(el, state, hosts, seed: int, rate_bps: float = 12e6,
+                 pkt_bytes: float = 1500.0, q: int = 128, k_fwd: int = 8,
+                 max_hops: int = 16, k_paths: int | None = None):
+    """The routed fabric over the topology `el` loaded in `state`, on
+    the state's device: routes recomputed from the state (single-path,
+    or ECMP groups of `k_paths`), and one CBR flow on every directed row
+    whose source is one of the nodes `hosts`, bound for another host: a
+    fixed permutation of the hosts drawn from `seed`, all rows of one
+    host sharing its target. Returns (rs, spec, flow_dst, dist) for
+    router.run_routed / router.router_step."""
+    from kubedtn_tpu_torch import router
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import routing
+
+    dev = state.device
+    hosts = np.asarray(hosts, dtype=np.int64)
+    if len(hosts) < 2:
+        raise ValueError("build_routed needs at least two hosts")
+    order = np.random.default_rng(seed).permutation(hosts)
+    target = np.full(el.n_nodes, -1, dtype=np.int32)
+    target[order] = np.roll(order, 1)   # one cycle: nobody targets itself
+    src = el.directed()[0]
+    flow_np = np.full(state.capacity, -1, dtype=np.int32)
+    flow_np[:len(src)] = target[src]
+    flow_dst = torch.as_tensor(flow_np, device=dev)
+    sourcing = flow_dst >= 0
+    spec = traffic.cbr_everywhere(state.capacity, 0, 0.0, pkt_bytes,
+                                  device=dev)
+    spec = dataclasses.replace(
+        spec,
+        mode=torch.where(sourcing, traffic.MODE_CBR,
+                         traffic.MODE_OFF).to(torch.int32),
+        rate_bps=torch.where(sourcing, float(rate_bps), 0.0))
+    if k_paths is None:
+        dist, nh = routing.recompute_routes(state, el.n_nodes, max_hops)
+    else:
+        dist, nh = routing.recompute_routes_ecmp(state, el.n_nodes,
+                                                 k_paths, max_hops)
+    rs = router.init_router(state, nh, el.n_nodes, q=q, k_fwd=k_fwd)
+    return rs, spec, flow_dst, dist
 
 
 def build_clos_100k(device=None):

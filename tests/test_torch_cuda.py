@@ -370,3 +370,209 @@ def test_sharded_live_tick_equals_unsharded_on_the_card(dev, S, request):
 
     cmp(got, want)
     assert any(bool(o["tbf"][5].any()) for o in want[0])
+
+
+# -- the K-slot simulator and the routed fabric --------------------------------
+
+def _assert_trees_bitwise(a, b, name=""):
+    """(Nested) dataclasses of tensors, on any devices, bit for bit."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _assert_trees_bitwise(getattr(a, f.name), getattr(b, f.name),
+                                  f"{name}.{f.name}")
+    else:
+        assert_bitwise(a.cpu(), b.cpu(), name)
+
+
+@pytest.mark.parametrize("E", [1, 1000, (1 << 18) + 37])
+@pytest.mark.parametrize("K", [1, 4])
+def test_shape_packets_launches_k1_per_slot_and_equals_plain(dev, E, K):
+    from kubedtn_tpu_torch.ops import queues
+
+    state = random_state(E, 11, dev)
+    g = torch.Generator(device=dev).manual_seed(E + K)
+    sizes = torch.tensor([64.0, 512.0, 1500.0], device=dev)[
+        torch.randint(0, 3, (E, K), generator=g, device=dev)]
+    valid = torch.rand((E, K), generator=g, device=dev) < 0.8
+    t_arr = torch.sort(torch.rand((E, K), generator=g, device=dev) * 1000.0,
+                       dim=1).values
+    u = torch.rand((K, E, netem.NU), generator=g, device=dev)
+    before = shaping.LAUNCHES["shape_step_rows"]
+    tokens = state.tokens.clone()
+    k_state, k_res = queues.shape_packets(state, sizes, valid, t_arr, u=u)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + K
+    p_state, p_res = queues.shape_packets_plain(state, sizes, valid, t_arr,
+                                                u=u)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + K
+    torch.cuda.synchronize()
+    _assert_trees_bitwise(k_res, p_res)
+    _assert_trees_bitwise(k_state, p_state)
+    assert_bitwise(state.tokens, tokens, "the caller's state")
+    assert tuple(k_res.depart_us.shape) == (E, K)
+
+
+def test_shape_packets_raises_on_what_k1_does_not_take(dev):
+    from kubedtn_tpu_torch.ops import queues
+
+    E, K = 256, 2
+    state = random_state(E, 12, dev)
+    sizes = torch.full((E, K), 1500.0, device=dev)
+    valid = torch.ones((E, K), dtype=torch.bool, device=dev)
+    t_arr = torch.zeros((E, K), device=dev)
+    u = torch.rand((K, E, netem.NU), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        queues.shape_packets(state, sizes.double(), valid, t_arr, u=u)
+    with pytest.raises(ValueError, match="expected cuda"):
+        queues.shape_packets(state, sizes, valid, t_arr, u=u.cpu())
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.6, 1.0])
+def test_insert_inflight_and_pop_due_on_the_card_equal_the_cpu(dev, fill):
+    from kubedtn_tpu_torch.ops import queues
+
+    E, Q, L = 5000, 32, 8
+    rng = np.random.default_rng(int(fill * 10))
+    busy = rng.random((E, Q)) < fill
+    busy[::7] = fill > 0
+    fl = queues.InFlight(
+        t=torch.as_tensor(np.where(busy, rng.uniform(0, 5000, (E, Q)),
+                                   np.inf).astype(np.float32)),
+        size=torch.as_tensor(np.where(busy, 1500.0, 0.0)
+                             .astype(np.float32)),
+        final_dst=torch.as_tensor(np.where(busy, 3, -1).astype(np.int32)),
+        corrupted=torch.as_tensor(busy & (rng.random((E, Q)) < 0.2)))
+    deliver = rng.random((E, L)) < 0.6
+    args = [torch.as_tensor(a) for a in (
+        np.where(deliver, rng.uniform(0, 9000, (E, L)), np.inf)
+        .astype(np.float32),
+        rng.choice([64.0, 1500.0], (E, L)).astype(np.float32),
+        rng.integers(0, 9, (E, L)).astype(np.int32),
+        rng.random((E, L)) < 0.3, deliver)]
+    c_fl, c_drop = queues.insert_inflight(fl, *args)
+    g_fl, g_drop = queues.insert_inflight(
+        convert.tree_to(fl, dev), *[a.to(dev) for a in args])
+    _assert_trees_bitwise(g_fl, c_fl)
+    assert_bitwise(g_drop.cpu(), c_drop, "dropped_ring")
+    c_pop, c_due = queues.pop_due(c_fl, torch.tensor(2500.0))
+    g_pop, g_due = queues.pop_due(g_fl, torch.tensor(2500.0, device=dev))
+    _assert_trees_bitwise(g_pop, c_pop)
+    assert torch.equal(g_due.cpu(), c_due)
+
+
+def _small_clos(dev, seed=3):
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.models.topologies import (
+        clos, load_edge_list_into_state, random_link_props)
+
+    el = clos(4, 12, 0, props=LinkProperties(latency="1ms"),
+              links_per_pair=2)
+    state, rows = load_edge_list_into_state(el, device=dev)
+    n = len(rows)
+    es.update_links(state, np.arange(n, dtype=np.int32),
+                    random_link_props(n, seed), np.ones(n, dtype=bool),
+                    contiguous=True)
+    return el, state
+
+
+def test_routes_on_the_card_equal_the_cpu(dev):
+    """dist, next hops, ECMP groups and reachability (whose matmul may
+    run in TF32: 0/1 operands make that exact)."""
+    from kubedtn_tpu_torch.ops import routing
+
+    el, state = _small_clos(dev)
+    cpu = convert.tree_to(state, "cpu")
+    n = el.n_nodes
+    for fn in (lambda s: routing.recompute_routes(s, n, 4),
+               lambda s: routing.recompute_routes(s, n, 4, dst_chunk=4),
+               lambda s: routing.recompute_routes_ecmp(s, n, 4, 4),
+               lambda s: (routing.reachability(s, n),)):
+        for got, want in zip(fn(state), fn(cpu)):
+            assert_bitwise(got.cpu(), want, "routes")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(routing.reachability(state, n).cpu(),
+                           routing.reachability(cpu, n))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def test_incremental_routes_on_the_card_equal_the_cpu(dev):
+    from kubedtn_tpu_torch.ops import routing
+
+    el, state = _small_clos(dev)
+    n, L = el.n_nodes, el.n_links
+    both = np.concatenate([[1, 17, 40], np.array([1, 17, 40]) + L])
+    out = {}
+    for where in (dev, "cpu"):
+        s = convert.tree_to(state, where)
+        seed = torch.full((n, n), torch.inf, device=where)
+        dist = routing.refine_dist(s, n, seed, 64)
+        nh = routing.next_hop_edges(s, dist, n)
+        rows = torch.as_tensor(both, device=where)
+        w = routing.edge_weights_latency(s)[rows].cpu().numpy()
+        s_k, d_k = s.src[rows].cpu().numpy(), s.dst[rows].cpu().numpy()
+        down = es.delete_links(
+            es.EdgeState(**{k: v.clone() for k, v in vars(s).items()}),
+            both, np.ones(len(both), dtype=bool))
+        out[str(where)] = routing.update_routes_incremental(
+            down, n, dist, nh, s_k, d_k, w,
+            np.full(len(both), np.inf, np.float32))
+        full = routing.refine_dist(down, n, seed, 64)
+        assert torch.equal(out[str(where)][0], full)
+    (gd, gn, gc), (cd, cn, cc) = out[str(dev)], out["cpu"]
+    assert_bitwise(gd.cpu(), cd, "dist")
+    assert torch.equal(gn.cpu(), cn) and gc == cc > 0
+
+
+@pytest.mark.parametrize("k_paths", [None, 2])
+def test_routed_run_on_the_card_repeats_and_equals_the_cpu(dev, k_paths):
+    """The same state and seed give the same bits twice (no float atomic
+    on the path), K1 launches once per slot and step and equals the run
+    over the plain step, and the card agrees with the CPU on the same
+    draws."""
+    from kubedtn_tpu_torch import entry, router, sim
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import queues
+
+    el, state = _small_clos(dev)
+    rs, spec, flow_dst, _ = entry.build_routed(
+        el, state, np.arange(4, el.n_nodes), seed=5, q=32, k_fwd=4,
+        max_hops=4, k_paths=k_paths)
+    steps, k = 30, 3
+    before = shaping.LAUNCHES["shape_step_rows"]
+    a = router.run_routed(rs, spec, flow_dst, steps, 1000.0, k, 4, seed=1)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + steps * (k + 4)
+    b = router.run_routed(rs, spec, flow_dst, steps, 1000.0, k, 4, seed=1)
+    _assert_trees_bitwise(a, b)
+    plain = router.run_routed(rs, spec, flow_dst, steps, 1000.0, k, 4,
+                              seed=1, shape_fn=queues.shape_packets_plain)
+    assert shaping.LAUNCHES["shape_step_rows"] == \
+        before + 2 * steps * (k + 4)
+    _assert_trees_bitwise(a, plain)
+    assert float(a.node_rx_packets.sum()) > 0
+    g = torch.Generator(device=dev).manual_seed(2)
+    draws = [sim.StepDraws(
+        traffic=traffic.draw(spec, 1000.0, k, g),
+        shape_u=queues.draw_shape_uniforms(state, k + 4, g))
+        for _ in range(steps)]
+    on_card = router.run_routed(rs, spec, flow_dst, steps, 1000.0, k, 4,
+                                draws=draws)
+    on_cpu = router.run_routed(
+        convert.tree_to(rs, "cpu"), convert.tree_to(spec, "cpu"),
+        flow_dst.cpu(), steps, 1000.0, k, 4,
+        draws=[convert.tree_to(d, "cpu") for d in draws])
+
+    def close(card, cpu, name):
+        if dataclasses.is_dataclass(card):
+            for f in dataclasses.fields(card):
+                close(getattr(card, f.name), getattr(cpu, f.name),
+                      f"{name}.{f.name}")
+        elif card.dtype != torch.float32 or ".counters" in name \
+                or name.startswith((".node_rx", ".fwd_", ".no_route")):
+            assert torch.equal(card.cpu(), cpu), name
+        else:
+            torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5,
+                                       atol=1e-2, msg=name)
+
+    close(on_card, on_cpu, "")

@@ -41,7 +41,11 @@ def test_port_modules_are_found():
                  "kubedtn_tpu_torch.telemetry",
                  "kubedtn_tpu_torch.parallel.exchange",
                  "kubedtn_tpu_torch.parallel.mesh",
-                 "kubedtn_tpu_torch.parallel.partition"):
+                 "kubedtn_tpu_torch.parallel.partition",
+                 "kubedtn_tpu_torch.ops.queues",
+                 "kubedtn_tpu_torch.models.traffic", "kubedtn_tpu_torch.sim",
+                 "kubedtn_tpu_torch.ops.routing",
+                 "kubedtn_tpu_torch.router"):
         assert want in mods
 
 
