@@ -40,7 +40,7 @@ Phases, each fatal on failure:
      per slot and step; per edge the books close exactly (offered +
      duplicates == delivered + lost + queue-dropped + ring-dropped + in
      flight); the same run over the plain step is bit for bit the same
-     state; 20 steps equal the port's CPU run on the same draws; every
+     state; 10 steps equal the port's CPU run on the same draws; every
      drop class is raised; wall and device time per step, K1's share;
  11. the routed fabric: recompute_routes and its ECMP form equal the
      port's CPU result bit for bit, every next hop realises its
@@ -52,7 +52,25 @@ Phases, each fatal on failure:
      to 0 just before: K1 once per slot and step, the per-edge books and
      the fabric's transit balance close, no packet without a route, a
      rerun gives the same bits, and so does the same run over the plain
-     step (K1 on 12 slots a step, pending lanes included).
+     step (K1 on 12 slots a step, pending lanes included);
+ 12. the host live plane, with the launch counts set to 0 just before:
+     (a) 600 Topology CRs through the store, the reconciler and the
+     SimEngine on the card (reconcile-to-steady timed), the realized
+     columns == a CPU engine's from the same CRs, then one 1,000-link
+     UpdateLinks through the Daemon's Local handler (state == the CPU
+     engine's again); (d) ping on a 10 ms link (K1): one-way == 10 ms and
+     == the plain step; (b) 3 x 4,096 links re-shaped into the three
+     kernel classes by UpdateLinks, wires on both ends, 1-64 tagged
+     frames per ingress wire and tick for 16 ticks of 10 ms, drained:
+     depth 1 (telemetry off) == depth 2 (telemetry on), byte for byte
+     per wire (digests),
+     the books close per edge, the window totals == the counters, the
+     TBF fallback ran; wall and device time per tick, the busy share,
+     frames shaped per second; (c) the same on 2 virtual shards (K4) and
+     on two cards where there are two: == unsharded; (e) where grpc and
+     protobuf import: the real-time runner behind a gRPC server, 8 pairs
+     at 5 ms, 20,000 frames per wire over SendToBulk from a client
+     process, all delivered in order, median frames/s of 3 rounds.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -121,7 +139,7 @@ SIM_K = 4                   # k_slots
 SIM_Q = 128                 # delay-line slots per edge
 SIM_DT_US = 1000.0
 SIM_STEPS = 200
-SIM_CPU_STEPS = 20          # steps repeated on the CPU on the same draws
+SIM_CPU_STEPS = 10          # steps repeated on the CPU on the same draws
 SIM_TIMED_STEPS = 20
 ROUTE_HOPS = 4              # max_hops of the full recompute
 ROUTE_K_PATHS = 4
@@ -1092,6 +1110,542 @@ def run_routed_phase(el, fresh, dev, card):
     return m, launches
 
 
+# -- phase 12: the host live plane -------------------------------------------
+
+PLANE_ROWS = 4096           # rows per kernel class (the live tick's width)
+PLANE_TICKS = 16            # explicit-clock ticks that feed frames
+PLANE_DT_S = 0.01
+PLANE_MAX_FRAMES = 64       # 1..64 frames per ingress wire and tick
+PLANE_SIZES = (64, 257)     # frame bytes drawn from [64, 257)
+PLANE_DRAIN_TICKS = 40      # idle ticks at most, to empty the delay line
+PLANE_PROFILED = (6, 9)     # feed ticks [a, b) under torch.profiler
+UPDATE_BATCH = 1000         # links in phase 12(a)'s UpdateLinks batch
+GRPC_PAIRS = 8
+GRPC_FRAMES = 20_000        # per wire and round
+GRPC_ROUNDS = 3
+GRPC_CHUNK = 256            # frames per PacketBatch message
+GRPC_TIMEOUT_S = 60.0
+
+# the three kernel classes' props, varied by link index (phase 12(b)).
+# The TBF class is TBF-only (rate, latency; no draw decides anything):
+# the 1 Mbit links overflow their 50 ms queue now and then, forcing the
+# fallback re-shape, and a batch a newer in-flight dispatch shaped from
+# the uncorrected bucket is re-shaped by the exact scan under the
+# fallback draws, where depth 1 shapes it with the TBF core's draws, so
+# with loss on such a row depth 2 would part from depth 1, in the JAX
+# package too (ROADMAP §3)
+CLASS_PROPS = {
+    "tbf": [dict(latency="1ms", rate="1Mbit"),
+            dict(latency="2ms", rate="20Mbit"),
+            dict(latency="500us", rate="200Mbit"),
+            dict(rate="2Gbit")],
+    "seq": [dict(latency="2ms", jitter="500us", loss="2", loss_corr="25"),
+            dict(latency="1ms", latency_corr="30", jitter="1ms"),
+            dict(latency="3ms", reorder_prob="5", gap=2)],
+    "ind": [dict(latency="3ms", jitter="1ms", loss="1"),
+            dict(latency="1ms"),
+            dict(latency="4ms", duplicate="2", corrupt_prob="1")],
+}
+
+
+def update_links_rpc(daemon, pod: str, links) -> None:
+    """One Local.UpdateLinks through the Daemon's handler, in process."""
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    q = pb.LinksBatchQuery(local_pod=pb.Pod(name=pod, kube_ns="default"),
+                           links=[pb.link_to_proto(l) for l in links])
+    check(daemon.UpdateLinks(q, None).response, f"UpdateLinks {pod} failed")
+
+
+def same_columns(a, b, name: str) -> None:
+    """Every EdgeState column and every row binding equal, exactly."""
+    ea, eb = a["engine"], b["engine"]
+    check(ea._rows == eb._rows, f"{name}: row bindings differ")
+    sa, sb = ea.state, eb.state
+    for f in dataclasses.fields(sa):
+        check(torch.equal(getattr(sa, f.name).cpu(),
+                          getattr(sb, f.name).cpu()),
+              f"{name}: column {f.name} differs")
+
+
+def plane_classes(built, n_rows: int) -> dict:
+    """The first 3 * n_rows spine links in order, a third per class,
+    re-shaped by one UpdateLinks per spine CR through the Daemon's
+    handler (the spine end is the link's ingress direction). Returns
+    {kind: [(spine pod, leaf pod, uid)]}."""
+    from kubedtn_tpu_torch.api.types import LinkProperties
+
+    store, daemon = built["store"], built["daemon"]
+    kinds = ("tbf", "seq", "ind")
+    out = {k: [] for k in kinds}
+    need = 3 * n_rows
+    i = 0
+    for t in sorted(store.list(), key=lambda t: (len(t.name), t.name)):
+        if not t.name.startswith("spine") or i >= need:
+            continue
+        new = []
+        for link in t.spec.links[:need - i]:
+            kind = kinds[i // n_rows]
+            props = CLASS_PROPS[kind][i % len(CLASS_PROPS[kind])]
+            new.append(link.with_properties(LinkProperties(**props)))
+            out[kind].append((t.name, link.peer_pod, link.uid))
+            i += 1
+        update_links_rpc(daemon, t.name, new)
+    return out
+
+
+def plane_wires(daemon, classes):
+    """Wires on both ends of every class link: (ingress, egress) lists."""
+    import types
+
+    def wd(pod, uid):
+        return types.SimpleNamespace(
+            local_pod_name=pod, kube_ns="default", link_uid=uid,
+            intf_name_in_pod="eth1", veth_name_local_host="",
+            peer_intf_id=0, peer_ip="")
+
+    win, wout = [], []
+    for links in classes.values():
+        for spine, leaf, uid in links:
+            win.append(daemon._add_wire(wd(spine, uid)))
+            wout.append(daemon._add_wire(wd(leaf, uid)))
+    return win, wout
+
+
+def feed_tick(win, t: int, rng) -> int:
+    """1..PLANE_MAX_FRAMES tagged frames on every ingress wire, as ONE
+    FrameSeg window each over one blob for the tick (the bulk ingress
+    form). A frame's first 8 bytes are its tag (wire, tick, index).
+    Returns the frames fed."""
+    from kubedtn_tpu_torch.wire.server import FrameSeg
+
+    n = len(win)
+    counts = rng.integers(1, PLANE_MAX_FRAMES + 1, n)
+    total = int(counts.sum())
+    lens = rng.integers(*PLANE_SIZES, total).astype(np.uint64)
+    offs = np.zeros(total, np.uint64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    blob = np.full(int(lens.sum()), 0x5A, np.uint8)
+    wire_of = np.repeat(np.arange(n, dtype=np.uint32), counts)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    idx = np.arange(total) - np.repeat(first, counts)
+    tag = np.zeros((total, 8), np.uint8)
+    tag[:, :4] = wire_of.view(np.uint8).reshape(-1, 4)
+    tag[:, 4:6] = np.array([t], np.uint16).view(np.uint8)
+    tag[:, 6:8] = idx.astype(np.uint16).view(np.uint8).reshape(-1, 2)
+    pos = offs.astype(np.int64)[:, None] + np.arange(8)
+    blob[pos] = tag
+    blob = blob.tobytes()
+    lo = 0
+    for w, c in zip(win, counts.tolist()):
+        w.ingress.append(FrameSeg(blob, offs, lens, lo, lo + c))
+        lo += c
+    return total
+
+
+def plane_run(built, win, wout, state0, seed: int, depth: int,
+              telemetry: bool = False, mesh=None, profile: bool = False):
+    """One run of phase 12(b): a fresh plane over the engine restored to
+    `state0`, PLANE_TICKS feed ticks of PLANE_DT_S, then idle ticks until
+    the delay line is empty. Returns a dict with the per-wire egress
+    digests and counts, the counters, the plane, and the timings."""
+    import hashlib
+
+    from kubedtn_tpu_torch import entry
+
+    engine = built["engine"]
+    engine.state = clone_state(state0)
+    plane = entry.build_plane(built["daemon"], dt_us=PLANE_DT_S * 1e6,
+                              seed=seed, pipeline_depth=depth)
+    plane.pipeline_explicit_clock = True
+    if telemetry:
+        plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+    if mesh is not None:
+        plane.enable_sharding(mesh)
+    rng = np.random.default_rng(seed)
+    digests = [hashlib.blake2b(digest_size=16) for _ in wout]
+    counts = [0] * len(wout)
+    fed = 0
+    walls = []
+    prof_out = None
+    dev = engine.device
+
+    def collect():
+        # explicit-clock ticks on this thread: nothing appends to an
+        # egress deque while it is read here
+        for k, w in enumerate(wout):
+            if w.egress:
+                digests[k].update(b"".join(w.egress))
+                counts[k] += len(w.egress)
+                w.egress.clear()
+
+    t = 0
+    prof_ctx = p_t0 = None
+    for t in range(PLANE_TICKS):
+        fed += feed_tick(win, t, rng)
+        if profile and t == PLANE_PROFILED[0] and dev.type == "cuda":
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+
+            torch.cuda.synchronize()
+            prof_ctx = tprofile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof_ctx.__enter__()
+            p_t0 = time.perf_counter()
+        w0 = time.perf_counter()
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - w0)
+        if prof_ctx is not None and t == PLANE_PROFILED[1] - 1:
+            p_wall = time.perf_counter() - p_t0
+            prof_ctx.__exit__(None, None, None)
+            n = PLANE_PROFILED[1] - PLANE_PROFILED[0]
+            dev_us = sum(e.time_range.elapsed_us()
+                         for e in prof_ctx.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+            prof_out = {"device_ms_per_tick": dev_us / 1e3 / n,
+                        "busy_share": dev_us / 1e6 / p_wall}
+            prof_ctx = None
+        collect()
+    feed_wall = sum(walls)
+    shaped_fed = plane.shaped
+    for j in range(PLANE_DRAIN_TICKS):
+        t += 1
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        collect()
+        if (not plane._inflight and not plane._holdback
+                and len(plane._wheel) == 0):
+            break
+    plane.flush()
+    collect()
+    check(plane.tick_errors == 0, "live plane: tick errors")
+    check(len(plane._wheel) == 0 and not plane._pending,
+          "live plane: delay line not empty after the drain")
+    c = plane.counters
+    return {"digests": [d.hexdigest() for d in digests], "counts": counts,
+            "fed": fed, "plane": plane, "counters": c,
+            "feed_wall_s": feed_wall, "wall_ms_per_tick":
+            1e3 * statistics.median(walls), "shaped_in_feed": shaped_fed,
+            "profile": prof_out}
+
+
+def same_egress(a: dict, b: dict, name: str) -> None:
+    check(a["counts"] == b["counts"], f"{name}: per-wire egress counts "
+                                      f"differ")
+    check(a["digests"] == b["digests"], f"{name}: per-wire egress bytes "
+                                        f"differ")
+    pa, pb = a["plane"], b["plane"]
+    check((pa.shaped, pa.dropped) == (pb.shaped, pb.dropped),
+          f"{name}: shaped/dropped differ")
+    for f in dataclasses.fields(a["counters"]):
+        check(np.array_equal(getattr(a["counters"], f.name),
+                             getattr(b["counters"], f.name)),
+              f"{name}: counter {f.name} differs")
+
+
+def books_close(r: dict, name: str) -> None:
+    """Per edge rx + loss + queue == tx; shaped + dropped == fed."""
+    c, p = r["counters"], r["plane"]
+    check(np.array_equal(c.rx_packets + c.dropped_loss + c.dropped_queue,
+                         c.tx_packets), f"{name}: per-edge books open")
+    check(p.shaped + p.dropped == r["fed"] == int(c.tx_packets.sum()),
+          f"{name}: shaped {p.shaped} + dropped {p.dropped} != fed "
+          f"{r['fed']}")
+    check(sum(r["counts"]) == p.shaped, f"{name}: egress != shaped")
+
+
+GRPC_INJECTOR = r"""
+import sys, time
+import grpc
+sys.path.insert(0, sys.argv[1])
+from kubedtn_tpu_torch.wire import proto as pb
+port, wids, n, chunk = sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5])
+wids = [int(w) for w in wids.split(",")]
+frame = lambda w, i: w.to_bytes(4, "big") + i.to_bytes(4, "big") + bytes(56)
+msgs = []
+for lo in range(0, n, chunk):
+    for w in wids:
+        msgs.append(pb.PacketBatch(packets=[
+            pb.Packet(remot_intf_id=w, frame=frame(w, i))
+            for i in range(lo, min(n, lo + chunk))]))
+ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+call = ch.stream_unary("/proto.v1.WireProtocol/SendToBulk",
+                       request_serializer=pb.PacketBatch.SerializeToString,
+                       response_deserializer=pb.BoolResponse.FromString)
+t0 = time.perf_counter()
+ok = call(iter(msgs)).response
+print(ok, time.perf_counter() - t0, flush=True)
+ch.close()
+"""
+
+
+def run_grpc_phase(dev, card) -> dict:
+    """Phase 12(e): the real-time runner behind a real gRPC server; a
+    client process streams GRPC_FRAMES frames per wire over SendToBulk;
+    every frame must be delivered. Median frames/s of GRPC_ROUNDS rounds
+    after one warm-up round."""
+    import os
+    import subprocess
+    import types
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
+                                             Topology, TopologySpec)
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=4 * GRPC_PAIRS + 8, device=dev)
+    props = LinkProperties(latency="5ms")
+    for i in range(GRPC_PAIRS):
+        a, b = f"lp-a{i}", f"lp-b{i}"
+        for x, y in ((a, b), (b, a)):
+            store.create(Topology(name=x, spec=TopologySpec(links=[
+                Link(local_intf="eth1", peer_intf="eth1", peer_pod=y,
+                     uid=i + 1, properties=props)])))
+        engine.setup_pod(a)
+        engine.setup_pod(b)
+    Reconciler(store, engine).drain()
+    daemon = Daemon(engine)
+    server, port = make_server(daemon, port=0, host="127.0.0.1",
+                               log_rpcs=False)
+    server.start()
+    plane = entry.build_plane(daemon, dt_us=2_000.0)
+
+    def wd(pod, uid):
+        return types.SimpleNamespace(
+            local_pod_name=pod, kube_ns="default", link_uid=uid,
+            intf_name_in_pod="eth1", veth_name_local_host="",
+            peer_intf_id=0, peer_ip="")
+
+    win = [daemon._add_wire(wd(f"lp-a{i}", i + 1))
+           for i in range(GRPC_PAIRS)]
+    wout = [daemon._add_wire(wd(f"lp-b{i}", i + 1))
+            for i in range(GRPC_PAIRS)]
+    plane.start()
+    root = os.path.dirname(os.path.abspath(__file__))
+    wids = ",".join(str(w.wire_id) for w in win)
+    total = GRPC_PAIRS * GRPC_FRAMES
+
+    def one_round() -> float:
+        for w in wout:
+            w.egress.clear()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", GRPC_INJECTOR, root, str(port), wids,
+             str(GRPC_FRAMES), str(GRPC_CHUNK)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            deadline = time.monotonic() + GRPC_TIMEOUT_S
+            done, t_first = 0, None
+            while time.monotonic() < deadline:
+                done = sum(len(w.egress) for w in wout)
+                if done and t_first is None:
+                    t_first = time.perf_counter()
+                if done >= total:
+                    break
+                time.sleep(0.002)
+            elapsed = time.perf_counter() - t_first if t_first else 0.0
+            out, err = proc.communicate(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"gRPC injector failed: {err[-2000:]}")
+        check(done == total, f"gRPC round delivered {done} of {total}")
+        got = [list(w.egress) for w in wout]
+        for k, frames in enumerate(got):
+            want = [win[k].wire_id.to_bytes(4, "big") + i.to_bytes(4, "big")
+                    + bytes(56) for i in range(GRPC_FRAMES)]
+            check(frames == want, f"gRPC wire {k}: frames differ")
+        return total / elapsed
+
+    try:
+        one_round()  # warm-up: kernel loads, first ticks
+        rates = sorted(one_round() for _ in range(GRPC_ROUNDS))
+    finally:
+        plane.stop()
+        server.stop(0)
+    check(plane.tick_errors == 0, "gRPC plane: tick errors")
+    m = {"frames_per_s": statistics.median(rates), "rates": rates,
+         "pairs": GRPC_PAIRS, "frames_per_wire": GRPC_FRAMES,
+         "stage": plane.stage_breakdown()}
+    log(f"12(e) gRPC: {GRPC_PAIRS} pairs at 5 ms, {GRPC_FRAMES} frames per "
+        f"wire over SendToBulk, all delivered in order; median "
+        f"{m['frames_per_s']:.1f} frames/s of {GRPC_ROUNDS} rounds "
+        f"{[round(r, 1) for r in rates]} ({card})")
+    return m
+
+
+def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
+                         n_rows: int = PLANE_ROWS) -> tuple:
+    """Phase 12: the host live plane at the 100k-link Clos. Returns
+    (metrics, K4 launches of the sharded plane)."""
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.ops import netem
+    from kubedtn_tpu_torch.ops.edge_state import props_row, burst_bytes
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+    from kubedtn_tpu_torch.telemetry import (T_DELIVERED, T_DROP_LOSS,
+                                             T_DROP_QUEUE, T_TX)
+    from kubedtn_tpu_torch.topology.engine import ping_inputs
+
+    m = {}
+    size = {} if n_spine is None else dict(n_spine=n_spine, n_leaf=n_leaf,
+                                           capacity=1 << 12)
+    # (a) control plane: 600 CRs -> store -> reconciler -> engine
+    built = entry.build_daemon(dev, **size)
+    m["reconcile_s"] = built["reconcile_s"]
+    cpu = entry.build_daemon("cpu", **size)
+    same_columns(built, cpu, "12(a) realized state vs the CPU build")
+    engine = built["engine"]
+    log(f"12(a) control plane: {len(built['crs'])} CRs, "
+        f"{engine.num_active} rows in capacity {engine.state.capacity}; "
+        f"reconcile-to-steady {m['reconcile_s']:.3f} s; realized columns "
+        f"== the CPU engine's from the same CRs ({card})")
+    spine0 = built["store"].get("default", "spine0")
+    new = LinkProperties(latency="20ms", jitter="1ms", rate="1Gbit")
+    batch = [l.with_properties(new)
+             for l in spine0.spec.links[:UPDATE_BATCH]]
+    update_links_rpc(cpu["daemon"], "spine0", batch)  # (loads proto)
+    t0 = time.perf_counter()
+    update_links_rpc(built["daemon"], "spine0", batch)
+    engine.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    m["update_links_ms"] = 1e3 * (time.perf_counter() - t0)
+    same_columns(built, cpu, "12(a) after UpdateLinks vs the CPU engine")
+    rows = [engine.row_of("default/spine0", l.uid) for l in batch]
+    want = torch.as_tensor(props_row(new.to_numeric()), device=dev)
+    st = engine.state
+    check(bool((st.props[rows] == want).all()), "UpdateLinks props")
+    check(bool((st.tokens[rows] == burst_bytes(want[5:6])).all()),
+          "UpdateLinks did not refill the buckets")
+    log(f"12(a) UpdateLinks: {len(batch)} links through the Daemon's Local "
+        f"handler in {m['update_links_ms']:.3f} ms, state == the CPU "
+        f"engine's ({card})")
+
+    # (d) ping on one deterministic link (latency 10 ms, no jitter, on
+    # the last spine, which no later step re-shapes): K1
+    spine = max((t.name for t in built["store"].list()
+                 if t.name.startswith("spine")), key=lambda n: int(n[5:]))
+    link = built["store"].get("default", spine).spec.links[0]
+    leaf, uid = link.peer_pod, link.uid
+    ra = engine.row_of(f"default/{spine}", uid)
+    rb = engine.row_of(f"default/{leaf}", uid)
+    plain_in = ping_inputs(engine.state, (ra, rb), 84.0, uid, 3)
+    _ps, plain = netem.shape_step(clone_state(engine.state), *plain_in)
+    r = engine.ping(spine, leaf, uid, seed=3)
+    check(r["reachable"], "ping: not delivered")
+    check(r["fwd_us"] == float(plain.depart_us[ra])
+          and r["rev_us"] == float(plain.depart_us[rb]),
+          "ping: K1 differs from the plain step")
+    check(r["fwd_us"] == 10_000.0 and r["rev_us"] == 10_000.0,
+          f"ping: one-way delays {r['fwd_us']} / {r['rev_us']} us, the "
+          f"link's latency is 10,000 us")
+    m["ping"] = r
+    log(f"12(d) ping {spine}->{leaf} uid {uid}: one-way {r['fwd_us']} us "
+        f"and {r['rev_us']} us == the link's 10 ms latency; K1 == the plain "
+        f"step ({card})")
+
+    # (b) the data plane at the live tick's width
+    classes = plane_classes(built, n_rows)
+    win, wout = plane_wires(built["daemon"], classes)
+    state0 = clone_state(engine.state)
+    seed = 12
+    # depth 1 with telemetry off against depth 2 with telemetry on: one
+    # comparison holds both contracts (a run apiece costs ~30 s here)
+    d1 = plane_run(built, win, wout, state0, seed, depth=1)
+    d2 = plane_run(built, win, wout, state0, seed, depth=2, telemetry=True,
+                   profile=True)
+    same_egress(d1, d2, "12(b) depth 2 + telemetry on vs depth 1 off")
+    for name, r in (("depth 1", d1), ("depth 2", d2)):
+        books_close(r, f"12(b) {name}")
+    total, _secs = d2["plane"].telemetry.window_sum()
+    c = d2["counters"]
+    for col, arr in ((T_TX, c.tx_packets), (T_DELIVERED, c.rx_packets),
+                     (T_DROP_LOSS, c.dropped_loss),
+                     (T_DROP_QUEUE, c.dropped_queue)):
+        check(np.array_equal(total[:len(arr), col], arr),
+              f"12(b) window column {col} != the counters")
+    for r in (d1, d2):
+        check(r["plane"].fallbacks > 0, "12(b) the TBF fallback never ran")
+    p2 = d2["plane"]
+    m["plane"] = {
+        "rows_per_class": n_rows, "wires": len(win) + len(wout),
+        "fed": d1["fed"], "shaped": d1["plane"].shaped,
+        "dropped": d1["plane"].dropped,
+        "fallback_rows": d1["plane"].fallbacks,
+        "wall_ms_per_tick_depth1": d1["wall_ms_per_tick"],
+        "wall_ms_per_tick_depth2": d2["wall_ms_per_tick"],
+        "frames_shaped_per_s_depth1": d1["shaped_in_feed"]
+        / d1["feed_wall_s"],
+        "frames_shaped_per_s_depth2": d2["shaped_in_feed"]
+        / d2["feed_wall_s"],
+        "stage_depth1": d1["plane"].stage_breakdown(),
+        "stage_depth2": p2.stage_breakdown(),
+        "profile_depth2": d2["profile"]}
+    mp = m["plane"]
+    log(f"12(b) live plane: 3 x {n_rows} rows, {len(win)} + {len(wout)} "
+        f"wires, {PLANE_TICKS} ticks of {PLANE_DT_S * 1e3:.0f} ms, "
+        f"{d1['fed']} frames fed, {mp['shaped']} shaped, {mp['dropped']} "
+        f"dropped, {mp['fallback_rows']} TBF fallback rows; depth 1 "
+        f"(telemetry off) == depth 2 (telemetry on), byte for byte per "
+        f"wire; books closed per edge; window totals == counters")
+    for d, r in (("1", d1), ("2 + telemetry", d2)):
+        sh = r["plane"].stage_breakdown()["share"]
+        log(f"12(b) depth {d}: wall {r['wall_ms_per_tick']:.3f} ms/tick "
+            f"(median), {r['shaped_in_feed'] / r['feed_wall_s']:.1f} "
+            f"frames shaped/s; stage shares {sh} ({card})")
+    if d2["profile"] is not None:
+        log(f"12(b) depth 2 + telemetry device "
+            f"{d2['profile']['device_ms_per_tick']:.3f}"
+            f" ms/tick, busy share {d2['profile']['busy_share']:.4f} "
+            f"(torch.profiler over ticks {PLANE_PROFILED}) ({card})")
+
+    # (c) the sharded plane: 2 virtual shards, and two cards where there
+    # are two; K4 launches counted from 0
+    pex.reset_launches()
+    meshes = [("2 virtual shards", make_mesh([dev] * 2))]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 2:
+        meshes.append(("cuda:0 + cuda:1", make_mesh(
+            [torch.device("cuda", 0), torch.device("cuda", 1)])))
+    for name, mesh in meshes:
+        sh = plane_run(built, win, wout, state0, seed, depth=2, mesh=mesh)
+        same_egress(sh, d1, f"12(c) sharded on {name} vs unsharded")
+        summ = sh["plane"].shard_summary()
+        m[f"sharded {name}"] = {
+            "wall_ms_per_tick": sh["wall_ms_per_tick"],
+            "xshard_frames": summ["xshard_frames"],
+            "mailbox_hwm": summ["mailbox_hwm"]}
+        log(f"12(c) sharded plane on {name}: per-wire egress == unsharded; "
+            f"{summ['xshard_frames']} cross-shard frames; wall "
+            f"{sh['wall_ms_per_tick']:.3f} ms/tick ({card})")
+    if n_cards < 2:
+        log(f"12(c) sharded plane on two cards: not run, {n_cards} CUDA "
+            f"device visible and it needs 2")
+    k4 = pex.LAUNCHES["ring_step"]
+    log(f"12(c) K4 launches on the sharded plane: {k4}")
+    check(k4 > 0 or dev.type != "cuda", "K4 never launched on the plane")
+
+    # (e) gRPC, where it imports
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+        have_grpc = True
+    except ImportError as e:
+        have_grpc, why = False, str(e)
+    if have_grpc:
+        m["grpc"] = run_grpc_phase(dev, card)
+    else:
+        log(f"12(e) gRPC: not run, grpc/protobuf do not import here: {why}")
+    return m, k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1143,8 +1697,13 @@ def main() -> int:
     k4 = check_k4(dev, timer)
     sim_m, sim_launches = run_sim_phase(el, fresh, dev, card)
     routed_m, routed_launches = run_routed_phase(el, fresh, dev, card)
+    shaping.reset_launches()
+    plane_m, plane_k4 = run_live_plane_phase(dev, card)
+    plane_k1 = shaping.LAUNCHES["shape_step_rows"]
+    log(f"live plane path launches: K1 {plane_k1}, K4 {plane_k4}")
+    check(plane_k1 > 0, "K1 never launched on the live plane's path")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
-                "routed": routed_launches}
+                "routed": routed_launches, "plane": plane_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -1164,14 +1723,15 @@ def main() -> int:
     r = k4[K4_ROWS[0]]   # the live tick's mailbox shape
     kernels.append({
         "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
-        "replaces": K4_REPLACES, "launches": k4_launches,
+        "replaces": K4_REPLACES, "launches": k4_launches + plane_k4,
+        "launches_by_path": {"live_tick": k4_launches, "plane": plane_k4},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     results["K4"] = k4
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
               "entry_delivered": entry_delivered, "live_tick": live_m,
-              "sim": sim_m, "routed": routed_m,
+              "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

@@ -16,6 +16,11 @@ kubedtn_tpu's, so each counterpart sits at the same place:
     ops/routing      all-pairs distances, next hops, ECMP, incremental
     router           multi-hop forwarding over the simulated fabric
     runtime          the live tick's device program (parallel/: sharded)
+                     and the host live plane (WireDataPlane)
+    topology/        TopologyStore, Reconciler, SimEngine (control plane)
+    wire/            the Daemon's gRPC services, schema and client
+    native           ctypes bindings of native/kubedtn_native.cc
+    telemetry        the window fold, LinkTelemetry, FlightRecorder
 
 The package imports torch and never jax, nor anything of kubedtn_tpu.
 Entry points that create tensors take `device=None`, which means the

@@ -11,6 +11,11 @@ sharded form, whose ring steps run kernel K4) shapes in one tick.
 routed fabric over a loaded topology (each slot of a step is one launch
 of kernel K1 on the card). Like the others they work on the device the
 state lies on, and the loaders put the state on the card by default.
+
+`build_daemon` builds the same 100k-link Clos the way a KubeDTN cluster
+does — 600 Topology CRs through the store, the reconciler and the
+SimEngine — behind a wire Daemon, and `build_plane` puts the live
+WireDataPlane on top of it.
 """
 
 from __future__ import annotations
@@ -186,3 +191,86 @@ def build_clos_100k(device=None):
         raise AssertionError(f"expected 100,000 links, got {el.n_links}")
     state, rows = load_edge_list_into_state(el, device=dev)
     return el, state, rows
+
+
+def clos_crs(n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
+             links_per_pair: int = LINKS_PER_PAIR, props=None,
+             node_ip: str = "10.0.0.1"):
+    """The Clos as Topology CRs, as the JAX package's reconcile_100k
+    scenario writes them: one CR per spine and per leaf, link uids
+    1..n_spine*n_leaf*links_per_pair, every pod placed on `node_ip`
+    (the CNI ran) with no link realized yet (status.links = [])."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+
+    props = props or LinkProperties(latency="10ms", rate="10Gbit")
+    spines = [[] for _ in range(n_spine)]
+    leaves = [[] for _ in range(n_leaf)]
+    uid = 0
+    for s in range(n_spine):
+        for l in range(n_leaf):
+            for k in range(links_per_pair):
+                uid += 1
+                spines[s].append(Link(
+                    local_intf=f"e{l}-{k}", peer_intf=f"e{s}-{k}",
+                    peer_pod=f"leaf{l}", uid=uid, properties=props))
+                leaves[l].append(Link(
+                    local_intf=f"e{s}-{k}", peer_intf=f"e{l}-{k}",
+                    peer_pod=f"spine{s}", uid=uid, properties=props))
+    out = []
+    for name, links in ([(f"spine{s}", x) for s, x in enumerate(spines)]
+                        + [(f"leaf{l}", x) for l, x in enumerate(leaves)]):
+        t = Topology(name=name, spec=TopologySpec(links=links))
+        t.status.src_ip, t.status.net_ns = node_ip, f"/run/netns/{name}"
+        t.status.links = []
+        out.append(t)
+    return out
+
+
+def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
+                 links_per_pair: int = LINKS_PER_PAIR,
+                 capacity: int = 1 << 18, props=None,
+                 node_ip: str = "10.0.0.1") -> dict:
+    """The Clos through the control plane on `device` (None = the CUDA
+    card): `clos_crs` into a TopologyStore, one reconciler drain into a
+    SimEngine of `capacity` rows, the engine flushed, a Daemon in front.
+    Returns {"store", "engine", "reconciler", "daemon", "crs",
+    "reconcile_s"} — reconcile_s is the drain plus the device flush,
+    ended by a device sync."""
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    import time
+
+    dev = resolve_device(device)
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=capacity, node_ip=node_ip,
+                       device=dev)
+    crs = clos_crs(n_spine, n_leaf, links_per_pair, props, node_ip)
+    for t in crs:
+        store.create(t)
+    engine.warm_kernels()
+    rec = Reconciler(store, engine)
+    t0 = time.perf_counter()
+    rec.drain()
+    engine.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    reconcile_s = time.perf_counter() - t0
+    n_links = n_spine * n_leaf * links_per_pair
+    if engine.num_active != 2 * n_links:
+        raise AssertionError(f"{engine.num_active} rows realized, "
+                             f"expected {2 * n_links}")
+    return {"store": store, "engine": engine, "reconciler": rec,
+            "daemon": Daemon(engine), "crs": crs,
+            "reconcile_s": reconcile_s}
+
+
+def build_plane(daemon, **kwargs):
+    """The live WireDataPlane over `daemon` (its engine's device);
+    `kwargs` go to WireDataPlane (dt_us, max_slots, seed,
+    pipeline_depth)."""
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+
+    return WireDataPlane(daemon, **kwargs)

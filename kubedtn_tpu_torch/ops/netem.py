@@ -414,6 +414,9 @@ roll_epoch_nodonate = roll_epoch
 CLASS_SEQ = 0
 CLASS_IND = 1
 CLASS_TBF = 2
+# the live plane's TBF fallback re-shape (runtime.py): the sequential core
+# under its own class id, counter blocks 6 and 7, which no tick draw uses
+CLASS_FALLBACK = 3
 
 
 def row_keys(key_ids, R: int, device) -> tuple:
@@ -436,8 +439,9 @@ def uniform_rows(key, cls: int, key_ids, R: int, K: int,
 
     lo, hi = row_keys(key_ids, R, device)
     slot = torch.arange(K, dtype=torch.int64, device=device)
-    block = torch.tensor([2 * cls, 2 * cls + 1], dtype=torch.int64,
-                         device=device)
+    # arange, not a tensor from a host list: a host-to-device copy from
+    # pageable memory would wait for every kernel queued on the stream
+    block = torch.arange(2, dtype=torch.int64, device=device) + 2 * cls
     w = philox.philox4x32((lo[:, None, None], hi[:, None, None],
                            slot[None, :, None], block[None, None, :]), key)
     lanes = [w[0][..., 0], w[1][..., 0], w[2][..., 0], w[3][..., 0],
@@ -502,15 +506,16 @@ def shape_rows_indep(props_rows, active_rows, sizes, valid, key,
 
 
 def shape_rows_seq(props_rows, active_rows, carry0, sizes, valid, key,
-                   key_ids=None, *, u=None):
+                   key_ids=None, *, u=None, cls: int = CLASS_SEQ):
     """Sequential (correlated / reorder) class core over pre-gathered
     rows: a loop over the K slots, each one `shape_rows` step; a slot
     whose lane is not `valid & active` keeps the row's state. `carry0` =
     (tokens[R], t_last[R], backlog[R], corr[R, NCORR], pkt_count[R]).
-    Returns (carry', ShapeResult[R, K])."""
+    `cls` is the class id of the keyed draws (CLASS_FALLBACK for the
+    plane's TBF fallback re-shape). Returns (carry', ShapeResult[R, K])."""
     R, K = sizes.shape
     dev = sizes.device
-    u = _cell_uniforms(u, key, CLASS_SEQ, key_ids, R, K, dev)
+    u = _cell_uniforms(u, key, cls, key_ids, R, K, dev)
     t_arr = torch.zeros(R, dtype=torch.float32, device=dev)
     tk, tl, nf, corr, cnt = carry0
     slots = []

@@ -576,3 +576,126 @@ def test_routed_run_on_the_card_repeats_and_equals_the_cpu(dev, k_paths):
                                        atol=1e-2, msg=name)
 
     close(on_card, on_cpu, "")
+
+
+# -- the host live plane on the card ----------------------------------------
+
+PLANE_PROPS = (dict(latency="10ms"), dict(rate="1Mbit"),
+               dict(latency="5ms", latency_corr="30"),
+               dict(latency="2ms", rate="20Mbit"))
+
+
+def _plane(device, depth, props=PLANE_PROPS, seed=0):
+    """A small live plane (one pod pair per props entry, wires on both
+    ends) through the port's store, reconciler and engine on `device`."""
+    import types
+
+    from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
+                                             Topology, TopologySpec)
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=64, device=device)
+    for i, p in enumerate(props):
+        lp = LinkProperties(**p)
+        for a, b in ((f"a{i}", f"b{i}"), (f"b{i}", f"a{i}")):
+            store.create(Topology(name=a, spec=TopologySpec(links=[
+                Link(local_intf="eth1", peer_intf="eth1", peer_pod=b,
+                     uid=i + 1, properties=lp)])))
+        engine.setup_pod(f"a{i}")
+        engine.setup_pod(f"b{i}")
+    Reconciler(store, engine).drain()
+    daemon = Daemon(engine)
+    plane = WireDataPlane(daemon, dt_us=10_000, seed=seed,
+                          pipeline_depth=depth)
+    plane.pipeline_explicit_clock = True
+
+    def wd(pod, uid):
+        return types.SimpleNamespace(
+            local_pod_name=pod, kube_ns="default", link_uid=uid,
+            intf_name_in_pod="eth1", veth_name_local_host="",
+            peer_intf_id=0, peer_ip="")
+
+    win = [daemon._add_wire(wd(f"a{i}", i + 1)) for i in range(len(props))]
+    wout = [daemon._add_wire(wd(f"b{i}", i + 1)) for i in range(len(props))]
+    return engine, plane, win, wout
+
+
+def _drive_plane(device, depth, shards=None, ticks=8, drain=30):
+    engine, plane, win, wout = _plane(device, depth)
+    if shards:
+        plane.enable_sharding(n_devices=shards) if device == "cpu" else \
+            plane.enable_sharding([torch.device(device)] * shards)
+    rng = np.random.default_rng(1)
+    got = [[] for _ in wout]
+    for t in range(ticks + drain):
+        if t < ticks:
+            for k, w in enumerate(win):
+                w.ingress.extend(
+                    bytes([k, t]) + j.to_bytes(2, "big") + b"\x5a" * int(s)
+                    for j, s in enumerate(rng.integers(60, 1497,
+                                                       (20, 30, 70, 40)[k])))
+        plane.tick(now_s=(t + 1) * 0.01)
+        for k, w in enumerate(wout):
+            while w.egress:
+                got[k].append((t, w.egress.popleft()))
+    assert plane.tick_errors == 0 and not plane._inflight
+    counters = {f.name: getattr(plane.counters, f.name).copy()
+                for f in dataclasses.fields(plane.counters)}
+    return got, plane, counters, engine
+
+
+def test_plane_depth1_equals_depth2_on_card(dev):
+    g1, p1, c1, _ = _drive_plane("cuda", 1)
+    g2, p2, c2, _ = _drive_plane("cuda", 2)
+    assert [[f for _t, f in w] for w in g1] == \
+        [[f for _t, f in w] for w in g2]
+    assert (p1.shaped, p1.dropped) == (p2.shaped, p2.dropped)
+    for k in c1:
+        np.testing.assert_array_equal(c1[k], c2[k], err_msg=k)
+    assert p1.fallbacks > 0 and p1.shaped > 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_plane_on_card_equals_cpu_on_deterministic_links(dev, depth):
+    gc, pc, cc, ec = _drive_plane("cuda", depth)
+    gh, ph, ch, eh = _drive_plane("cpu", depth)
+    assert gc == gh  # bytes, order and release tick
+    assert (pc.shaped, pc.dropped) == (ph.shaped, ph.dropped)
+    for k in cc:
+        np.testing.assert_array_equal(cc[k], ch[k], err_msg=k)
+    for f in ("tokens", "t_last", "backlog_until"):
+        torch.testing.assert_close(getattr(ec.state, f).cpu(),
+                                   getattr(eh.state, f), rtol=1e-5,
+                                   atol=1e-2, msg=f)
+    assert torch.equal(ec.state.pkt_count.cpu(), eh.state.pkt_count)
+
+
+def test_sharded_plane_on_card_equals_unsharded(dev):
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    g1, p1, c1, _ = _drive_plane("cuda", 2)
+    pex.reset_launches()
+    g2, p2, c2, _ = _drive_plane("cuda", 2, shards=2)
+    assert pex.LAUNCHES["ring_step"] > 0
+    assert g1 == g2
+    assert (p1.shaped, p1.dropped) == (p2.shaped, p2.dropped)
+    for k in c1:
+        np.testing.assert_array_equal(c1[k], c2[k], err_msg=k)
+
+
+def test_native_library_builds_on_card_machine(dev):
+    from kubedtn_tpu_torch import native
+
+    assert native.have_native()
+    assert native.library_path().exists()
+    w = native.TimingWheel(tick_us=1000)
+    w.schedule_batch(np.array([5000.0, 1000.0, 3000.0]),
+                     np.array([7, 8, 9], np.uint64))
+    assert w.next_due_us() is not None
+    assert w.advance_np(4000).tolist() == [8, 9]
+    assert w.advance_np(9000).tolist() == [7]

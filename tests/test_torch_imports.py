@@ -49,6 +49,23 @@ def test_port_modules_are_found():
         assert want in mods
 
 
+# the host live plane's modules
+LIVE_PLANE_MODULES = (
+    "kubedtn_tpu_torch.contracts", "kubedtn_tpu_torch.utils.logging",
+    "kubedtn_tpu_torch.fault", "kubedtn_tpu_torch.pauses",
+    "kubedtn_tpu_torch.native", "kubedtn_tpu_torch.topology",
+    "kubedtn_tpu_torch.topology.freelist",
+    "kubedtn_tpu_torch.topology.store", "kubedtn_tpu_torch.topology.engine",
+    "kubedtn_tpu_torch.topology.reconciler", "kubedtn_tpu_torch.wire.proto",
+    "kubedtn_tpu_torch.wire.client", "kubedtn_tpu_torch.wire.server",
+)
+
+
+@pytest.mark.parametrize("want", LIVE_PLANE_MODULES)
+def test_live_plane_modules_are_found(want):
+    assert want in port_modules()
+
+
 def test_import_loads_no_jax_in_a_fresh_process():
     """A subprocess, because this test process already imported jax
     (tests/conftest.py)."""
