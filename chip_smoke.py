@@ -70,7 +70,28 @@ Phases, each fatal on failure:
      on two cards where there are two: == unsharded; (e) where grpc and
      protobuf import: the real-time runner behind a gRPC server, 8 pairs
      at 5 ms, 20,000 frames per wire over SendToBulk from a client
-     process, all delivered in order, median frames/s of 3 rounds.
+     process, all delivered in order, median frames/s of 3 rounds;
+ 13. two daemons in this process, each behind a real gRPC server on
+     127.0.0.1, both engines on the card, the launch counts set to 0
+     just before: (a) the Clos's 600 CRs with leaves 0-61 placed on node
+     B and every other pod on node A (12,400 cross-node links); each
+     node's reconciler realizes its own pods, the far ends through
+     Remote.Update (reconcile-to-steady timed), both nodes' realized
+     columns == two CPU nodes' from the same CRs; (b) the first 3 x
+     4,096 cross-node links re-shaped into phase 12's three classes, B's
+     wire ends by AddGRPCWireRemote, A's ends pointing at them; phase
+     12's feed for 8 ticks at depth 1 through A's plane, whose released
+     frames stage in the 4 MiB remote ring and cross to B over
+     SendToBulk: the books close (per edge; released == staged +
+     ring-dropped, charged per row; staged == sent + queue-dropped +
+     forwarding errors; sent == arrived at B's pod side), the ring-drop
+     share, wall ms per tick and frames/s arrived at B reported; (c) 1
+     frame per wire and tick for 32 ticks (fits the ring: 0 ring and
+     queue drops): B's pod-side egress per wire is the same at depth 1,
+     at depth 2 with telemetry and at depth 2 under a 50 ms / 50 % flap
+     of B (breaker opened, retried, no forwarding error); on 4 ticks of
+     it, B answering SendToBulk UNIMPLEMENTED (the per-frame
+     SendToStream fallback) == the bulk transport.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -1212,15 +1233,15 @@ def plane_wires(daemon, classes):
     return win, wout
 
 
-def feed_tick(win, t: int, rng) -> int:
-    """1..PLANE_MAX_FRAMES tagged frames on every ingress wire, as ONE
+def feed_tick(win, t: int, rng, max_frames: int = PLANE_MAX_FRAMES) -> int:
+    """1..max_frames tagged frames on every ingress wire, as ONE
     FrameSeg window each over one blob for the tick (the bulk ingress
     form). A frame's first 8 bytes are its tag (wire, tick, index).
     Returns the frames fed."""
     from kubedtn_tpu_torch.wire.server import FrameSeg
 
     n = len(win)
-    counts = rng.integers(1, PLANE_MAX_FRAMES + 1, n)
+    counts = rng.integers(1, max_frames + 1, n)
     total = int(counts.sum())
     lens = rng.integers(*PLANE_SIZES, total).astype(np.uint64)
     offs = np.zeros(total, np.uint64)
@@ -1646,6 +1667,593 @@ def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
     return m, k4
 
 
+# -- phase 13: two daemons, cross-node egress --------------------------------
+
+XN_B_LEAVES = 62            # leaves 0..61 on node B: 100 x 62 x 2 links
+XN_TICKS = 8                # full-feed ticks (phase 12's feed; 16 there:
+#                             a tick here takes 4.0-5.2 s on an NVIDIA
+#                             H100 80GB HBM3 at 700.00 W, PERF.md, and 8
+#                             keep the script in its time budget)
+XN_EQ_TICKS = 32            # equality-feed ticks, 1 frame per wire: each
+#                             first failure under the flap opens the
+#                             breaker with probability ~1/4 (two more
+#                             attempts land in a down half); 16 ticks
+#                             gave one open on the card (PERF.md)
+XN_REF_TICKS = 4            # the reference-peer round's ticks: the
+#                             per-frame stream moved ~2,000 frames/s
+#                             with both daemons in one interpreter (NVIDIA
+#                             H100 80GB HBM3 host, 700.00 W, PERF.md)
+XN_FLUSH_S = 120.0          # bound on every flush_peers wait
+XN_CHILD_S = 600.0          # bound on every answer of node B's process
+XN_FLAP = (0.05, 0.5)       # flap period (s) and share down, run (c)
+XN_FORWARD_TIMEOUT_S = 30.0  # node A's deadline floor in this phase:
+#                              an attempt's deadline, forward_timeout_s +
+#                              0.02 s a 256-frame chunk, is priced for
+#                              bulk chunks; at the Daemon's default 0.5 s
+#                              slices missed it on the card (the stream
+#                              fallback; bulk slices while A's tick held
+#                              the interpreter lock) and their retries
+#                              delivered frames twice (ROADMAP §3,
+#                              PERF.md); the phase checks exactly-once
+#                              books
+
+
+class _AdapterClient:
+    """An in-process peer: Update(request) on another Daemon (the CPU
+    reference of 13(a) runs without sockets)."""
+
+    def __init__(self, daemon) -> None:
+        self.daemon = daemon
+
+    def Update(self, request):
+        return self.daemon.Update(request, None)
+
+
+def _peer_daemon_cls():
+    """Node B's Daemon; with refuse_bulk it answers SendToBulk
+    UNIMPLEMENTED, as a reference-built daemon does."""
+    import grpc
+
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    class PeerDaemon(Daemon):
+        refuse_bulk = False
+
+        def SendToBulk(self, request_iterator, context):
+            if self.refuse_bulk:
+                context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                              "method SendToBulk not implemented")
+            return super().SendToBulk(request_iterator, context)
+
+    return PeerDaemon
+
+
+def xn_node_b_main(conn, dev: str, cap: int) -> None:
+    """Node B's process: its store, engine on `dev`, Daemon and gRPC
+    server on 127.0.0.1 port 0, then one answer ("ok", value) or
+    ("err", traceback) per request (op, args) from the script until
+    "stop". Its first message is its address."""
+    import hashlib
+    import traceback
+
+    from kubedtn_tpu_torch.wire.server import make_server
+
+    try:
+        n = xn_node(torch.device(dev), [], "", cap,
+                    daemon_cls=_peer_daemon_cls())
+        srv, port = make_server(n["daemon"], port=0, host="127.0.0.1",
+                                log_rpcs=False)
+        srv.start()
+        addr = n["engine"].node_ip = f"127.0.0.1:{port}"
+    except BaseException:
+        conn.send(("err", traceback.format_exc()))
+        return
+    engine, daemon = n["engine"], n["daemon"]
+
+    def crs(addr_a, n_spine, n_leaf, n_b):
+        for t in xn_crs(n_spine, n_leaf, n_b, addr_a, addr, "b"):
+            n["store"].create(t)
+        engine.warm_kernels()
+
+    def reconcile():
+        n["reconciler"].drain()
+        engine.flush()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        return engine.num_active, engine.stats.remote_errors
+
+    def columns():
+        st = engine.state
+        return dict(engine._rows), {
+            f.name: getattr(st, f.name).cpu().numpy()
+            for f in dataclasses.fields(st)}
+
+    def egress(keys):
+        """Per wire end: digest and count of its pod-side egress, then
+        cleared."""
+        digests, counts = [], []
+        for key in keys:
+            w = daemon.wires.get_by_key(*key)
+            frames = list(w.egress)
+            w.egress.clear()
+            digests.append(hashlib.blake2b(b"".join(frames),
+                                           digest_size=16).hexdigest())
+            counts.append(len(frames))
+        return digests, counts
+
+    def refuse_bulk(flag):
+        daemon.refuse_bulk = flag
+
+    ops = {"crs": crs, "reconcile": reconcile, "columns": columns,
+           "egress": egress, "refuse_bulk": refuse_bulk,
+           "has_wires": lambda keys: [daemon.wires.get_by_key(*k)
+                                      is not None for k in keys],
+           "bulk_unresolved": lambda: daemon.bulk_unresolved}
+    conn.send(("ok", addr))
+    try:
+        while True:
+            op, args = conn.recv()
+            if op == "stop":
+                break
+            try:
+                conn.send(("ok", ops[op](*args)))
+            except BaseException:
+                conn.send(("err", traceback.format_exc()))
+    finally:
+        srv.stop(0)
+        conn.close()
+
+
+class NodeB:
+    """Node B in a child process (spawned: the card cannot be shared
+    through a fork), so its handlers do not take A's interpreter lock:
+    two daemons on two nodes are two processes. Calling it runs one op
+    there and returns its value."""
+
+    def __init__(self, dev, cap: int) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=xn_node_b_main,
+                                args=(child, str(dev), cap), daemon=True)
+        self.proc.start()
+        child.close()
+        self.addr = self._answer("start")
+
+    def _answer(self, op: str):
+        check(self.conn.poll(XN_CHILD_S),
+              f"13: node B did not answer {op} in {XN_CHILD_S} s")
+        try:
+            status, out = self.conn.recv()
+        except EOFError:
+            fail(f"13: node B's process ended at {op} (exit code "
+                 f"{self.proc.exitcode})")
+        check(status == "ok", f"13: node B failed {op}: {out}")
+        return out
+
+    def __call__(self, op: str, *args):
+        self.conn.send((op, args))
+        return self._answer(op)
+
+    def close(self) -> None:
+        try:
+            self.conn.send(("stop", ()))
+        except OSError:
+            pass
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.conn.close()
+
+
+def xn_crs(n_spine, n_leaf, n_b, addr_a, addr_b, owner):
+    """The Clos CRs as node `owner` ("a" or "b") sees the cluster:
+    leaves 0..n_b-1 are placed on node B, every other pod on node A;
+    the other node's pods are recorded as realized there (status.links
+    == spec.links), so this node's reconciler realizes only its own."""
+    from kubedtn_tpu_torch import entry
+
+    crs = entry.clos_crs(n_spine, n_leaf, node_ip=addr_a)
+    for t in crs:
+        on_b = t.name.startswith("leaf") and int(t.name[4:]) < n_b
+        if on_b:
+            t.status.src_ip = addr_b
+        if on_b != (owner == "b"):
+            t.status.links = list(t.spec.links)
+    return crs
+
+
+def xn_node(dev, crs, addr, capacity, daemon_cls=None, dialer=None):
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=capacity, node_ip=addr, device=dev,
+                       dialer=dialer)
+    for t in crs:
+        store.create(t)
+    return {"store": store, "engine": engine,
+            "reconciler": Reconciler(store, engine),
+            "daemon": (daemon_cls or Daemon)(engine)}
+
+
+def xn_reconcile(a, b) -> None:
+    """Two in-process nodes (the CPU reference of 13(a)): node A's
+    reconciler, then node B's (each realizes its own pods, completing
+    the far ends through Remote.Update), then A's engine flushed again,
+    as the card's nodes run."""
+    a["reconciler"].drain()
+    a["engine"].flush()
+    b["reconciler"].drain()
+    b["engine"].flush()
+    a["engine"].flush()
+
+
+def xn_classes(a, n_rows: int, n_b: int) -> dict:
+    """The first 3 * n_rows cross-node links (spine -> leaf on B) in
+    spine order, a third per kernel class, re-shaped by one UpdateLinks
+    per spine CR through node A's handler."""
+    from kubedtn_tpu_torch.api.types import LinkProperties
+
+    kinds = ("tbf", "seq", "ind")
+    out = {k: [] for k in kinds}
+    need, i = 3 * n_rows, 0
+    for t in sorted(a["store"].list(), key=lambda t: (len(t.name), t.name)):
+        if not t.name.startswith("spine") or i >= need:
+            continue
+        new = []
+        for link in t.spec.links:
+            if i >= need or int(link.peer_pod[4:]) >= n_b:
+                continue
+            kind = kinds[i // n_rows]
+            props = CLASS_PROPS[kind][i % len(CLASS_PROPS[kind])]
+            new.append(link.with_properties(LinkProperties(**props)))
+            out[kind].append((t.name, link.peer_pod, link.uid))
+            i += 1
+        if new:
+            update_links_rpc(a["daemon"], t.name, new)
+    check(i == need, f"13(b): only {i} cross-node links, need {need}")
+    return out
+
+
+def xn_wires(a, nb, addr_a, addr_b, classes):
+    """B's wire ends by AddGRPCWireRemote over gRPC, then A's ends
+    pointing at them. Returns (A's ingress wires, the keys of B's
+    pod-side wire ends)."""
+    import types
+
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+
+    c = DaemonClient(addr_b)
+    win, keys = [], []
+    try:
+        for links in classes.values():
+            for spine, leaf, uid in links:
+                r = c.AddGRPCWireRemote(pb.WireDef(
+                    local_pod_name=leaf, kube_ns="default", link_uid=uid,
+                    intf_name_in_pod="eth1", peer_ip=addr_a))
+                check(r.response, "13(b): AddGRPCWireRemote failed")
+                win.append(a["daemon"]._add_wire(types.SimpleNamespace(
+                    local_pod_name=spine, kube_ns="default", link_uid=uid,
+                    intf_name_in_pod="eth1", veth_name_local_host="",
+                    peer_intf_id=r.peer_intf_id, peer_ip=addr_b)))
+                keys.append((f"default/{leaf}", uid))
+    finally:
+        c.close()
+    check(all(nb("has_wires", keys)), "13(b): a wire end at B is missing")
+    return win, keys
+
+
+def xn_run(a, nb, addr_b, keys, win, state0, seed: int, depth: int,
+           ticks: int, max_frames: int, name: str, telemetry: bool = False,
+           chaos=None):
+    """One run of phase 13: a fresh plane on node A over its engine
+    restored to `state0`, `ticks` explicit-clock feed ticks of
+    PLANE_DT_S (1..max_frames frames per ingress wire), idle ticks until
+    the delay line is empty (under `chaos`, B flaps until then), then
+    flush_peers. Returns B's pod-side egress per wire end `keys`
+    (digests, counts) and A's books."""
+    from kubedtn_tpu_torch import entry, runtime
+
+    engine = a["engine"]
+    engine.state = clone_state(state0)
+    plane = entry.build_plane(a["daemon"], dt_us=PLANE_DT_S * 1e6,
+                              seed=seed, pipeline_depth=depth)
+    plane.pipeline_explicit_clock = True
+    if telemetry:
+        plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+    if chaos is not None:
+        plane.attach_chaos(chaos)
+        chaos.flap_peer(addr_b, *XN_FLAP)
+    errors0 = a["daemon"].forward_errors
+    unresolved0 = nb("bulk_unresolved")
+    # staged frames = what the remote stage hands the per-peer senders
+    staged = [0]
+    enqueue = runtime._PeerSender.enqueue
+
+    def counting(self, packets, traced=None):
+        staged[0] += len(packets)
+        return enqueue(self, packets, traced)
+
+    runtime._PeerSender.enqueue = counting
+    rng = np.random.default_rng(seed)
+    fed, walls = 0, []
+    try:
+        t_start = time.perf_counter()
+        t = 0
+        for t in range(ticks):
+            fed += feed_tick(win, t, rng, max_frames)
+            w0 = time.perf_counter()
+            plane.tick(now_s=(t + 1) * PLANE_DT_S)
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - w0)
+        for _ in range(PLANE_DRAIN_TICKS):
+            t += 1
+            plane.tick(now_s=(t + 1) * PLANE_DT_S)
+            if (not plane._inflight and not plane._holdback
+                    and len(plane._wheel) == 0):
+                break
+        plane.flush()
+        if chaos is not None:
+            # the flap lasts as long as the ticks; healed, the breaker
+            # closes at its next half-open probe and the outage buffer
+            # drains (the probe cooldown doubles on every failed probe,
+            # and a period that divides it keeps probing the down half)
+            chaos.heal_peer(addr_b)
+        flushed = plane.flush_peers(XN_FLUSH_S)
+        deliver_s = time.perf_counter() - t_start
+        stats = plane.peer_fault_stats().get(addr_b, {})
+        digests, counts = nb("egress", keys)
+        log(f"13 run {name}: fed {fed}, released {plane.shaped}, staged "
+            f"{staged[0]}, ring-dropped {plane.ring_dropped}, arrived at B "
+            f"{sum(counts)}, peer {stats}, forward errors "
+            f"{a['daemon'].forward_errors - errors0}; median "
+            f"{1e3 * statistics.median(walls):.3f} ms/tick, "
+            f"{deliver_s:.3f} s to flushed")
+        check(flushed, f"13 {name}: the per-peer senders did not empty "
+                       f"within {XN_FLUSH_S} s")
+    finally:
+        runtime._PeerSender.enqueue = enqueue
+    out = {"digests": digests, "counts": counts, "fed": fed,
+           "plane": plane, "counters": plane.counters,
+           "staged": staged[0], "ring_dropped": plane.ring_dropped,
+           "queue_dropped": plane.peer_queue_dropped,
+           "forward_errors": a["daemon"].forward_errors - errors0,
+           "bulk_unresolved": nb("bulk_unresolved") - unresolved0,
+           "peer": stats, "wall_ms_per_tick":
+           1e3 * statistics.median(walls), "deliver_s": deliver_s}
+    plane.stop()
+    check(plane.tick_errors == 0, "13: tick errors on node A's plane")
+    check(len(plane._wheel) == 0 and not plane._pending,
+          "13: node A's delay line not empty after the drain")
+    return out
+
+
+def xn_books(r: dict, name: str) -> None:
+    """Per edge rx + loss + queue == tx, shaped + dropped == fed; every
+    released frame (all bound for node B) staged or ring-dropped, the
+    drops charged per row; staged == sent + queue-dropped + forwarding
+    errors; sent == the frames that arrived at B's pod side."""
+    c, p = r["counters"], r["plane"]
+    check(np.array_equal(c.rx_packets + c.dropped_loss + c.dropped_queue,
+                         c.tx_packets), f"{name}: per-edge books open")
+    check(p.shaped + p.dropped == r["fed"] == int(c.tx_packets.sum()),
+          f"{name}: shaped {p.shaped} + dropped {p.dropped} != fed "
+          f"{r['fed']}")
+    check(p.shaped == r["staged"] + r["ring_dropped"],
+          f"{name}: released {p.shaped} != staged {r['staged']} + "
+          f"ring-dropped {r['ring_dropped']}")
+    check(int(c.dropped_ring.sum()) == r["ring_dropped"],
+          f"{name}: per-row dropped_ring {int(c.dropped_ring.sum())} != "
+          f"ring_dropped {r['ring_dropped']}")
+    sent = r["peer"].get("sent", 0)
+    check(r["staged"] == sent + r["queue_dropped"] + r["forward_errors"],
+          f"{name}: staged {r['staged']} != sent {sent} + queue-dropped "
+          f"{r['queue_dropped']} + forward errors {r['forward_errors']}")
+    check(sent == sum(r["counts"]), f"{name}: sent {sent} != arrived at "
+                                    f"B {sum(r['counts'])}")
+    check(r["bulk_unresolved"] == 0, f"{name}: bulk_unresolved at B")
+
+
+def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
+                         n_b: int = XN_B_LEAVES,
+                         n_rows: int = PLANE_ROWS) -> dict:
+    """Phase 13: two daemons, node A in this process and node B in a
+    child process, each behind a real gRPC server on 127.0.0.1, both
+    engines on `dev`; node A's plane sends its released cross-node
+    frames to node B."""
+    import types
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.chaos import ChaosInjector
+    from kubedtn_tpu_torch.wire.server import make_server
+
+    n_spine = n_spine or entry.N_SPINE
+    n_leaf = n_leaf or entry.N_LEAF
+    lpp = entry.LINKS_PER_PAIR
+    rows_b = n_spine * n_b * lpp
+    rows_a = n_spine * (n_leaf - n_b) * lpp * 2 + rows_b
+    cap_a = 1 << max(10, (rows_a - 1).bit_length())
+    cap_b = 1 << max(10, (rows_b - 1).bit_length())
+    m = {"b_leaves": n_b, "cross_links": rows_b}
+
+    # (a) two nodes: servers first (their ports are the node addresses)
+    srv, nb = None, None
+    try:
+        nb = NodeB(dev, cap_b)
+        a = xn_node(dev, [], "", cap_a)
+        a["daemon"].forward_timeout_s = XN_FORWARD_TIMEOUT_S
+        srv, port = make_server(a["daemon"], port=0, host="127.0.0.1",
+                                log_rpcs=False)
+        srv.start()
+        addr_a, addr_b = f"127.0.0.1:{port}", nb.addr
+        a["engine"].node_ip = addr_a
+        for t in xn_crs(n_spine, n_leaf, n_b, addr_a, addr_b, "a"):
+            a["store"].create(t)
+        a["engine"].warm_kernels()
+        nb("crs", addr_a, n_spine, n_leaf, n_b)
+        # A's reconciler, then B's (each realizes its own pods, the far
+        # ends through Remote.Update), then A's engine flushed again
+        t0 = time.perf_counter()
+        a["reconciler"].drain()
+        a["engine"].flush()
+        active_b, errors_b = nb("reconcile")
+        a["engine"].flush()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        m["reconcile_s"] = time.perf_counter() - t0
+        check(a["engine"].num_active == rows_a and active_b == rows_b,
+              f"13(a): {a['engine'].num_active} + {active_b} rows "
+              f"realized, expected {rows_a} + {rows_b}")
+        check(a["engine"].stats.remote_errors == 0 and errors_b == 0,
+              "13(a): Remote.Update failed")
+        # the CPU reference: the same two nodes on the CPU, Remote.Update
+        # in process
+        ref = {}
+        for name, cap, addr in (("a", cap_a, addr_a), ("b", cap_b, addr_b)):
+            other = "b" if name == "a" else "a"
+            ref[name] = xn_node(
+                "cpu", xn_crs(n_spine, n_leaf, n_b, addr_a, addr_b, name),
+                addr, cap,
+                dialer=lambda ip, o=other: _AdapterClient(ref[o]["daemon"]))
+        xn_reconcile(ref["a"], ref["b"])
+        same_columns(a, ref["a"], "13(a) node A vs the CPU nodes")
+        rows, cols = nb("columns")
+        b_view = {"engine": types.SimpleNamespace(
+            _rows=rows, state=dataclasses.replace(
+                ref["b"]["engine"].state,
+                **{k: torch.from_numpy(v) for k, v in cols.items()}))}
+        same_columns(b_view, ref["b"], "13(a) node B vs the CPU nodes")
+        del ref, b_view
+        log(f"13(a) two nodes: {n_spine + n_leaf} CRs, leaves "
+            f"0..{n_b - 1} on node B (a process of its own); node A "
+            f"{rows_a} rows, node B {rows_b} rows ({rows_b} cross-node "
+            f"links); reconcile-to-steady {m['reconcile_s']:.3f} s (A's "
+            f"reconciler, then B's, far ends through Remote.Update over "
+            f"gRPC); both nodes' realized columns == the CPU nodes' from "
+            f"the same CRs; node A's deadline floor "
+            f"{XN_FORWARD_TIMEOUT_S} s ({card})")
+
+        # (b) full feed
+        classes = xn_classes(a, n_rows, n_b)
+        t0 = time.perf_counter()
+        win, keys = xn_wires(a, nb, addr_a, addr_b, classes)
+        m["wires_s"] = time.perf_counter() - t0
+        a["engine"].flush()
+        state0 = clone_state(a["engine"].state)
+        seed = 13
+        full = xn_run(a, nb, addr_b, keys, win, state0, seed, depth=1,
+                      ticks=XN_TICKS, max_frames=PLANE_MAX_FRAMES,
+                      name="(b) full feed")
+        xn_books(full, "13(b) full feed")
+        p = full["plane"]
+        arrived = sum(full["counts"])
+        m["full"] = {
+            "wires": len(win), "ticks": XN_TICKS, "fed": full["fed"],
+            "shaped": p.shaped, "dropped": p.dropped,
+            "staged": full["staged"], "ring_dropped": full["ring_dropped"],
+            "ring_drop_share": full["ring_dropped"] / max(p.shaped, 1),
+            "sent": full["peer"].get("sent", 0), "arrived_at_b": arrived,
+            "wall_ms_per_tick": full["wall_ms_per_tick"],
+            "deliver_s": full["deliver_s"],
+            "delivered_per_s_at_b": arrived / full["deliver_s"],
+            "wires_s": m["wires_s"], "stage": p.stage_breakdown()}
+        mf = m["full"]
+        log(f"13(b) full feed: {len(win)} cross-node wires, {XN_TICKS} "
+            f"ticks of {PLANE_DT_S * 1e3:.0f} ms at depth 1, "
+            f"{full['fed']} frames fed, {p.shaped} released to node B, "
+            f"{full['staged']} staged + {full['ring_dropped']} ring-dropped "
+            f"(share {mf['ring_drop_share']:.4f}); books closed: per edge, "
+            f"released == staged + ring_dropped == per-row dropped_ring "
+            f"sum + staged, staged == sent {mf['sent']} + queue-dropped "
+            f"{full['queue_dropped']} + forward errors "
+            f"{full['forward_errors']}, sent == arrived at B")
+        log(f"13(b) wall {mf['wall_ms_per_tick']:.3f} ms/tick (median), "
+            f"{mf['delivered_per_s_at_b']:.1f} frames/s arrived at B "
+            f"({arrived} in {full['deliver_s']:.3f} s from the first "
+            f"feed tick to flush_peers); stage shares "
+            f"{mf['stage']['share']}; B's {len(keys)} wire ends by "
+            f"AddGRPCWireRemote + A's ends in {m['wires_s']:.3f} s "
+            f"({card})")
+
+        # (c) equality feed: 1 frame per wire and tick fits the ring
+        def eq(depth, name, ticks=XN_EQ_TICKS, **kw):
+            r = xn_run(a, nb, addr_b, keys, win, state0, seed + 1,
+                       depth=depth, ticks=ticks, max_frames=1, name=name,
+                       **kw)
+            xn_books(r, f"13{name}")
+            check(r["ring_dropped"] == 0 and r["queue_dropped"] == 0,
+                  f"13(c): ring {r['ring_dropped']} / queue "
+                  f"{r['queue_dropped']} drops at the equality feed")
+            return r
+
+        def same_at_b(x, y, name):
+            check(x["counts"] == y["counts"], f"{name}: per-wire counts "
+                                              f"at B differ")
+            check(x["digests"] == y["digests"], f"{name}: per-wire bytes "
+                                                f"at B differ")
+
+        e1 = eq(1, "(c) depth 1")
+        e2 = eq(2, "(c) depth 2 + telemetry", telemetry=True)
+        same_at_b(e1, e2, "13(c) depth 2 + telemetry vs depth 1")
+        # the reference peer on the first XN_REF_TICKS ticks of the same
+        # feed, against the bulk transport on the same ticks
+        eb = eq(1, "(c) bulk, reference round's ticks", ticks=XN_REF_TICKS)
+        nb("refuse_bulk", True)
+        try:
+            er = eq(1, "(c) reference peer", ticks=XN_REF_TICKS)
+        finally:
+            nb("refuse_bulk", False)
+        check(a["daemon"].peer_bulk_ok.get(addr_b) is False,
+              "13(c) reference peer: the stream latch never set")
+        same_at_b(er, eb, "13(c) reference peer (SendToStream) vs bulk")
+        a["daemon"].reset_peer_bulk(addr_b)
+        chaos = ChaosInjector(seed=13)
+        ef = eq(2, "(c) depth 2 under the flap", chaos=chaos)
+        fs = ef["peer"]
+        check(fs.get("opens", 0) >= 1 and fs.get("retries", 0) >= 1,
+              f"13(c) flap: breaker opens {fs.get('opens')} / retries "
+              f"{fs.get('retries')}")
+        check(ef["forward_errors"] == 0, "13(c) flap: forwarding errors")
+        same_at_b(ef, e1, "13(c) depth 2 under the flap vs depth 1")
+        m["equality"] = {
+            "ticks": XN_EQ_TICKS, "reference_ticks": XN_REF_TICKS,
+            "fed": e1["fed"],
+            "arrived_at_b": sum(e1["counts"]),
+            "wall_ms_per_tick": {"depth1": e1["wall_ms_per_tick"],
+                                 "depth2_telemetry": e2["wall_ms_per_tick"],
+                                 "reference_peer": er["wall_ms_per_tick"],
+                                 "flap": ef["wall_ms_per_tick"]},
+            "deliver_s": {"depth1": e1["deliver_s"],
+                          "bulk_reference_ticks": eb["deliver_s"],
+                          "reference_peer": er["deliver_s"],
+                          "flap": ef["deliver_s"]},
+            "flap_peer": fs, "chaos_injected": dict(chaos.injected)}
+        log(f"13(c) equality feed: {XN_EQ_TICKS} ticks x {len(win)} "
+            f"frames, {sum(e1['counts'])} arrived at B, 0 ring and 0 "
+            f"queue drops; depth 1 == depth 2 + telemetry == depth 2 "
+            f"under a {XN_FLAP[0]} s / {XN_FLAP[1]} flap of B, byte for "
+            f"byte per wire at B; on the first {XN_REF_TICKS} ticks the "
+            f"reference peer (SendToBulk UNIMPLEMENTED, SendToStream) "
+            f"== the bulk transport, {sum(er['counts'])} frames; flap: "
+            f"breaker opens {fs['opens']}, half-opens "
+            f"{fs['half_opens']}, closes {fs['closes']}, retries "
+            f"{fs['retries']}, forward errors 0; wall ms/tick "
+            f"{m['equality']['wall_ms_per_tick']} ({card})")
+    finally:
+        if srv is not None:
+            srv.stop(0)
+        if nb is not None:
+            nb.close()
+    return m
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1702,8 +2310,14 @@ def main() -> int:
     plane_k1 = shaping.LAUNCHES["shape_step_rows"]
     log(f"live plane path launches: K1 {plane_k1}, K4 {plane_k4}")
     check(plane_k1 > 0, "K1 never launched on the live plane's path")
+    shaping.reset_launches()
+    xn_m = run_cross_node_phase(dev, card)
+    xn_k1 = shaping.LAUNCHES["shape_step_rows"]
+    log(f"cross-node path launches: K1 {xn_k1}")
+    check(xn_k1 > 0, "K1 never launched on the cross-node path")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
-                "routed": routed_launches, "plane": plane_k1}
+                "routed": routed_launches, "plane": plane_k1,
+                "cross_node": xn_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -1732,6 +2346,7 @@ def main() -> int:
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
+              "cross_node": xn_m,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

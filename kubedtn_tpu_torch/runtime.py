@@ -48,9 +48,18 @@ id netem.CLASS_FALLBACK = 3, i.e. the counter blocks 6 and 7: no tick
 draw uses them (class*2 + block <= 5) and neither does the split's
 counter (last word 2^32 - 1).
 
-Left out for now: cross-node egress (the JAX plane's remote stage and
-per-peer senders), export/restore of the delay line (checkpoint), the
-planned-update stager, and the chaos / tenancy / shared-memory hooks.
+Cross-node egress is the JAX plane's: released frames for a wire whose
+peer daemon is on another node stage in a native FrameRing
+(`_RemoteStage`, 4 MiB; overflow charged to the row's
+`counters.dropped_ring`) and cross to each peer as one coalesced
+SendToBulk stream of 256-frame PacketBatch messages per tick, sent by a
+per-peer thread (`_PeerSender`) behind a circuit breaker with retry,
+backoff, a bounded outage buffer and the UNIMPLEMENTED -> SendToStream
+fallback for reference-built peers. `attach_chaos` wires a
+chaos.ChaosInjector into the peer RPCs and the dispatch hook.
+
+Left out for now: export/restore of the delay line (checkpoint), the
+planned-update stager, and the tenancy / shared-memory hooks.
 
 THE TICK KEY is two uint32 words (Python ints, so splitting it never
 touches the device). `split(key)` is one Philox4x32-10 call under `key`
@@ -545,6 +554,420 @@ def parse_tcp_flow(frame: bytes) -> tuple[int, int, int, int] | None:
     return sip, sport, dip, dport
 
 
+class _RemoteStage:
+    """Staging queue for released cross-node frames: the native SPSC
+    FrameRing (bounded, overflow-counted). Packed entry: u16 addr_len |
+    addr | u32 peer_intf_id | u64 trace_id | frame bytes (trace_id 0 =
+    untraced; sampled frames carry their flight-recorder id across to
+    the peer hop). Unlike the JAX package there is no deque fallback:
+    the port's live plane needs the native library (its timing wheel
+    and flow table are built from it first), so NativeUnavailable
+    propagates."""
+
+    def __init__(self, capacity_bytes: int = 4 << 20) -> None:
+        from kubedtn_tpu_torch import native
+
+        self._ring = native.FrameRing(capacity_bytes)
+
+    def push(self, addr: str, intf_id: int, frame: bytes,
+             trace_id: int = 0) -> bool:
+        a = addr.encode()
+        blob = struct.pack(">H", len(a)) + a \
+            + struct.pack(">IQ", intf_id, trace_id) + frame
+        return bool(self._ring.push(blob))
+
+    def pop(self) -> tuple[str, int, int, bytes] | None:
+        blob = self._ring.pop()
+        if blob is None:
+            return None
+        alen = struct.unpack_from(">H", blob)[0]
+        addr = blob[2:2 + alen].decode()
+        intf, tid = struct.unpack_from(">IQ", blob, 2 + alen)
+        return addr, intf, tid, blob[14 + alen:]
+
+    @property
+    def dropped(self) -> int:
+        return self._ring.dropped
+
+
+@guarded_by("_lock", "_batches", "_queued", "_pending", "dropped",
+            "_traced", "_pos_enq", "_pos_done")
+class _PeerSender:
+    """One bounded queue + sender thread per peer daemon.
+
+    The reference runs one goroutine per grpc-wire so a slow peer only
+    stalls its own wires (grpcwire.go:386-462); here the unit is the
+    peer daemon (frames to one peer share a channel and a coalesced
+    SendToBulk stream anyway). The tick thread enqueues and returns;
+    this thread does the blocking RPCs.
+
+    Fault domain: a transient `grpc.RpcError` REQUEUES the
+    batch and retries with exponential backoff + jitter instead of
+    dropping it, behind a per-peer circuit breaker (closed → open after
+    consecutive failures → one half-open probe → closed). While the
+    breaker is open the queue doubles as a bounded OUTAGE BUFFER, so a
+    short peer flap loses zero frames; overflow beyond MAX_QUEUED frames
+    (queued + retry-pending) is dropped and counted (`dropped`) — the
+    same bounded-memory backpressure as the staging ring. Fatal codes
+    (schema/auth errors retrying cannot fix) drop the batch into
+    daemon.forward_errors as before. Transport: coalesced SendToBulk,
+    falling back to per-frame SendToStream for a peer that answers
+    UNIMPLEMENTED — re-probed (not latched forever) at every breaker
+    half-open probe, so an upgraded peer regains the bulk path. Breaker
+    state and retry counters read through WireDataPlane.peer_fault_stats
+    (the JAX package's metrics exporter is not ported yet)."""
+
+    MAX_QUEUED = 262_144  # frames buffered per slow peer (~52MB at 200B)
+    # grpc codes no retry can fix: the batch is counted and dropped
+    _FATAL_CODES = frozenset({"INVALID_ARGUMENT", "NOT_FOUND",
+                              "PERMISSION_DENIED", "UNAUTHENTICATED",
+                              "UNIMPLEMENTED"})
+    # frames per RPC attempt: after an outage the buffer can hold 100k+
+    # frames, and one giant send can outlive ANY fixed deadline while a
+    # live peer is still ingesting the stream — the retry then
+    # re-delivers everything the peer already consumed. Bounded slices
+    # advance through the buffer as each is acknowledged, so the
+    # at-least-once ambiguity of a mid-stream deadline is capped at one
+    # slice instead of the whole outage buffer.
+    SEND_SLICE = 8_192
+    # per-coalesced-chunk deadline allowance on top of the daemon's
+    # forward_timeout_s floor: a healthy-but-slow peer gets time
+    # proportional to the attempt's size instead of a spurious
+    # DEADLINE_EXCEEDED (the duplicate-cascade trigger)
+    PER_CHUNK_TIMEOUT_S = 0.02
+    # give-up bound per head slice: a slice that fails DETERMINISTICALLY
+    # with a nominally-transient code (RESOURCE_EXHAUSTED from an
+    # oversized message, INTERNAL from a peer handler bug) must not pin
+    # the buffer and wedge the peer's egress forever. Breaker cooldowns
+    # gate the attempt rate, so a genuinely dead peer takes ~10+ minutes
+    # of outage to exhaust this — flaps never come close.
+    MAX_SLICE_RETRIES = 64
+    # re-test a stream-only (UNIMPLEMENTED) latch this often even with
+    # no outage: a peer upgraded during a quiet window must regain the
+    # bulk path without waiting for a breaker cycle; a failed re-probe
+    # costs one immediate UNIMPLEMENTED answer per interval
+    BULK_REPROBE_S = 30.0
+
+    def __init__(self, daemon, addr: str,
+                 breaker: fault.CircuitBreaker | None = None,
+                 backoff: fault.Backoff | None = None) -> None:
+        self.daemon = daemon
+        self.addr = addr
+        self._batches: deque[list] = deque()
+        self._queued = 0       # frames waiting in _batches
+        self._pending = 0      # frames drained into the retry buffer
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._empty = threading.Event()
+        self._empty.set()
+        self._stopping = False
+        self._interrupt = threading.Event()  # cuts backoff/breaker waits
+        self.dropped = 0
+        self.retries = 0     # transient-failure retry attempts
+        self.sent = 0        # frames delivered to the peer
+        self._bulk_reprobe_at = 0.0  # next idle re-test of the latch
+        # flight-recorder bookkeeping: sampled frames in this sender's
+        # buffer as [global_frame_pos, trace_id, outage_marked]. The
+        # buffer drains strictly FIFO (batches → pending → sent
+        # slices), so a monotonically increasing enqueue position plus
+        # a resolved-frames counter locate every traced frame without
+        # ever scanning a slice — O(sampled), not O(frames). Empty
+        # whenever no recorder is attached.
+        self._traced: deque = deque()
+        self._pos_enq = 0    # frames ever accepted into the buffer
+        self._pos_done = 0   # frames resolved (sent or given up)
+        self.breaker = (breaker if breaker is not None
+                        else fault.CircuitBreaker())
+        self._backoff = (backoff if backoff is not None
+                         else fault.Backoff())
+        self._warn = fault.RateLimitedLog(min_interval_s=1.0)
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"wire-egress-{addr}")
+        self._thread.start()
+
+    @property
+    def buffered(self) -> int:
+        """Frames currently held (queued + awaiting retry) — the outage
+        buffer's fill level."""
+        with self._lock:  # the two counters move together under it; an
+            # unlocked sum can tear across a drain and go negative
+            return self._queued + self._pending
+
+    def _recorder(self):
+        return getattr(self.daemon, "recorder", None)
+
+    def enqueue(self, packets: list, traced: list | None = None) -> int:
+        """Queue one tick's packets for this peer; never blocks.
+        `traced` lists (index_in_packets, trace_id) for sampled frames.
+        Returns how many were accepted (the rest are dropped and
+        counted)."""
+        rec = self._recorder()
+        with self._lock:
+            room = self.MAX_QUEUED - self._queued - self._pending
+            if room <= 0:
+                self.dropped += len(packets)
+                take: list = []
+            else:
+                take = (packets if len(packets) <= room
+                        else packets[:room])
+                self.dropped += len(packets) - len(take)
+                self._batches.append(take)
+                self._queued += len(take)
+                self._empty.clear()
+            if rec is not None and traced:
+                for idx, tid in traced:
+                    if idx < len(take):
+                        self._traced.append(
+                            [self._pos_enq + idx, tid, False])
+                    else:
+                        rec.record(tid, tele.ST_EGRESS_DROP,
+                                   reason="peer-queue-full",
+                                   peer=self.addr)
+            self._pos_enq += len(take)
+        if take:
+            self._wake.set()
+        return len(take)
+
+    def _traced_in_flight(self, upto: int):
+        """Traced entries among the next `upto` unresolved frames."""
+        with self._lock:  # _pos_done moves with _traced; reading it
+            # outside can pair a stale base with a newer deque
+            limit = self._pos_done + upto
+            return [e for e in self._traced if e[0] < limit]
+
+    def _advance_traced(self, n: int, stage: str, **detail) -> None:
+        """Resolve the next `n` buffer frames (sent or given up):
+        traced entries inside them get their terminal `stage` event."""
+        rec = self._recorder()
+        with self._lock:
+            self._pos_done += n
+            while self._traced and self._traced[0][0] < self._pos_done:
+                e = self._traced.popleft()
+                if rec is not None:
+                    rec.record(e[1], stage, peer=self.addr, **detail)
+
+    def _resolve_all_traced(self, stage: str, **detail) -> None:
+        rec = self._recorder()
+        with self._lock:
+            self._pos_done = self._pos_enq
+            while self._traced:
+                e = self._traced.popleft()
+                if rec is not None:
+                    rec.record(e[1], stage, peer=self.addr, **detail)
+
+    def _mark_outage(self) -> None:
+        """First breaker-open park with frames buffered: every traced
+        frame in the outage buffer records `outage-buffered` once."""
+        rec = self._recorder()
+        if rec is None:
+            return
+        with self._lock:
+            entries = [e for e in self._traced if not e[2]]
+            for e in entries:
+                e[2] = True
+        for e in entries:
+            rec.record(e[1], tele.ST_OUTAGE, peer=self.addr,
+                       breaker=fault.STATE_NAMES[self.breaker.state])
+
+    def wait_empty(self, timeout_s: float) -> bool:
+        return self._empty.wait(timeout_s)
+
+    def request_stop(self) -> None:
+        self._stopping = True
+        self._wake.set()
+        self._interrupt.set()
+
+    def join(self, deadline: float) -> None:
+        # keep re-arming the wake until the thread exits: a single set()
+        # can be consumed by a drain already in flight, leaving the
+        # thread parked on a cleared event with _stopping unobserved
+        while self._thread.is_alive():
+            self._wake.set()
+            self._thread.join(0.05)
+            if time.monotonic() >= deadline:
+                break
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self.request_stop()
+        self.join(time.monotonic() + timeout_s)
+
+    def _drop_pending(self, packets: list, to_errors: bool,
+                      remaining: int = 0) -> None:
+        """Give up on (part of) the retry buffer: count the loss
+        (forward_errors for fatal codes, `dropped` for a shutdown with
+        the peer still down), record the `remaining` retry-buffer
+        frames the caller keeps, and release wait_empty callers only
+        when truly nothing is left."""
+        if to_errors:
+            self.daemon.count_forward_errors(len(packets))
+        with self._lock:
+            # `dropped` shares the lock with enqueue()'s increments —
+            # an unlocked read-modify-write here would lose counts
+            if not to_errors:
+                self.dropped += len(packets)
+            self._pending = remaining
+            if self._stopping:
+                # frames still queued behind the give-up are lost with
+                # the thread: counted, never silent
+                while self._batches:
+                    self.dropped += len(self._batches.popleft())
+                self._queued = 0
+            if not remaining and not self._batches:
+                self._empty.set()
+
+    def _run(self) -> None:
+        import grpc
+
+        from kubedtn_tpu_torch.utils.logging import fields, get_logger
+        from kubedtn_tpu_torch.wire import proto as pb
+
+        log = get_logger("wire-egress")
+        daemon = self.daemon
+        addr = self.addr
+        chunk = WireDataPlane.BULK_CHUNK
+        pending: list = []  # retry buffer: drained but not yet delivered
+        slice_attempts = 0  # failures of the CURRENT head slice
+        while True:
+            if not pending:
+                self._wake.wait()
+                # drain the whole backlog into one send: frames queued
+                # while the peer was slow coalesce into fewer messages
+                with self._lock:
+                    self._wake.clear()
+                    while self._batches:
+                        pending.extend(self._batches.popleft())
+                    self._queued = 0
+                    self._pending = len(pending)
+                    if not pending:
+                        self._empty.set()
+                if not pending:
+                    if self._stopping:
+                        return
+                    continue
+            if not self.breaker.allow():
+                if self._stopping:
+                    # orderly shutdown must not hang on a dead peer's
+                    # cooldown: the buffered frames are lost and counted
+                    self._drop_pending(pending, to_errors=False)
+                    self._resolve_all_traced(tele.ST_EGRESS_DROP,
+                                             reason="shutdown")
+                    return
+                # breaker OPEN: park until the half-open probe is due
+                # (or a stop request), without dropping anything — the
+                # queue is the bounded outage buffer. Sampled frames in
+                # the buffer record `outage-buffered` (once each).
+                self._mark_outage()
+                self._interrupt.wait(
+                    min(max(self.breaker.time_to_probe(), 0.005), 0.25))
+                self._interrupt.clear()
+                continue
+            if self.breaker.state == fault.HALF_OPEN:
+                # recovery probe: a restarted/upgraded peer may speak
+                # the coalesced bulk transport again — the stream-only
+                # latch is re-tested here, never held forever
+                daemon.reset_peer_bulk(addr)
+            elif (not daemon.peer_bulk_ok.get(addr, True)
+                    and time.monotonic() >= self._bulk_reprobe_at):
+                # periodic re-test with NO outage: an upgrade during a
+                # quiet window must not leave the peer latched to the
+                # per-frame stream until the next breaker cycle
+                daemon.reset_peer_bulk(addr)
+            sl = pending[:self.SEND_SLICE]
+            n_chunks = -(-len(sl) // chunk)
+            timeout = (daemon.forward_timeout_s
+                       + self.PER_CHUNK_TIMEOUT_S * n_chunks)
+            try:
+                sent = False
+                if daemon.peer_bulk_ok.get(addr, True):
+                    chunks = [
+                        pb.PacketBatch(packets=sl[i:i + chunk])
+                        for i in range(0, len(sl), chunk)]
+                    try:
+                        daemon._peer_wire_client(addr).SendToBulk(
+                            iter(chunks), timeout=timeout)
+                        sent = True
+                    except grpc.RpcError as e:
+                        if e.code() != grpc.StatusCode.UNIMPLEMENTED:
+                            raise
+                        # reference-built peer: per-frame stream until
+                        # the next breaker probe (or periodic idle
+                        # re-probe) re-tests the bulk path
+                        daemon.peer_bulk_ok[addr] = False
+                        self._bulk_reprobe_at = (time.monotonic()
+                                                 + self.BULK_REPROBE_S)
+                if not sent:
+                    daemon._peer_wire_client(addr).SendToStream(
+                        iter(sl), timeout=timeout)
+            except Exception as e:
+                code = None
+                if isinstance(e, grpc.RpcError):
+                    try:
+                        code = e.code()
+                    except Exception:
+                        code = None
+                fatal = (not isinstance(e, grpc.RpcError)
+                         or (code is not None
+                             and code.name in self._FATAL_CODES))
+                self.breaker.record_failure()
+                fire, suppressed = self._warn.ready()
+                if fire:
+                    # the failing peer and its grpc status, rate-limited
+                    # — a flapping peer at tick cadence must not emit
+                    # hundreds of lines/s, but must never fail silently
+                    log.warning("peer send failed %s", fields(
+                        peer=addr,
+                        code=(code.name if code is not None
+                              else type(e).__name__),
+                        frames=len(sl), fatal=fatal,
+                        breaker=fault.STATE_NAMES[self.breaker.state],
+                        retries=self.retries, suppressed=suppressed))
+                slice_attempts += 1
+                if fatal or slice_attempts >= self.MAX_SLICE_RETRIES:
+                    # only the failing slice is dropped (fatal code, or
+                    # a deterministic failure that exhausted its retry
+                    # budget); the rest of the buffer still gets its
+                    # own attempts
+                    pending = pending[len(sl):]
+                    self._drop_pending(sl, to_errors=True,
+                                       remaining=len(pending))
+                    self._advance_traced(
+                        len(sl), tele.ST_EGRESS_DROP,
+                        reason=(code.name if code is not None
+                                else "fatal"))
+                    slice_attempts = 0
+                    self._backoff.reset()
+                    continue
+                if self._stopping:
+                    self._drop_pending(pending, to_errors=False)
+                    self._resolve_all_traced(tele.ST_EGRESS_DROP,
+                                             reason="shutdown")
+                    return
+                # transient: keep the slice, back off, try again — the
+                # slice's sampled frames record each retry attempt
+                rec = self._recorder()
+                if rec is not None:
+                    for e in self._traced_in_flight(len(sl)):
+                        rec.record(e[1], tele.ST_RETRIED,
+                                   peer=self.addr, attempt=slice_attempts)
+                self.retries += 1
+                self._interrupt.wait(self._backoff.next_delay())
+                self._interrupt.clear()
+                continue
+            # slice delivered: advance through the buffer
+            self.breaker.record_success()
+            slice_attempts = 0
+            self._backoff.reset()
+            self.sent += len(sl)
+            pending = pending[len(sl):]
+            self._advance_traced(len(sl), tele.ST_SENT)
+            with self._lock:
+                self._pending = len(pending)
+                # "empty" means queue drained AND nothing in flight —
+                # wait_empty callers (tests, shutdown) need the RPC done
+                if not pending and not self._batches:
+                    self._empty.set()
+
 
 class _GCTuner:
     """gc.freeze() + relaxed gen-2 threshold while ANY data-plane runner
@@ -815,6 +1238,10 @@ class WireDataPlane:
         # TCP/IP bypass flow table (eBPF sockops/redir equivalent)
         self._wheel = native.TimingWheel(tick_us=1000)
         self._flowtable = native.FlowTable()
+        self._remote = _RemoteStage()
+        # one sender thread + bounded queue per peer daemon: a slow peer
+        # stalls only its own wires, never the tick
+        self._peer_senders: dict[str, _PeerSender] = {}
         # released frames whose wire isn't registered YET: retried each
         # release until the grace expires
         self._orphans: deque[tuple[float, str, int, bytes]] = deque()
@@ -894,6 +1321,9 @@ class WireDataPlane:
         self._bl_win: deque[int] = deque(maxlen=4)
         self.last_backlog = 0  # drainable frames left after the last tick
         self._gc_held = False
+        # optional chaos.ChaosInjector (tests / chip_smoke's flap run);
+        # consulted at the head of every dispatch when set
+        self.chaos = None
         # dispatch-failure requeue bookkeeping: what the in-progress
         # dispatch holds and whether its frames passed the decide stage
         self._disp_items: list | None = None
@@ -1067,6 +1497,12 @@ class WireDataPlane:
             self.daemon.deliver_egress(*target, frame)  # latency ≈ 0
             return True
         return False
+
+    @property
+    def ring_dropped(self) -> int:
+        """Frames lost to remote-stage ring overflow (bounded-memory
+        backpressure, like pcap buffer drops in the reference)."""
+        return self._remote.dropped
 
     @property
     def running(self) -> bool:
@@ -1326,6 +1762,37 @@ class WireDataPlane:
                             or self.watchdog_stalled),
         }
 
+    def attach_chaos(self, injector) -> None:
+        """Wire a chaos.ChaosInjector into this plane's fault domains:
+        the per-peer egress RPCs and the dispatch hook."""
+        self.chaos = injector
+        injector.install_peer_faults(self.daemon)
+
+    def peer_fault_stats(self) -> dict[str, dict]:
+        """Per-peer breaker / retry / outage-buffer snapshot. Snapshot
+        via list(): the tick thread inserts senders on first traffic to
+        a new peer."""
+        out: dict[str, dict] = {}
+        for addr, s in list(self._peer_senders.items()):
+            b = s.breaker
+            out[addr] = {
+                "state": b.state,
+                "opens": b.opens,
+                "half_opens": b.half_opens,
+                "closes": b.closes,
+                "cycles": b.cycles,
+                "retries": s.retries,
+                "sent": s.sent,
+                "buffered": s.buffered,
+                "dropped": s.dropped,
+            }
+        return out
+
+    @property
+    def peer_retries(self) -> int:
+        """Transient peer-send retry attempts, summed over peers."""
+        return sum(s.retries for s in list(self._peer_senders.values()))
+
     def force_degrade(self, level: int) -> None:
         """Step the degradation ladder to `level` (0 = full pipeline,
         1 = depth-1, 2 = synchronous un-fused). Crosses the flush()
@@ -1467,6 +1934,10 @@ class WireDataPlane:
 
     @requires_lock("_tick_lock")
     def _dispatch_inner(self, inputs, now_s: float) -> _ShapeJob | None:
+        if self.chaos is not None:
+            # deterministic fault injection (tests / chaos runs): raising
+            # here exercises the requeue path plus the supervisor
+            self.chaos.on_dispatch()
         from kubedtn_tpu_torch import native
         from kubedtn_tpu_torch.wire.server import FrameSeg, flatten_frames
 
@@ -1678,8 +2149,15 @@ class WireDataPlane:
                 samples[:] = kept_samples  # in place: _dispatch holds it
             self._disp_items = batches
             for target, by in deliveries:
-                self.bypassed += self.daemon.deliver_egress_bulk(*target,
-                                                                 by)
+                # latency ~ 0: delivered in the same tick. Guarded per
+                # batch: a capture-tap failure (disk full) must not
+                # abort the dispatch — the egress extend happens before
+                # the tap, so the frames are counted, not redelivered
+                try:
+                    self.bypassed += self.daemon.deliver_egress_bulk(
+                        *target, by)
+                except Exception:
+                    self.undeliverable += len(by)
         self.stage_s["decide"] += time.perf_counter() - t_decide0
         if not batches:
             return None
@@ -2212,18 +2690,111 @@ class WireDataPlane:
                 else:
                     self.undeliverable += 1
             self._orphans = keep
+        staged = False
+        ring_drops: dict[int, int] = {}
+        cap = self.daemon.capture
         for wkey, frames in groups.items():
             wire = self.daemon.wires.get_by_key(*wkey)
+            tmap = traced.get(wkey)
             if wire is None:
                 expire = now_s + self.orphan_grace_s
                 self._orphans.extend(
                     (expire, wkey[0], wkey[1], f) for f in frames)
                 continue
-            wire.egress.extend(frames)
-            tmap = traced.get(wkey)
-            if tmap:
-                for _pos, tid in tmap.items():
-                    rec.record(tid, tele.ST_DELIVERED, wire=wire.wire_id)
+            if wire.peer_ip:
+                # stage for the per-peer stream batch below
+                push = self._remote.push
+                addr, intf = wire.peer_ip, wire.peer_intf_id
+                for pos, frame in enumerate(frames):
+                    tid = tmap.get(pos, 0) if tmap else 0
+                    if push(addr, intf, frame, tid):
+                        staged = True
+                        if tid:
+                            rec.record(tid, tele.ST_STAGED, peer=addr)
+                    else:
+                        # overflow: charge the drop to this frame's edge
+                        # so it shows in the per-interface counters
+                        row = self.engine._rows.get(wkey)
+                        if row is not None:
+                            ring_drops[row] = ring_drops.get(row, 0) + 1
+                        if tid:
+                            rec.record(tid, tele.ST_EGRESS_DROP,
+                                       reason="ring-overflow")
+            else:
+                wire.egress.extend(frames)
+                if tmap:
+                    for _pos, tid in tmap.items():
+                        rec.record(tid, tele.ST_DELIVERED,
+                                   wire=wire.wire_id)
+                if cap is not None:
+                    for frame in frames:
+                        cap.record(*wkey, frame, "out")
+        if ring_drops:
+            # one counter-array copy per release, however many frames fell
+            dr = self.counters.dropped_ring.copy()
+            for row, n in ring_drops.items():
+                if row < dr.shape[0]:
+                    dr[row] += np.float32(n)
+            self.counters = dataclasses.replace(self.counters,
+                                                dropped_ring=dr)
+        if staged:
+            self._flush_remote()
+
+    # frames per coalesced PacketBatch message on the bulk transport
+    BULK_CHUNK = 256
+
+    def _flush_remote(self) -> None:
+        """Hand all staged cross-node frames to their PER-PEER sender
+        threads and return — the tick thread never blocks on a peer RPC
+        (one slow peer must not eat the tick budget of every wire on the
+        node; the reference gives each wire its own goroutine,
+        grpcwire.go:386). Senders are created on first traffic to a peer
+        and live until stop(); enqueue is bounded drop-and-count (like
+        the staging ring), so a dead peer costs memory O(bound), not
+        O(backlog)."""
+        from kubedtn_tpu_torch.wire import proto as pb
+
+        by_peer: dict[str, list] = {}
+        traced_by_peer: dict[str, list] = {}
+        while True:
+            item = self._remote.pop()
+            if item is None:
+                break
+            addr, intf, tid, frame = item
+            dst = by_peer.setdefault(addr, [])
+            if tid:
+                # sampled frame: the trace id rides the peer hop in
+                # Packet.trace_id (a proto extension reference daemons
+                # skip as an unknown field) so the remote delivery
+                # attaches to the same trace
+                dst.append(pb.Packet(remot_intf_id=intf, frame=frame,
+                                     trace_id=tid))
+                traced_by_peer.setdefault(addr, []).append(
+                    (len(dst) - 1, tid))
+            else:
+                dst.append(pb.Packet(remot_intf_id=intf, frame=frame))
+        for addr, packets in by_peer.items():
+            sender = self._peer_senders.get(addr)
+            if sender is None:
+                sender = _PeerSender(self.daemon, addr)
+                self._peer_senders[addr] = sender
+            sender.enqueue(packets, traced=traced_by_peer.get(addr))
+
+    @property
+    def peer_queue_dropped(self) -> int:
+        """Frames dropped at per-peer sender queues (slow-peer
+        backpressure), summed over peers. Snapshot via list(): the tick
+        thread inserts senders on first traffic to a new peer."""
+        return sum(s.dropped for s in list(self._peer_senders.values()))
+
+    def flush_peers(self, timeout_s: float = 5.0) -> bool:
+        """Block until every per-peer sender queue is empty (or timeout)
+        — for tests and orderly shutdown; the data path never waits."""
+        deadline = time.monotonic() + timeout_s
+        for s in list(self._peer_senders.values()):
+            if not s.wait_empty(max(0.0, deadline - time.monotonic())):
+                return False
+        return True
 
     def _on_rows_remapped(self, old_rows, n_active: int) -> None:
         """Carry cumulative per-row counters through compact()'s row
@@ -2397,3 +2968,14 @@ class WireDataPlane:
         if self._gc_held:
             self._gc_held = False
             _GCTuner.release()
+        # senders are one-shot threads: drop them so a stop()/start()
+        # restart creates fresh ones instead of enqueueing into queues
+        # whose consumer has exited (silent cross-node black hole).
+        # Signal ALL senders first, then join against one shared
+        # deadline — N wedged peers cost one timeout, not N.
+        senders, self._peer_senders = self._peer_senders, {}
+        for sender in senders.values():
+            sender.request_stop()
+        deadline = time.monotonic() + 5.0
+        for sender in senders.values():
+            sender.join(deadline)

@@ -18,13 +18,22 @@ needed (the handlers, `make_server`), so the Daemon, its WireManager and
 the live plane import and run without either package. `_add_wire`
 accepts any object with WireDef's attribute names.
 
+Delivery depends on the wire's kind. A local attachment wire (no
+`peer_ip`) takes pod-origin frames into the simulation (ingress). A
+cross-daemon wire (`peer_ip` set) receives frames from its peer daemon,
+already shaped on the sender's egress row: SendToOnce / SendToStream /
+SendToBulk put them straight on the pod side (egress). InjectFrame and
+InjectBulk are pod-origin ingress on every wire. The plane's released
+frames for a cross wire cross to the peer through runtime's per-peer
+senders (coalesced SendToBulk), or one unary SendToOnce each through
+`deliver_egress`. An optional pcap tap (`capture`, utils/pcap.py)
+records "in" at ingestion and "out" at pod-side delivery.
+
 Not ported yet (the RPCs answer UNIMPLEMENTED): WhatIf, ObserveSLO,
 AutopilotCtl/Status, PlanUpdate/ApplyPlan, Tenant*, MigrateTenant /
-MigrationStatus and FleetStatus / FleetUpgrade. Cross-node egress is not
-ported either: the Daemon refuses to create a wire whose peer is on
-another node. The pcap capture tap, the shared-memory ingest and the
-optional CPython extension of the JAX package are left out; their
-pure-Python paths are the ones here.
+MigrationStatus and FleetStatus / FleetUpgrade. The shared-memory ingest
+and the optional CPython extension of the JAX package are left out;
+their pure-Python paths are the ones here.
 """
 
 from __future__ import annotations
@@ -52,11 +61,6 @@ def _pb():
     from kubedtn_tpu_torch.wire import proto
 
     return proto
-
-
-class CrossNodeWireError(ValueError):
-    """A wire whose peer is on another node: cross-node egress is not
-    part of the port yet."""
 
 
 class FrameSeg:
@@ -392,7 +396,8 @@ class WireManager:
 class Daemon:
     """Service implementations bound to one engine."""
 
-    def __init__(self, engine: SimEngine, latency_histograms=None) -> None:
+    def __init__(self, engine: SimEngine, latency_histograms=None,
+                 forward_timeout_s: float = 0.5) -> None:
         self.engine = engine
         # wires with queued ingress — the data plane drains only these,
         # so a tick is O(active wires), not O(all wires); the registry
@@ -408,10 +413,18 @@ class Daemon:
         self.dataplane = None
         self.wires = WireManager(on_ingress=self.mark_hot)
         self.hist = latency_histograms
+        # deadline on per-frame peer forwards: a blackholed peer must cost
+        # at most this long, never stall the data plane indefinitely
+        self.forward_timeout_s = forward_timeout_s
         # Per-protocol ingress counters via the native frame classifier —
         # the per-packet role of the reference's DecodeFrame debug logging
         # (grpcwire.go:429-450), kept as cheap counters instead of strings.
         self.frame_stats: Counter[str] = Counter()
+        # daemon->daemon wire forwarding (the reference's per-frame
+        # SendToOnce to the peer daemon, grpcwire.go:452-459): send
+        # errors counted, not fatal. Incremented from the tick thread
+        # AND the per-peer sender threads — use count_forward_errors.
+        self.forward_errors = 0
         self._err_lock = threading.Lock()
         self._bp_slots = threading.BoundedSemaphore(
             self._BP_MAX_SLEEPERS)
@@ -420,6 +433,13 @@ class Daemon:
         # a stream can't abort per-message without killing the batch), so
         # a mis-plumbed sender shows up HERE instead of as unexplained loss
         self.bulk_unresolved = 0
+        # peers assumed to speak the coalesced SendToBulk extension until
+        # one answers UNIMPLEMENTED (a reference-built Go daemon); the
+        # egress sender then falls back to per-frame SendToStream for
+        # that peer UNTIL its circuit breaker's next half-open probe
+        # calls reset_peer_bulk — an upgraded/restarted peer regains the
+        # bulk path instead of being latched stream-only forever
+        self.peer_bulk_ok: dict[str, bool] = {}
         # ingress-deque entries the last drain_ingress left queued but
         # COULD drain next call (budget residue only — unrealized wires
         # wait on the control plane and holdback-skipped wires on the
@@ -428,6 +448,10 @@ class Daemon:
         # denominated like INGRESS_HIGH_WATER (a bulk FrameSeg entry
         # holds up to ~256 frames), which keeps the gauge O(1) per wire.
         self.last_drain_backlog = 0
+        # optional pcap tap (utils/pcap.CaptureManager) — the
+        # observability stand-in for the reference's per-wire libpcap
+        # handles (grpcwire.go:398-409); None = zero cost
+        self.capture = None
         # optional flight recorder (telemetry.FlightRecorder) — set by
         # WireDataPlane.enable_telemetry on the sending side, or
         # directly on a receive-only daemon: frames arriving with a
@@ -436,11 +460,29 @@ class Daemon:
         # cost on every ingestion path.
         self.recorder = None
 
+    def count_forward_errors(self, n: int) -> None:
+        """Thread-safe forward_errors increment (CPython += is not
+        atomic; per-peer sender threads race each other and the tick)."""
+        with self._err_lock:
+            self.forward_errors += n
+
+    def reset_peer_bulk(self, addr: str) -> None:
+        """Forget a peer's stream-only latch (called at every breaker
+        half-open probe, and safe on channel reconnect): the next send
+        re-tries the coalesced SendToBulk transport, so a peer upgraded
+        from a reference-built daemon regains the bulk path."""
+        self.peer_bulk_ok.pop(addr, None)
+
     def count_bulk_unresolved(self, n: int) -> None:
         """Thread-safe bulk_unresolved increment (concurrent bulk
         streams run on the server's worker pool)."""
         with self._err_lock:
             self.bulk_unresolved += n
+
+    def _peer_wire_client(self, addr: str):
+        # one per-address client cache per node, shared with the engine's
+        # Remote.Update dialing (same channel carries both RPC kinds)
+        return self.engine._peer_daemon(addr)
 
     # -- Local ---------------------------------------------------------
 
@@ -505,10 +547,7 @@ class Daemon:
                                      peer_intf_id=wire.peer_intf_id)
 
     def AddGRPCWireLocal(self, request, context):
-        try:
-            self._add_wire(request)
-        except CrossNodeWireError as e:
-            _abort(context, "UNIMPLEMENTED", str(e))
+        self._add_wire(request)
         return _pb().BoolResponse(response=True)
 
     def RemGRPCWire(self, request, context):
@@ -739,10 +778,7 @@ class Daemon:
         return _pb().BoolResponse(response=ok)
 
     def AddGRPCWireRemote(self, request, context):
-        try:
-            wire = self._add_wire(request)
-        except CrossNodeWireError as e:
-            _abort(context, "UNIMPLEMENTED", str(e))
+        wire = self._add_wire(request)
         return _pb().WireCreateResponse(response=True,
                                         peer_intf_id=wire.wire_id)
 
@@ -752,14 +788,8 @@ class Daemon:
         wire-exists guard, grpcwire.go:292-383) — without it, each racer
         would allocate its own wire and the link would split-brain.
 
-        `wd` is a WireDef or any object with its attribute names. A wire
-        whose peer daemon is on another node (`peer_ip` set) raises
-        CrossNodeWireError: cross-node egress is not ported yet."""
-        if wd.peer_ip:
-            raise CrossNodeWireError(
-                f"wire {wd.local_pod_name}/{wd.link_uid} has its peer on "
-                f"node {wd.peer_ip}: cross-node wires are not supported "
-                "by this daemon yet")
+        `wd` is a WireDef or any object with its attribute names; a
+        `peer_ip` makes it a cross-daemon wire toward that node."""
         pod_key = f"{wd.kube_ns or 'default'}/{wd.local_pod_name}"
         # name generated outside the registry lock (it takes the same
         # lock); an unused name for the loser of the race is harmless
@@ -798,12 +828,21 @@ class Daemon:
             self._hot.add(wire.wire_id)
 
     def _frame_in(self, wire: Wire, frame: bytes) -> None:
-        """A local attachment wire has no daemon peer: frames sent to it
-        are pod-origin traffic entering the simulation (ingress), the
-        injection surface standing in for pcap capture. (Cross-daemon
-        wires, whose frames go straight to the pod side, are not ported
-        yet.)"""
-        wire.ingress.append(frame)  # the deque's notify marks it hot
+        """Reference semantics split by wire kind: a cross-daemon wire
+        (peer_ip set) receives frames FROM the peer daemon, already shaped
+        on the sender's egress row — they go straight to the pod side
+        (egress), like WritePacketData into the pod veth (reference
+        handler.go:256-271). A local attachment wire has no daemon peer;
+        frames sent to it are pod-origin traffic entering the simulation
+        (ingress) — the injection surface standing in for pcap capture."""
+        if wire.peer_ip:
+            wire.egress.append(frame)
+            if self.capture is not None:
+                self.capture.record(wire.pod_key, wire.uid, frame, "out")
+        else:
+            wire.ingress.append(frame)  # the deque's notify marks it hot
+            if self.capture is not None:
+                self.capture.record(wire.pod_key, wire.uid, frame, "in")
 
     def _record_received(self, trace_id: int, wire_id: int,
                          delivered: bool) -> None:
@@ -854,7 +893,10 @@ class Daemon:
         wire = self.wires.get_by_id(int(request.remot_intf_id))
         if wire is None:
             _abort(context, "NOT_FOUND", f"no wire {request.remot_intf_id}")
-        wire.ingress.append(bytes(request.frame))
+        frame = bytes(request.frame)
+        wire.ingress.append(frame)
+        if self.capture is not None:
+            self.capture.record(wire.pod_key, wire.uid, frame, "in")
         return _pb().BoolResponse(response=True)
 
     # Bulk-ingestion backpressure: when a wire's ingress queue exceeds
@@ -885,6 +927,22 @@ class Daemon:
                 time.sleep(0.002)
         finally:
             self._bp_slots.release()
+
+    def _frames_in_bulk(self, wire: Wire, frames: list[bytes]) -> None:
+        """_frame_in for a whole PacketBatch group: ONE deque extend (one
+        hot-mark/wake) instead of per-frame appends — the server half of
+        the coalesced transport."""
+        if wire.peer_ip:
+            wire.egress.extend(frames)
+            if self.capture is not None:
+                for f in frames:
+                    self.capture.record(wire.pod_key, wire.uid, f, "out")
+        else:
+            self._ingress_backpressure(wire)
+            wire.ingress.extend(frames)  # single notify marks it hot
+            if self.capture is not None:
+                for f in frames:
+                    self.capture.record(wire.pod_key, wire.uid, f, "in")
 
     def _bulk_groups(self, item, want_segs: bool = False):
         """Yield (wire_id, frames-list | FrameSeg) groups from one
@@ -969,24 +1027,42 @@ class Daemon:
 
     def SendToBulk(self, request_iterator, context):
         """Framework extension: client-streaming of PacketBatch — the
-        daemons' own cross-node egress transport, same delivery
-        semantics as SendToStream frame-by-frame but ~40× fewer gRPC
-        messages. Falls outside the reference IDL. On this daemon's
-        local wires it is pod-origin ingress, like SendToStream; frames
-        bound for the data plane stay zero-copy FrameSeg windows."""
-        return self._bulk_in(request_iterator)
+        daemons' own cross-node egress transport (runtime._flush_remote),
+        same delivery semantics as SendToStream frame-by-frame but ~40×
+        fewer gRPC messages. Falls outside the reference IDL; peers that
+        don't speak it get the per-frame stream instead. Frames bound
+        for the data plane stay zero-copy FrameSeg windows when no
+        capture needs per-frame bytes."""
+        n = 0
+        want_segs = self.capture is None
+        for item in request_iterator:
+            for wid, group in self._bulk_groups(item, want_segs):
+                wire = self.wires.get_by_id(wid)
+                if wire is not None:
+                    if type(group) is FrameSeg:
+                        n += len(group)
+                        if wire.peer_ip:
+                            wire.egress.extend(group.materialize())
+                        else:
+                            self._ingress_backpressure(wire)
+                            wire.ingress.append(group)
+                    else:
+                        self._frames_in_bulk(wire, group)
+                        n += len(group)
+                else:
+                    self.count_bulk_unresolved(len(group))
+        return _pb().BoolResponse(response=n > 0)
 
     def InjectBulk(self, request_iterator, context):
         """Framework extension: coalesced InjectFrame — pod-origin
-        ingress at bulk-transport rates (load generation, tests). One
-        FrameSeg entry per batch-group — the ingress cost of a 256-frame
-        batch is one deque append."""
-        return self._bulk_in(request_iterator)
-
-    def _bulk_in(self, request_iterator):
+        ingress at bulk-transport rates (load generation, tests), on
+        every wire kind. One FrameSeg entry per batch-group when no
+        capture is active — the ingress cost of a 256-frame batch is one
+        deque append."""
         n = 0
+        want_segs = self.capture is None
         for item in request_iterator:
-            for wid, group in self._bulk_groups(item, want_segs=True):
+            for wid, group in self._bulk_groups(item, want_segs):
                 wire = self.wires.get_by_id(wid)
                 if wire is None:
                     self.count_bulk_unresolved(len(group))
@@ -996,6 +1072,10 @@ class Daemon:
                     wire.ingress.append(group)
                 else:
                     wire.ingress.extend(group)
+                    if self.capture is not None:
+                        for f in group:
+                            self.capture.record(wire.pod_key, wire.uid,
+                                                f, "in")
                 n += len(group)
         return _pb().BoolResponse(response=n > 0)
 
@@ -1091,18 +1171,42 @@ class Daemon:
 
     def deliver_egress_bulk(self, pod_key: str, uid: int,
                             frames: list[bytes]) -> int:
-        """Deliver a group of frames bound for the SAME local wire (the
-        bypass fast path and the release stage deliver per-wire groups):
-        one egress extend. Returns the frames delivered (0 when the wire
-        is gone)."""
+        """deliver_egress for a group of frames bound for the SAME local
+        wire (the bypass fast path delivers per-row groups): one egress
+        extend, capture per frame. Returns the frames delivered: 0 when
+        the wire is gone or crosses to another node (cross-node delivery
+        goes through the plane's staged per-peer egress)."""
         wire = self.wires.get_by_key(pod_key, uid)
-        if wire is None:
+        if wire is None or wire.peer_ip:
             return 0
         wire.egress.extend(frames)
+        if self.capture is not None:
+            for f in frames:
+                self.capture.record(wire.pod_key, wire.uid, f, "out")
         return len(frames)
 
     def deliver_egress(self, pod_key: str, uid: int, frame: bytes) -> bool:
-        return self.deliver_egress_bulk(pod_key, uid, [frame]) == 1
+        wire = self.wires.get_by_key(pod_key, uid)
+        if wire is None:
+            return False
+        if wire.peer_ip:
+            # cross-node wire: the shaped frame crosses to the peer daemon
+            # (one unary SendToOnce per frame, reference grpcwire.go:452);
+            # errors — including DEADLINE_EXCEEDED from a blackholed peer —
+            # are counted and the frame dropped, not fatal (:452-459)
+            try:
+                self._peer_wire_client(wire.peer_ip).SendToOnce(
+                    _pb().Packet(remot_intf_id=wire.peer_intf_id,
+                                 frame=frame),
+                    timeout=self.forward_timeout_s)
+                return True
+            except Exception:
+                self.count_forward_errors(1)
+                return False
+        wire.egress.append(frame)
+        if self.capture is not None:
+            self.capture.record(wire.pod_key, wire.uid, frame, "out")
+        return True
 
 
 # Bulk ingestion RPCs skip protobuf deserialization entirely when the

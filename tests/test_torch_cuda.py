@@ -699,3 +699,90 @@ def test_native_library_builds_on_card_machine(dev):
     assert w.next_due_us() is not None
     assert w.advance_np(4000).tolist() == [8, 9]
     assert w.advance_np(9000).tolist() == [7]
+
+
+def _cross_node_run(device, depth):
+    """Two pod pairs across two daemons, each behind a real gRPC server
+    on 127.0.0.1: node A (engine on `device`) shapes and sends, node B
+    (CPU engine) receives pod-side. Returns B's egress per wire."""
+    import types
+
+    from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
+                                             Topology, TopologySpec)
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    props = PLANE_PROPS[:2]
+    nodes = []
+    for dev_ in (device, "cpu"):
+        store = TopologyStore()
+        engine = SimEngine(store, capacity=64, device=dev_)
+        daemon = Daemon(engine)
+        server, port = make_server(daemon, port=0, host="127.0.0.1",
+                                   log_rpcs=False)
+        server.start()
+        engine.node_ip = f"127.0.0.1:{port}"
+        nodes.append((store, engine, daemon, server, engine.node_ip))
+    (sa, ea, da, srv_a, addr_a), (sb, eb, db, srv_b, addr_b) = nodes
+    plane = None
+    try:
+        for store in (sa, sb):
+            for i, p in enumerate(props):
+                lp = LinkProperties(**p)
+                for x, y, addr in ((f"a{i}", f"b{i}", addr_a),
+                                   (f"b{i}", f"a{i}", addr_b)):
+                    t = Topology(name=x, spec=TopologySpec(links=[
+                        Link(local_intf="eth1", peer_intf="eth1",
+                             peer_pod=y, uid=i + 1, properties=lp)]))
+                    t.status.src_ip, t.status.net_ns = addr, f"/ns/{x}"
+                    store.create(t)
+        for i in range(len(props)):
+            t = sa.get("default", f"a{i}")
+            assert ea.add_links(t, t.spec.links)
+        c = DaemonClient(addr_b)
+        win, wout = [], []
+        for i in range(len(props)):
+            r = c.AddGRPCWireRemote(pb.WireDef(
+                local_pod_name=f"b{i}", kube_ns="default", link_uid=i + 1,
+                intf_name_in_pod="eth1", peer_ip=addr_a))
+            win.append(da._add_wire(types.SimpleNamespace(
+                local_pod_name=f"a{i}", kube_ns="default", link_uid=i + 1,
+                intf_name_in_pod="eth1", veth_name_local_host="",
+                peer_ip=addr_b, peer_intf_id=r.peer_intf_id)))
+            wout.append(db.wires.get_by_key(f"default/b{i}", i + 1))
+        c.close()
+        plane = WireDataPlane(da, dt_us=10_000, seed=0,
+                              pipeline_depth=depth)
+        plane.pipeline_explicit_clock = True
+        rng = np.random.default_rng(1)
+        for t in range(40):
+            if t < 8:
+                for k, w in enumerate(win):
+                    w.ingress.extend(
+                        bytes([k, t]) + j.to_bytes(2, "big")
+                        + b"\x5a" * int(s)
+                        for j, s in enumerate(rng.integers(60, 1497,
+                                                           (20, 30)[k])))
+            plane.tick(now_s=(t + 1) * 0.01)
+        plane.flush()
+        assert plane.flush_peers(60.0)
+        assert plane.tick_errors == 0 and da.forward_errors == 0
+        assert plane.ring_dropped == 0 and db.bulk_unresolved == 0
+        return [list(w.egress) for w in wout], plane.shaped, plane.dropped
+    finally:
+        if plane is not None:
+            plane.stop()
+        srv_a.stop(0)
+        srv_b.stop(0)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cross_node_plane_on_card_delivers_what_the_cpu_does(dev, depth):
+    card = _cross_node_run("cuda", depth)
+    cpu = _cross_node_run("cpu", depth)
+    assert card == cpu
+    assert all(len(w) > 0 for w in card[0]) and card[2] > 0

@@ -58,6 +58,8 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.topology.store", "kubedtn_tpu_torch.topology.engine",
     "kubedtn_tpu_torch.topology.reconciler", "kubedtn_tpu_torch.wire.proto",
     "kubedtn_tpu_torch.wire.client", "kubedtn_tpu_torch.wire.server",
+    # cross-node egress's chaos harness and the pcap tap
+    "kubedtn_tpu_torch.chaos", "kubedtn_tpu_torch.utils.pcap",
 )
 
 

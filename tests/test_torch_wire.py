@@ -23,8 +23,7 @@ from kubedtn_tpu_torch.api.types import (Link, LinkProperties, Topology,
 from kubedtn_tpu_torch.topology.engine import SimEngine
 from kubedtn_tpu_torch.topology.reconciler import Reconciler
 from kubedtn_tpu_torch.topology.store import TopologyStore
-from kubedtn_tpu_torch.wire.server import (CrossNodeWireError, Daemon,
-                                           make_server)
+from kubedtn_tpu_torch.wire.server import Daemon, make_server
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -208,18 +207,98 @@ def test_rpc_wire_lifecycle_and_frames(served, client):
     assert not c.GRPCWireExists(wd).response
 
 
-def test_rpc_cross_node_wire_is_refused(served, client):
-    pb, c = client.pb, client.c
-    wd = pb.WireDef(local_pod_name="a", kube_ns="default", link_uid=1,
-                    intf_name_in_pod="eth1", peer_ip="10.9.9.9",
-                    peer_intf_id=4)
-    for rpc in (c.AddGRPCWireLocal, c.AddGRPCWireRemote):
-        with pytest.raises(grpc.RpcError) as e:
-            rpc(wd)
-        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "cross-node" in e.value.details()
-    with pytest.raises(CrossNodeWireError):
-        served.daemon._add_wire(wd)
+def _serve_fresh(pkg: str):
+    """A fresh Daemon of the port or of the JAX package (no pods) behind
+    a real gRPC server on port 0: (daemon, server, port)."""
+    import kubedtn_tpu.topology.engine as jeng
+    import kubedtn_tpu.topology.store as jst
+    import kubedtn_tpu.wire.server as jsrv
+
+    if pkg == "port":
+        daemon = Daemon(SimEngine(TopologyStore(), capacity=16,
+                                  device="cpu"))
+        server, port = make_server(daemon, port=0, host="127.0.0.1",
+                                   log_rpcs=False)
+    else:
+        daemon = jsrv.Daemon(jeng.SimEngine(jst.TopologyStore(),
+                                            capacity=16))
+        server, port = jsrv.make_server(daemon, port=0, host="127.0.0.1",
+                                        log_rpcs=False)
+    server.start()
+    return daemon, server, port
+
+
+def test_rpc_cross_node_wire_is_created_like_jax(client):
+    """AddGRPCWireRemote / AddGRPCWireLocal with peer_ip set build the
+    cross-daemon wire as the JAX Daemon does: the same answers (the
+    Remote form returns the new wire's id as peer_intf_id) and the same
+    wire fields."""
+    pb, mod = client.pb, (tclient if client.pb is tpb else jclient)
+    got = {}
+    for pkg in ("port", "jax"):
+        daemon, server, port = _serve_fresh(pkg)
+        c = mod.DaemonClient(f"127.0.0.1:{port}")
+        try:
+            remote = c.AddGRPCWireRemote(pb.WireDef(
+                local_pod_name="a", kube_ns="default", link_uid=1,
+                intf_name_in_pod="eth1", peer_ip="10.9.9.9"))
+            local = c.AddGRPCWireLocal(pb.WireDef(
+                local_pod_name="a", kube_ns="default", link_uid=2,
+                intf_name_in_pod="eth2", peer_ip="10.9.9.9",
+                peer_intf_id=4))
+            again = c.AddGRPCWireRemote(pb.WireDef(
+                local_pod_name="a", kube_ns="default", link_uid=1,
+                intf_name_in_pod="eth1", peer_ip="10.9.9.9"))
+            wires = [(w.wire_id, w.uid, w.pod_key, w.node_iface_name,
+                      w.peer_intf_id, w.peer_ip)
+                     for w in daemon.wires.all()]
+            got[pkg] = ((remote.response, remote.peer_intf_id),
+                        local.response,
+                        (again.response, again.peer_intf_id), wires)
+        finally:
+            c.close()
+            server.stop(0)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == (True, 1001)
+    assert got["port"][2] == (True, 1001)  # idempotent per (pod, uid)
+    assert [w[5] for w in got["port"][3]] == ["10.9.9.9"] * 2
+
+
+def test_rpc_inject_bulk_is_ingress_send_to_bulk_is_egress(client):
+    """On a cross-daemon wire, SendToBulk (and the per-frame SendToOnce /
+    SendToStream) come from the peer daemon and land on the pod side
+    (egress); InjectBulk and InjectFrame are pod-origin ingress, on
+    every wire kind."""
+    pb, mod = client.pb, (tclient if client.pb is tpb else jclient)
+    daemon, server, port = _serve_fresh("port")
+    c = mod.DaemonClient(f"127.0.0.1:{port}")
+    try:
+        wire = daemon._add_wire(pb.WireDef(
+            local_pod_name="a", kube_ns="default", link_uid=1,
+            intf_name_in_pod="eth1", peer_ip="10.9.9.9", peer_intf_id=4))
+        wid = wire.wire_id
+
+        def batch(tag):
+            return pb.PacketBatch(packets=[
+                pb.Packet(remot_intf_id=wid, frame=bytes([tag, i]) * 8)
+                for i in range(4)])
+
+        assert c.SendToBulk(iter([batch(1)])).response
+        assert c.SendToOnce(pb.Packet(remot_intf_id=wid,
+                                      frame=b"once")).response
+        assert c.InjectBulk(iter([batch(2)])).response
+        assert c.InjectFrame(pb.Packet(remot_intf_id=wid,
+                                       frame=b"inject")).response
+        from kubedtn_tpu_torch.wire.server import flatten_frames
+
+        assert list(wire.egress) == [bytes([1, i]) * 8 for i in range(4)] \
+            + [b"once"]
+        assert flatten_frames(list(wire.ingress)) == \
+            [bytes([2, i]) * 8 for i in range(4)] + [b"inject"]
+        assert daemon.bulk_unresolved == 0
+    finally:
+        c.close()
+        server.stop(0)
 
 
 def test_rpc_observers_and_health(served, client):
