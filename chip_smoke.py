@@ -80,18 +80,39 @@ Phases, each fatal on failure:
      columns == two CPU nodes' from the same CRs; (b) the first 3 x
      4,096 cross-node links re-shaped into phase 12's three classes, B's
      wire ends by AddGRPCWireRemote, A's ends pointing at them; phase
-     12's feed for 8 ticks at depth 1 through A's plane, whose released
+     12's feed for 6 ticks at depth 1 through A's plane, whose released
      frames stage in the 4 MiB remote ring and cross to B over
      SendToBulk: the books close (per edge; released == staged +
      ring-dropped, charged per row; staged == sent + queue-dropped +
      forwarding errors; sent == arrived at B's pod side), the ring-drop
      share, wall ms per tick and frames/s arrived at B reported; (c) 1
-     frame per wire and tick for 32 ticks (fits the ring: 0 ring and
+     frame per wire and tick for 24 ticks (fits the ring: 0 ring and
      queue drops): B's pod-side egress per wire is the same at depth 1,
      at depth 2 with telemetry and at depth 2 under a 50 ms / 50 % flap
      of B (breaker opened, retried, no forwarding error); on 4 ticks of
      it, B answering SendToBulk UNIMPLEMENTED (the per-frame
-     SendToStream fallback) == the bulk transport.
+     SendToStream fallback) == the bulk transport;
+ 14. the what-if twin and the planned-update path, K1's launches counted
+     from 0 around each measured run: (a) snapshot_from_engine of the
+     Clos through the control plane (200,000 rows in 2^18, Q = 32) and
+     15 scenarios (degrades, failures, a spine and a leaf blackholed by
+     name, offered load x 1.5 and x 0.5) swept as 15 x 262,144 replica
+     rows for 200 steps of 1 ms (cut from the WhatIf default of 1,000),
+     each shaping slot ONE K1 launch over all rows, the uniforms shared:
+     per replica and edge the books close; replica 0 == sim.run; the
+     first 8 scenarios alone == their lanes; 2 steps through K1 == the
+     plain version, bit for bit; K1 at 3,932,160 rows timed against its
+     bound; ms per step, replica-steps/s, busy share, peak memory;
+     (b) a 4-lane routed sweep of 50 steps on the Clos with its routes:
+     replica 0 == run_routed bit for bit; (c) phase 12's daemon and
+     classes, its plane in the real-time runner at depth 2 behind a gRPC
+     server: a WhatIf of 4 scenarios x 100 ticks while phase 12's feed
+     flows, every frame fed shaped or queue-dropped and delivered; the
+     snapshot barrier's cost; (d) a latency change on 64 links of one
+     leaf through the planned reconciler (plan, the twin gate at full
+     capacity, staged rounds) while the plane ticks: the engine's
+     configuration columns == the change applied directly to a copy,
+     byte for byte.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -105,6 +126,7 @@ import dataclasses
 import json
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1670,15 +1692,18 @@ def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 13: two daemons, cross-node egress --------------------------------
 
 XN_B_LEAVES = 62            # leaves 0..61 on node B: 100 x 62 x 2 links
-XN_TICKS = 8                # full-feed ticks (phase 12's feed; 16 there:
+XN_TICKS = 6                # full-feed ticks (phase 12's feed; 16 there:
 #                             a tick here takes 4.0-5.2 s on an NVIDIA
-#                             H100 80GB HBM3 at 700.00 W, PERF.md, and 8
-#                             keep the script in its time budget)
-XN_EQ_TICKS = 32            # equality-feed ticks, 1 frame per wire: each
+#                             H100 80GB HBM3 at 700.00 W, PERF.md; 8
+#                             until phase 14 joined, 6 keep the script
+#                             in its time budget)
+XN_EQ_TICKS = 24            # equality-feed ticks, 1 frame per wire: each
 #                             first failure under the flap opens the
 #                             breaker with probability ~1/4 (two more
 #                             attempts land in a down half); 16 ticks
-#                             gave one open on the card (PERF.md)
+#                             gave one open on the card, 24 gave 12
+#                             (PERF.md); cut from 32 to keep the script,
+#                             phase 14 included, near 600 s
 XN_REF_TICKS = 4            # the reference-peer round's ticks: the
 #                             per-frame stream moved ~2,000 frames/s
 #                             with both daemons in one interpreter (NVIDIA
@@ -2254,6 +2279,515 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
     return m
 
 
+# -- phase 14: the what-if twin and planned updates --------------------------
+
+TWIN_SCENARIOS = 15         # MAX_REPLICA_CELLS // 2^18 lanes at full width
+TWIN_STEPS = 200            # cut from twin.query.DEFAULT_TICKS = 1,000
+TWIN_K = 4
+TWIN_DT_US = 1000.0
+TWIN_SEED = 41
+TWIN_CHECK_STEPS = 2        # K1's replica launches vs the plain version
+TWIN_SUBSET = 8             # scenarios of the N = 8 sweep
+TWIN_PROFILED_STEPS = 5
+TWIN_ROUTED_LANES = 4
+TWIN_ROUTED_STEPS = 50
+WHATIF_TICKS = 100
+WHATIF_FEED_ROUNDS = 4      # phase 12's feed rounds around the WhatIf
+WHATIF_WAIT_S = 300.0       # bound on every wait of 14(c) and 14(d)
+PLAN_LINKS = 64             # links of one leaf whose latency the plan moves
+PLAN_LATENCY = "8ms"        # from the Clos's 10 ms (the same (5, 10] ms bucket)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def twin_scenarios(store, n_leaf: int):
+    """Phase 14(a)'s 15 futures of the Clos: the baseline; degrades
+    (latency x 2, 1 % loss, a rate cut) of single links and of 64 links
+    of a leaf; failed links; a spine and a leaf blackholed by name; the
+    offered load scaled by 1.5 and by 0.5."""
+    from kubedtn_tpu_torch.api.types import LinkProperties as LP
+    from kubedtn_tpu_torch.twin import Perturbation as P
+    from kubedtn_tpu_torch.twin import Scenario as S
+
+    def links(pod):
+        return store.get("default", pod).spec.links
+
+    slow = LP(latency="20ms", rate="10Gbit")
+    lossy = LP(latency="10ms", rate="10Gbit", loss="1")
+    cut = LP(latency="10ms", rate="100Mbit")
+    s0, l3, l4 = links("spine0"), links("leaf3"), links("leaf4")
+
+    def deg(ls, props):
+        return tuple(P("degrade", uid=l.uid, props=props) for l in ls)
+
+    return [
+        S("baseline"),
+        S("latency-x2", deg(s0[:1], slow)),
+        S("loss-1pct", deg(s0[1:2], lossy)),
+        S("rate-cut", deg(s0[2:3], cut)),
+        S("fail", (P("fail", uid=s0[3].uid),)),
+        S("blackhole-spine1", (P("blackhole", node="spine1"),)),
+        S("blackhole-leaf2", (P("blackhole", node="leaf2"),)),
+        S("scale-1.5", (P("scale", factor=1.5),)),
+        S("leaf3-latency-x2", deg(l3[:64], slow)),
+        S("leaf3-loss-1pct", deg(l3[64:128], lossy)),
+        S("leaf3-rate-cut", deg(l3[128:192], cut)),
+        S("leaf4-fail", tuple(P("fail", uid=l.uid) for l in l4[:64])),
+        S("spine2-latency-x2", deg(links("spine2"), slow)),
+        S("blackhole-spine3-scale-1.5", (P("blackhole", node="spine3"),
+                                         P("scale", factor=1.5))),
+        S(f"blackhole-leaf{n_leaf - 1}-scale-0.5",
+          (P("blackhole", node=f"leaf{n_leaf - 1}"),
+           P("scale", factor=0.5))),
+    ]
+
+
+def k1_replica_launch(bstate, E: int, dev, timer, gen):
+    """One K1 launch over the replica-major rows of a sweep, the [E, NU]
+    uniforms shared (u_rows = E), against its plain version on the same
+    inputs; timed against its bound (each input read once: the
+    uniforms' E rows, every other column's N x E)."""
+    from kubedtn_tpu_torch.ops import netem
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    R = bstate.capacity
+    sizes = torch.full((R,), 200.0, device=dev)
+    have = torch.rand(R, generator=gen, device=dev) < 0.6
+    t_arr = torch.rand(R, generator=gen, device=dev) * 1000.0
+    u = torch.rand((E, netem.NU), generator=gen, device=dev)
+    args = (bstate, sizes, have, t_arr, u)
+    k_state, dep, fl = shaping.shape_step_flags(*args, donate=False,
+                                                u_rows=E)
+    p_state, p_res = netem._shape_step_from_u(
+        bstate, sizes, have, t_arr, u.repeat(R // E, 1))
+    _sync(dev)
+    same((dep, fl, k_state), (p_res.depart_us, shaping.pack_flags(p_res),
+                              p_state), "K1 over replica rows vs plain")
+    out = {"max_abs_err": 0.0, "rows": R, "u_rows": E}
+    if dev.type == "cuda":
+        out["ms"] = timer.ms(lambda: shaping.shape_step_flags(
+            *args, donate=False, u_rows=E))
+        out["plain_ms"] = timer.ms(lambda: netem._shape_step_from_u(
+            bstate, sizes, have, t_arr, u.repeat(R // E, 1)), reps=5)
+        moved = nbytes(bstate.props, bstate.corr, u, bstate.tokens,
+                       bstate.t_last, bstate.backlog_until,
+                       bstate.pkt_count, sizes, t_arr, have, bstate.active,
+                       dep, fl, k_state.tokens, k_state.t_last,
+                       k_state.backlog_until, k_state.corr,
+                       k_state.pkt_count)
+        out["bound_ms"], out["bound_by"] = bound_ms(moved, OPS_K1 * R)
+        out["bytes"] = moved
+    return out
+
+
+def twin_sweep_profile(run, dev) -> dict | None:
+    """Device time and busy share of a few sweep steps (torch.profiler)."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        run()
+        _sync(dev)
+    dev_us = sum(e.time_range.elapsed_us() for e in p.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    cpu = torch.autograd.DeviceType.CPU
+    top = sorted(((a.key, a.self_device_time_total / TWIN_PROFILED_STEPS)
+                  for a in p.key_averages()
+                  if a.self_device_time_total > 0
+                  and (a.device_type == cpu or "shape_step" in a.key)),
+                 key=lambda kv: -kv[1])
+    k1 = sum(v for k, v in top if "shape_step_rows" in k)
+    return {"device_ms_per_step": dev_us / 1e3 / TWIN_PROFILED_STEPS,
+            "wall_ms_per_step": wall * 1e3 / TWIN_PROFILED_STEPS,
+            "busy_share": dev_us / 1e6 / wall,
+            "k1_share_of_device_time": k1 * TWIN_PROFILED_STEPS / dev_us,
+            "top_device_us_per_step": [[k[:48], v] for k, v in top[:6]]}
+
+
+def run_twin_sweep(built, dev, card, timer) -> tuple:
+    """Phase 14(a): the unrouted sweep at full width. Returns (metrics,
+    K1 launches of the sweep)."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.twin import (compile_scenarios, run_sweep,
+                                        snapshot_from_engine)
+    from kubedtn_tpu_torch.twin.engine import replica_lane
+    from kubedtn_tpu_torch.twin.query import (MAX_REPLICA_CELLS,
+                                              build_cbr_spec)
+
+    engine, store = built["engine"], built["store"]
+    n_leaf = sum(1 for t in store.list() if t.name.startswith("leaf"))
+    snap = snapshot_from_engine(engine)
+    E = snap.sim.edges.capacity
+    with engine._lock:
+        pod_ids = dict(engine._pod_ids)
+    scen = twin_scenarios(store, n_leaf)
+    n = len(scen)
+    check(n * E <= MAX_REPLICA_CELLS, f"{n} x {E} rows exceed the budget")
+    spec = build_cbr_spec(snap.sim.edges)
+    edits = compile_scenarios(scen, snap.sim.edges, pod_ids=pod_ids)
+    kw = dict(dt_us=TWIN_DT_US, spec=spec, k_slots=TWIN_K, seed=TWIN_SEED,
+              pod_ids=pod_ids, keep_final=True)
+    m = {"replicas": n, "rows_per_replica": E, "rows": n * E,
+         "steps": TWIN_STEPS, "q": snap.sim.inflight.q}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+    shaping.reset_launches()
+    res = run_sweep(snap, scen, steps=TWIN_STEPS, edits=edits, **kw)
+    _sync(dev)
+    launches = shaping.LAUNCHES["shape_step_rows"]
+    check(launches == TWIN_STEPS * TWIN_K or dev.type != "cuda",
+          f"14(a): {launches} K1 launches for {TWIN_STEPS} steps of "
+          f"{TWIN_K} slots (one per slot over all {n} x {E} rows)")
+    if dev.type == "cuda":
+        m["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        m["peak_mem_gb_over_before"] = (torch.cuda.max_memory_allocated(dev)
+                                        - base_mem) / 1e9
+    m.update(run_s=res.run_s, compile_s=res.compile_s,
+             ms_per_step=res.run_s * 1e3 / TWIN_STEPS,
+             replica_steps_per_s=res.replicas_steps_per_s)
+    final = res.final
+    check(not bool(sim.conservation_residual(final).any()),
+          "14(a): a replica's per-edge books do not close")
+    by = dict(zip(res.names, res.metrics))
+    b = by["baseline"]
+    check(b["tx_packets"] > 0 and b["delivered_packets"] > 0,
+          "14(a): the baseline carried no traffic")
+    check(by["blackhole-spine1"]["tx_packets"] < b["tx_packets"],
+          "14(a): the blackholed spine still sourced traffic")
+    check(by["scale-1.5"]["delivered_bytes"] > b["delivered_bytes"],
+          "14(a): scaling the load by 1.5 moved no more bytes")
+    check(by["latency-x2"]["p99_us"] >= b["p99_us"], "14(a): p99")
+    m["metrics"] = {k: {f: v[f] for f in ("tx_packets", "delivered_packets",
+                                          "dropped_loss", "dropped_queue",
+                                          "delivery_ratio", "p99_us")}
+                    for k, v in by.items()}
+    log(f"14(a) sweep: {n} scenarios x {E} rows ({n * E} rows) x "
+        f"{TWIN_STEPS} steps of {TWIN_DT_US / 1e3:g} ms, K = {TWIN_K}, "
+        f"Q = {m['q']}: {m['ms_per_step']:.3f} ms/step, "
+        f"{m['replica_steps_per_s']:.1f} replica-steps/s, "
+        f"{launches} K1 launches (one per slot and step); books closed "
+        f"per replica and edge; peak memory "
+        f"{m.get('peak_mem_gb', 0.0):.3f} GB ({card})")
+    # replica 0 == sim.run on the same snapshot and seed
+    ref = sim.run(snap.sim, spec, TWIN_STEPS, TWIN_DT_US, TWIN_K,
+                  seed=TWIN_SEED)
+    same(replica_lane(final, 0, n), ref, "14(a) replica 0 vs sim.run")
+    # the first 8 scenarios == the same lanes of the 15-lane sweep
+    sub = run_sweep(snap, scen[:TWIN_SUBSET], steps=TWIN_STEPS, **kw)
+    check(sub.metrics == res.metrics[:TWIN_SUBSET],
+          "14(a): N = 8 metrics differ from the N = 15 lanes")
+    for i in range(TWIN_SUBSET):
+        same(replica_lane(sub.final, i, TWIN_SUBSET),
+             replica_lane(final, i, n), f"14(a) lane {i}, N = 8 vs 15")
+    del sub, ref
+    # K1's replica launches == the plain version, the first 2 steps
+    two = dict(steps=TWIN_CHECK_STEPS, edits=edits, **kw)
+    k2 = run_sweep(snap, scen, shape_fn=queues.shape_packets, **two)
+    p2 = run_sweep(snap, scen, shape_fn=queues.shape_packets_plain, **two)
+    same(k2.final, p2.final, "14(a) 2 steps: K1 vs the plain version")
+    check(k2.metrics == p2.metrics, "14(a) 2 steps: metrics differ")
+    del k2, p2
+    log(f"14(a): replica 0 == sim.run bit for bit; the first "
+        f"{TWIN_SUBSET} scenarios alone == their lanes of the {n}-lane "
+        f"sweep; {TWIN_CHECK_STEPS} steps through K1 == the plain version, "
+        f"bit for bit")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    m["k1"] = k1_replica_launch(final.edges, E, dev, timer, gen)
+    if "ms" in m["k1"]:
+        k = m["k1"]
+        log(f"14(a) K1 over {k['rows']} rows (u_rows {E}): "
+            f"{k['ms'] * 1e3:.2f} us per launch, bound "
+            f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}), plain "
+            f"{k['plain_ms']:.3f} ms ({card})")
+    del final, res
+    m["profile"] = twin_sweep_profile(lambda: run_sweep(
+        snap, scen, steps=TWIN_PROFILED_STEPS, **kw), dev)
+    if m["profile"] is not None:
+        p = m["profile"]
+        log(f"14(a) sweep step: device {p['device_ms_per_step']:.3f} ms, "
+            f"wall {p['wall_ms_per_step']:.3f} ms, busy share "
+            f"{p['busy_share']:.3f}, K1 "
+            f"{100 * p['k1_share_of_device_time']:.2f} % of device time "
+            f"({card})")
+        log(f"14(a) sweep top device ops: {p['top_device_us_per_step']}")
+    return m, launches
+
+
+def run_twin_routed(el, fresh, dev, card, n_spine: int) -> tuple:
+    """Phase 14(b): the routed sweep, 4 lanes on the Clos with its
+    routes; replica 0 == run_routed bit for bit."""
+    from kubedtn_tpu_torch import entry, router
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.twin import (Perturbation, Scenario,
+                                        run_sweep_routed,
+                                        snapshot_from_router)
+    from kubedtn_tpu_torch.twin.engine import replica_lane
+
+    leaves = np.arange(n_spine, el.n_nodes)
+    rs, spec, flow_dst, _dist = entry.build_routed(
+        el, fresh, leaves, seed=31, rate_bps=ROUTED_RATE_BPS, q=SIM_Q,
+        k_fwd=ROUTED_K_FWD, max_hops=ROUTE_HOPS)
+    snap = snapshot_from_router(rs)
+    uids = fresh.uid[:3].tolist()
+    scen = [Scenario("baseline"),
+            Scenario("fail", (Perturbation("fail", uid=uids[0]),)),
+            Scenario("blackhole-node0", (Perturbation("blackhole",
+                                                      node=0),)),
+            Scenario("fail-two", tuple(Perturbation("fail", uid=u)
+                                       for u in uids[1:3]))]
+    shaping.reset_launches()
+    t0 = time.perf_counter()
+    res = run_sweep_routed(snap, scen[:TWIN_ROUTED_LANES],
+                           steps=TWIN_ROUTED_STEPS, dt_us=SIM_DT_US,
+                           spec=spec, flow_dst=flow_dst, k_slots=SIM_K,
+                           k_fwd=ROUTED_K_FWD, seed=TWIN_SEED,
+                           keep_final=True)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = shaping.LAUNCHES["shape_step_rows"]
+    k_shape = SIM_K + ROUTED_K_FWD
+    check(launches == TWIN_ROUTED_STEPS * k_shape or dev.type != "cuda",
+          f"14(b): {launches} K1 launches for {TWIN_ROUTED_STEPS} routed "
+          f"steps of {k_shape} slots")
+    ref = router.run_routed(rs, spec, flow_dst, TWIN_ROUTED_STEPS,
+                            SIM_DT_US, SIM_K, ROUTED_K_FWD, seed=TWIN_SEED)
+    same(replica_lane(res.final, 0, res.replicas), ref,
+         "14(b) routed replica 0 vs run_routed")
+    b = res.metrics[0]
+    check(b["node_rx_packets"] > 0, "14(b): nothing reached a leaf")
+    m = {"replicas": res.replicas, "steps": TWIN_ROUTED_STEPS,
+         "wall_s": wall, "ms_per_step": wall * 1e3 / TWIN_ROUTED_STEPS,
+         "node_rx_packets": [x["node_rx_packets"] for x in res.metrics]}
+    log(f"14(b) routed sweep: {res.replicas} lanes x {fresh.capacity} rows "
+        f"x {TWIN_ROUTED_STEPS} steps, {launches} K1 launches; replica 0 "
+        f"== run_routed bit for bit; {m['ms_per_step']:.3f} ms/step "
+        f"({card})")
+    return m, launches
+
+
+def run_twin_live(built, dev, card, n_rows: int) -> tuple:
+    """Phases 14(c) and 14(d) on phase 12's daemon: its plane ticking in
+    the real-time runner at depth 2. (c) WhatIf over gRPC while phase
+    12's feed flows; (d) PlanUpdate-shaped change through the planned
+    reconciler, staged while the plane ticks, == the change applied
+    directly to a copy. Returns (metrics, K1 launches of the phase)."""
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.twin.query import stats_for
+    from kubedtn_tpu_torch.twin.snapshot import snapshot_from_plane
+    from kubedtn_tpu_torch.updates import Guardrails, UpdateStats
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from kubedtn_tpu_torch.wire.server import make_server
+
+    daemon, engine, store = built["daemon"], built["engine"], built["store"]
+    classes = plane_classes(built, n_rows)
+    win, wout = plane_wires(daemon, classes)
+    m = {}
+    shaping.reset_launches()
+    plane = entry.build_plane(daemon, dt_us=PLANE_DT_S * 1e6,
+                              pipeline_depth=2, seed=14)
+    server, port = make_server(daemon, port=0, host="127.0.0.1",
+                               log_rpcs=False)
+    server.start()
+    client = DaemonClient(f"127.0.0.1:{port}")
+    counts = [0] * len(wout)
+
+    def collect():
+        for k, w in enumerate(wout):
+            n = len(w.egress)
+            for _ in range(n):
+                w.egress.popleft()
+            counts[k] += n
+
+    def wait_ticks(k: int) -> None:
+        start, deadline = plane.ticks, time.monotonic() + WHATIF_WAIT_S
+        while plane.ticks - start < k and time.monotonic() < deadline:
+            collect()
+            time.sleep(0.005)
+        check(plane.ticks - start >= k, "14: the runner stopped ticking")
+
+    rng = np.random.default_rng(14)
+    fed = 0
+    try:
+        plane.start()
+        # (c) WhatIf while the feed flows
+        fed += feed_tick(win, 0, rng)
+        wait_ticks(1)
+        with plane._tick_lock:  # the barrier's own cost, lock held
+            t0 = time.perf_counter()
+            snapshot_from_plane(plane)
+            _sync(dev)
+            m["barrier_ms"] = (time.perf_counter() - t0) * 1e3
+        req = pb.WhatIfRequest(ticks=WHATIF_TICKS, dt_us=1000.0, seed=7,
+                               include_baseline=True)
+        spine0 = store.get("default", "spine0").spec.links
+        for name, kind, extra in (("latency-x2", "degrade", spine0[0]),
+                                  ("fail", "fail", spine0[1]),
+                                  ("blackhole-leaf1", "blackhole", None)):
+            sc = req.scenarios.add()
+            sc.name = name
+            p = sc.perturbations.add()
+            p.kind = kind
+            if kind == "blackhole":
+                p.node = "leaf1"
+            else:
+                p.uid = extra.uid
+            if kind == "degrade":
+                p.properties.CopyFrom(pb.props_to_proto(LinkProperties(
+                    latency="20ms", rate="10Gbit")))
+        box = {}
+
+        def ask():
+            t1 = time.perf_counter()
+            box["resp"] = client.WhatIf(req, timeout=WHATIF_WAIT_S)
+            box["wall_s"] = time.perf_counter() - t1
+
+        th = threading.Thread(target=ask, daemon=True)
+        ticks0 = plane.ticks
+        th.start()
+        for r in range(1, WHATIF_FEED_ROUNDS):
+            fed += feed_tick(win, r, rng)
+            wait_ticks(1)
+        th.join(timeout=WHATIF_WAIT_S)
+        check(not th.is_alive(), "14(c): WhatIf did not return")
+        resp = box["resp"]
+        check(resp.ok, f"14(c) WhatIf failed: {resp.error}")
+        check([x.name for x in resp.results] == ["baseline", "latency-x2",
+                                                 "fail", "blackhole-leaf1"],
+              "14(c): WhatIf results")
+        check(sorted(x.rank for x in resp.results) == [1, 2, 3, 4],
+              "14(c): ranks")
+        m["whatif"] = {"wall_s": box["wall_s"], "run_s": resp.run_s,
+                       "replicas": resp.replicas, "ticks": resp.ticks,
+                       "plane_ticks_during": plane.ticks - ticks0}
+        # drain: every frame fed is shaped or dropped by its qdisc, and
+        # every shaped one arrives
+        deadline = time.monotonic() + WHATIF_WAIT_S
+        while time.monotonic() < deadline:
+            collect()
+            if (plane.shaped + plane.dropped == fed
+                    and sum(counts) == plane.shaped):
+                break
+            time.sleep(0.01)
+        collect()
+        check(plane.shaped + plane.dropped == fed and
+              sum(counts) == plane.shaped,
+              f"14(c): fed {fed}, shaped {plane.shaped}, dropped "
+              f"{plane.dropped}, delivered {sum(counts)}: frames lost "
+              f"across the snapshot barrier")
+        check(plane.tick_errors == 0, "14(c): tick errors")
+        check(stats_for(daemon).sweeps == 1, "14(c): sweep not counted")
+        w = m["whatif"]
+        log(f"14(c) WhatIf over gRPC on the live Clos plane (runner at "
+            f"depth 2, {len(win)} + {len(wout)} wires, {fed} frames fed in "
+            f"{WHATIF_FEED_ROUNDS} rounds): {w['replicas']} lanes x "
+            f"{w['ticks']} ticks in {w['wall_s']:.3f} s wall ({w['run_s']}"
+            f" s sweep), {w['plane_ticks_during']} plane ticks meanwhile; "
+            f"barrier (flush + copy of the edge state, lock held) "
+            f"{m['barrier_ms']:.3f} ms; every frame shaped or queue-"
+            f"dropped and delivered, none lost ({card})")
+
+        # (d) a latency change on 64 links of one leaf, planned
+        leaf = "leaf5"
+        topo = store.get("default", leaf)
+        new_props = LinkProperties(latency=PLAN_LATENCY, rate="10Gbit")
+        moved = [l.with_properties(new_props)
+                 for l in topo.spec.links[:PLAN_LINKS]]
+        rows = [engine.row_of(f"default/{leaf}", l.uid) for l in moved]
+        with plane._tick_lock:
+            plane.flush()
+            direct = clone_state(engine.state)
+        es.update_links(direct, np.asarray(rows, np.int64),
+                        np.stack([es.props_row(new_props.to_numeric())]
+                                 * len(rows)), np.ones(len(rows), bool))
+        stats = UpdateStats()
+        rec = Reconciler(store, engine, plane=plane, planned=True,
+                         guardrails=Guardrails(), update_stats=stats)
+        list(rec._watch.poll())  # phase 14's own CR edits only
+        topo.spec.links = moved + topo.spec.links[PLAN_LINKS:]
+        store.update(topo)
+        p0 = plane.pauses.causes().get("staged_update", {})
+        t0 = time.perf_counter()
+        results = [r for r in rec.drain() if r.action != "noop"]
+        plan_s = time.perf_counter() - t0
+        check([r.action for r in results] == ["planned"],
+              f"14(d): reconcile results {[(r.action, r.ok) for r in results]}")
+        fresh = store.get("default", leaf)
+        check(fresh.status.links == fresh.spec.links, "14(d): status")
+        with plane._tick_lock:
+            plane.flush()
+            st = engine.state
+            for f in ("uid", "src", "dst", "active", "props"):
+                same(getattr(st, f), getattr(direct, f),
+                     f"14(d) staged vs direct: {f}")
+        snap = stats.snapshot()
+        pc = plane.pauses.causes().get("staged_update", {})
+        rounds = int(pc.get("count", 0) - p0.get("count", 0))
+        check(rounds >= 1, "14(d): no staging barrier recorded")
+        m["plan"] = {"links": PLAN_LINKS, "reconcile_s": plan_s,
+                     "gate_s": snap["gate_seconds"],
+                     "stage_s": snap["stage_seconds"], "rounds": rounds,
+                     "pause_ms_per_round": 1e3 * (pc.get("seconds", 0.0)
+                                                  - p0.get("seconds", 0.0))
+                     / rounds,
+                     "phase_ms": results[0].phase_ms}
+        check(plane.tick_errors == 0, "14(d): tick errors")
+        p = m["plan"]
+        log(f"14(d) planned update: latency {PLAN_LATENCY} on {len(moved)} "
+            f"links of {leaf} through the planned reconciler while the "
+            f"plane ticks: gate {p['gate_s']:.3f} s (the twin at "
+            f"{engine.state.capacity} rows), {p['rounds']} round(s), "
+            f"pause {p['pause_ms_per_round']:.3f} ms per round, stage "
+            f"{p['stage_s']:.3f} s; the engine's columns == the change "
+            f"applied directly to a copy, byte for byte ({card})")
+    finally:
+        client.close()
+        plane.stop()
+        server.stop(0)
+    return m, shaping.LAUNCHES["shape_step_rows"]
+
+
+def run_twin_phase(el, fresh, dev, card, n_spine=None, n_leaf=None,
+                   n_rows: int = PLANE_ROWS) -> tuple:
+    """Phase 14: the what-if twin and the planned-update path. Returns
+    (metrics, {sub-phase: K1 launches})."""
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.kernel_bench import Timer
+
+    size = {} if n_spine is None else dict(n_spine=n_spine, n_leaf=n_leaf,
+                                           capacity=1 << 12)
+    t0 = time.perf_counter()
+    built = entry.build_daemon(dev, **size)
+    timer = Timer(dev) if dev.type == "cuda" else None
+    m, k1 = {"reconcile_s": built["reconcile_s"]}, {}
+    m["sweep"], k1["sweep"] = run_twin_sweep(built, dev, card, timer)
+    m["routed"], k1["routed"] = run_twin_routed(
+        el, fresh, dev, card, n_spine or entry.N_SPINE)
+    m["live"], k1["whatif_and_plan"] = run_twin_live(built, dev, card,
+                                                     n_rows)
+    m["phase_s"] = time.perf_counter() - t0
+    log(f"14: phase {m['phase_s']:.1f} s; K1 launches {k1}")
+    return m, k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2315,9 +2849,12 @@ def main() -> int:
     xn_k1 = shaping.LAUNCHES["shape_step_rows"]
     log(f"cross-node path launches: K1 {xn_k1}")
     check(xn_k1 > 0, "K1 never launched on the cross-node path")
+    twin_m, twin_k1 = run_twin_phase(el, fresh, dev, card)
+    check(all(v > 0 for v in twin_k1.values()),
+          f"K1 never launched on a twin path: {twin_k1}")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
                 "routed": routed_launches, "plane": plane_k1,
-                "cross_node": xn_k1}
+                "cross_node": xn_k1, "twin": sum(twin_k1.values())}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -2346,7 +2883,8 @@ def main() -> int:
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
-              "cross_node": xn_m,
+              "cross_node": xn_m, "twin": twin_m,
+              "twin_k1_launches": twin_k1,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))

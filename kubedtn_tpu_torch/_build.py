@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "ops" / "cuda" / "csrc"
@@ -41,7 +42,7 @@ _I = ctypes.c_int
 # C signatures of every exported function, by library.
 SIGNATURES = {
     "shaping": {
-        "kdt_shape_step_rows": [_P] * 18 + [_I, _P],
+        "kdt_shape_step_rows": [_P] * 18 + [_I, _I, _P],
         "kdt_shape_steps_cols": [_P] * 12 + [_I, _I, _P],
         "kdt_shape_steps_cols_philox": [ctypes.c_uint32] + [_P] * 11
         + [_I, _I, _P],
@@ -133,6 +134,16 @@ def library(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def load_seconds(name: str) -> float:
+    """Seconds that building and loading csrc/<name>.cu took in this
+    call: 0.0 when the library was loaded before."""
+    if name in _loaded:
+        return 0.0
+    t0 = time.perf_counter()
+    library(name)
+    return time.perf_counter() - t0
 
 
 def check(rc: int, what: str) -> None:

@@ -258,6 +258,13 @@ __device__ __forceinline__ void shape_one(const float p[NPROP],
 // K1: the drop-in step on the EdgeState layout. The state outputs may
 // alias the inputs (the donating caller updates in place): each thread
 // reads its own row before it writes it.
+//
+// The uniforms have E_u rows, E_u dividing E, and row e reads row
+// e % E_u. A what-if sweep lays N replicas of an E-row state out
+// replica-major (N x E rows) and shares one step's draws across them, as
+// the JAX twin broadcasts its uniforms over the replica axis: E_u = E
+// there, so no replica's copy of the draws is ever written out. With
+// E_u == E every row reads its own uniforms, the one-state step.
 __global__ void __launch_bounds__(THREADS)
 shape_step_rows(const float* __restrict__ props, const float* corr_in,
                 const float* __restrict__ u, const float* tokens_in,
@@ -268,16 +275,17 @@ shape_step_rows(const float* __restrict__ props, const float* corr_in,
                 const uint8_t* __restrict__ active,
                 float* __restrict__ depart, int* __restrict__ flags,
                 float* tokens_out, float* t_last_out, float* backlog_out,
-                float* corr_out, int* count_out, int E) {
+                float* corr_out, int* count_out, int E, int E_u) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t row = static_cast<size_t>(e);
+  const size_t urow = static_cast<size_t>(e % E_u);
   float p[NPROP];
 #pragma unroll
   for (int k = 0; k < NPROP; ++k) p[k] = props[row * NPROP + k];
   float uu[NU];
 #pragma unroll
-  for (int k = 0; k < NU; ++k) uu[k] = u[row * NU + k];
+  for (int k = 0; k < NU; ++k) uu[k] = u[urow * NU + k];
   EdgeDyn st;
   st.tokens = tokens_in[e];
   st.t_last = t_last_in[e];
@@ -433,12 +441,12 @@ extern "C" int kdt_shape_step_rows(
     const int* count_in, const float* sizes, const float* t_arr,
     const uint8_t* have, const uint8_t* active, float* depart, int* flags,
     float* tokens_out, float* t_last_out, float* backlog_out,
-    float* corr_out, int* count_out, int E, void* stream) {
+    float* corr_out, int* count_out, int E, int E_u, void* stream) {
   shape_step_rows<<<blocks_for(E), THREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       props, corr_in, u, tokens_in, t_last_in, backlog_in, count_in, sizes,
       t_arr, have, active, depart, flags, tokens_out, t_last_out,
-      backlog_out, corr_out, count_out, E);
+      backlog_out, corr_out, count_out, E, E_u);
   return static_cast<int>(cudaGetLastError());
 }
 

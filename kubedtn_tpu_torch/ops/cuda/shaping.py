@@ -200,21 +200,44 @@ def shape_step(state: EdgeState, sizes: torch.Tensor,
     return state, unpack_flags(depart, flags)
 
 
+def _u_rows(E: int, u_rows: int | None) -> int:
+    """The uniforms' row count: E by default, else a divisor of E."""
+    if u_rows is None:
+        return E
+    u_rows = int(u_rows)
+    if u_rows <= 0 or E % u_rows:
+        raise ValueError(f"u_rows={u_rows} must be a positive divisor of "
+                         f"the {E} state rows")
+    return u_rows
+
+
 def shape_step_flags(state: EdgeState, sizes: torch.Tensor,
                      have_pkt: torch.Tensor, t_arrival: torch.Tensor,
-                     u: torch.Tensor, *, donate: bool):
+                     u: torch.Tensor, *, donate: bool,
+                     u_rows: int | None = None):
     """shape_step with the outcome packed as FLAG_* words: on the card
     this enqueues kernel K1 and nothing else. Returns (state', depart
-    [E], flags int32 [E])."""
+    [E], flags int32 [E]).
+
+    `u_rows` (default E) is the uniforms' row count, a divisor of E:
+    `u` is [u_rows, NU] and row e reads row e % u_rows. A replica sweep
+    passes one step's [E, NU] draws for its N x E rows this way
+    (twin/engine.py); the plain version computes the same."""
+    E = state.capacity
+    n_u = _u_rows(E, u_rows)
     if _on_cpu(state.tokens):
+        if tuple(u.shape) != (n_u, netem.NU):
+            raise ValueError(f"u has shape {tuple(u.shape)}, expected "
+                             f"{(n_u, netem.NU)}")
+        if n_u != E:
+            u = u.repeat(E // n_u, 1)
         state, res = netem._shape_step_from_u(state, sizes, have_pkt,
                                               t_arrival, u)
         return state, res.depart_us, pack_flags(res)
-    E = state.capacity
     dev = _checked([
         ("props", state.props, F32, (E, es.NPROP)),
         ("corr", state.corr, F32, (E, es.NCORR)),
-        ("u", u, F32, (E, netem.NU)),
+        ("u", u, F32, (n_u, netem.NU)),
         ("tokens", state.tokens, F32, (E,)),
         ("t_last", state.t_last, F32, (E,)),
         ("backlog_until", state.backlog_until, F32, (E,)),
@@ -239,7 +262,7 @@ def shape_step_flags(state: EdgeState, sizes: torch.Tensor,
             state.active.data_ptr(), depart.data_ptr(), flags.data_ptr(),
             out.tokens.data_ptr(), out.t_last.data_ptr(),
             out.backlog_until.data_ptr(), out.corr.data_ptr(),
-            out.pkt_count.data_ptr(), E, _stream(dev)),
+            out.pkt_count.data_ptr(), E, n_u, _stream(dev)),
             "shape_step_rows")
         LAUNCHES["shape_step_rows"] += 1
     return out, depart, flags

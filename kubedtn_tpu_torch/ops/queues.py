@@ -101,7 +101,9 @@ def draw_shape_uniforms(state: EdgeState, k: int,
 
 def _slots(state: EdgeState, sizes, valid, t_arrival, generator, u):
     """(sizes, valid, t_arrival, u) slot-major: the [E, K] slot inputs as
-    contiguous [K, E] rows, and the [K, E, NU] uniforms, given or drawn."""
+    contiguous [K, E] rows, and the [K, E_u, NU] uniforms, given or drawn.
+    Given uniforms may have E_u rows for E a multiple of E_u: row e then
+    reads row e % E_u (a replica sweep's shared draws)."""
     E, K = sizes.shape
     if E != state.capacity:
         raise ValueError(f"{E} rows of slots for capacity {state.capacity}")
@@ -110,9 +112,10 @@ def _slots(state: EdgeState, sizes, valid, t_arrival, generator, u):
             raise ValueError("shape_packets needs a generator or the draws "
                              "u")
         u = draw_shape_uniforms(state, K, generator)
-    elif tuple(u.shape) != (K, E, netem.NU):
-        raise ValueError(f"u must have shape {(K, E, netem.NU)}, got "
-                         f"{tuple(u.shape)}")
+    elif (u.dim() != 3 or u.shape[0] != K or u.shape[2] != netem.NU
+          or u.shape[1] == 0 or E % u.shape[1]):
+        raise ValueError(f"u must have shape ({K}, E_u, {netem.NU}) with "
+                         f"E_u dividing {E}, got {tuple(u.shape)}")
     return (sizes.T.contiguous(), valid.T.contiguous(),
             t_arrival.T.contiguous(), u)
 
@@ -127,7 +130,8 @@ def shape_packets(state: EdgeState, sizes: torch.Tensor,
       sizes: f32[E, K]; valid: bool[E, K]; t_arrival: f32[E, K] —
         per-edge packet slots, arrival-ordered along K.
       generator: draws the [K, E, NU] uniforms when `u` is not given.
-      u: f32[K, E, NU] uniforms, slot k's in u[k].
+      u: f32[K, E_u, NU] uniforms, slot k's in u[k]; E_u = E, or a
+        divisor of E whose rows repeat (row e reads row e % E_u).
 
     On CUDA tensors every slot is one launch of kernel K1; the first
     writes a fresh state and the others update that state in place, so
@@ -139,7 +143,8 @@ def shape_packets(state: EdgeState, sizes: torch.Tensor,
     departs, flags = [], []
     for k in range(sz.shape[0]):
         state, dep, fl = shaping.shape_step_flags(
-            state, sz[k], ok[k], ta[k], u[k], donate=k > 0)
+            state, sz[k], ok[k], ta[k], u[k], donate=k > 0,
+            u_rows=u.shape[1])
         departs.append(dep)
         flags.append(fl)
     return state, shaping.unpack_flags(torch.stack(departs, dim=1),
@@ -154,10 +159,12 @@ def shape_packets_plain(state: EdgeState, sizes: torch.Tensor,
     loop over netem._shape_step_from_u, the plain version of K1. Same
     arguments, same draws, same results."""
     sz, ok, ta, u = _slots(state, sizes, valid, t_arrival, generator, u)
+    reps = state.capacity // u.shape[1]
     slots = []
     for k in range(sz.shape[0]):
+        uk = u[k] if reps == 1 else u[k].repeat(reps, 1)
         state, res = netem._shape_step_from_u(state, sz[k], ok[k], ta[k],
-                                              u[k])
+                                              uk)
         slots.append(res)
     return state, netem.ShapeResult(**{
         f.name: torch.stack([getattr(r, f.name) for r in slots], dim=1)

@@ -36,7 +36,7 @@ from kubedtn_tpu_torch.ops import netem
 from kubedtn_tpu_torch.ops.queues import (insert_inflight, pop_due,
                                           shape_packets)
 from kubedtn_tpu_torch.sim import (SimState, StepDraws, _add, _count, as_dt,
-                                   init_sim)
+                                   init_sim, replica_count, replica_inputs)
 
 F32, I32, I64 = torch.float32, torch.int32, torch.int64
 
@@ -82,14 +82,16 @@ def init_router(edges, next_edge: torch.Tensor, n_nodes: int, q: int = 32,
 
 def _group_into_lanes(target: torch.Tensor, size: torch.Tensor,
                       fdst: torch.Tensor, corr: torch.Tensor,
-                      live: torch.Tensor, E: int, k_fwd: int):
+                      live: torch.Tensor, E: int, k_fwd: int,
+                      n_rep: int | None = None):
     """Scatter flat packets into per-edge lanes [E, k_fwd].
 
     target: int[M] destination edge row per packet (E = drop). Packets
     of one row keep their flat order (the sort is stable) and the first
     k_fwd of them get the lanes.
     Returns (size[E,Kf], dst[E,Kf], corr[E,Kf], valid[E,Kf], dropped
-    count f32[])."""
+    count f32[]); with `n_rep` the rows are n_rep replicas of E / n_rep
+    rows each and the dropped count is f32[n_rep], per replica."""
     M = target.shape[0]
     dev = target.device
     tgt = torch.where(live, target, E)
@@ -113,22 +115,34 @@ def _group_into_lanes(target: torch.Tensor, size: torch.Tensor,
     out_dst = lanes(-1, I32, fdst[order])
     out_co = lanes(False, torch.bool, corr[order])
     out_ok = lanes(False, torch.bool, ok)
-    dropped = (in_row & (rank >= k_fwd)).sum().to(F32)
+    over = in_row & (rank >= k_fwd)
+    if n_rep is None:
+        dropped = over.sum().to(F32)
+    else:
+        rep = torch.where(over, tgt_s // (E // n_rep), n_rep)
+        dropped = torch.bincount(rep, minlength=n_rep + 1)[:n_rep].to(F32)
     return out_sz, out_dst, out_co, out_ok, dropped
 
 
 def _node_sums(values: torch.Tensor, node: torch.Tensor,
-               n_nodes: int) -> torch.Tensor:
+               n_nodes: int, n_rep: int = 1) -> torch.Tensor:
     """f32[n] sum of `values` (f32[E], zero where nothing counts) over the
     edges of each node `node[e]`, the same bits on every run: the values
     are added as 64-bit integers in units of 2^-16 (exact for every
     multiple of that unit, so for whole bytes and counts), then rounded
-    to f32 once."""
-    acc = torch.zeros(n_nodes + 1, dtype=I64, device=values.device)
+    to f32 once. With `n_rep` replicas of E / n_rep rows the sums are
+    f32[n_rep * n], replica-major."""
+    total = n_rep * n_nodes
+    acc = torch.zeros(total + 1, dtype=I64, device=values.device)
     # a node outside [0, n) lands on the cut-off row, as a scatter drops it
-    row = torch.where((node >= 0) & (node < n_nodes), node, n_nodes).long()
+    ok = (node >= 0) & (node < n_nodes)
+    if n_rep > 1:
+        rows = values.shape[0] // n_rep
+        node = node + torch.arange(values.shape[0], device=node.device,
+                                   dtype=node.dtype) // rows * n_nodes
+    row = torch.where(ok, node, total).long()
     acc.index_add_(0, row, (values.double() * _FIXED_ONE).to(I64))
-    return (acc[:n_nodes].double() / _FIXED_ONE).to(F32)
+    return (acc[:total].double() / _FIXED_ONE).to(F32)
 
 
 def _ecmp_pick(group: torch.Tensor, ingress: torch.Tensor,
@@ -169,11 +183,27 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
                         sizes_t, valid_t, t_arr_t, generator, k_fwd: int,
                         dt_us, *, shape_u=None, shape_fn=shape_packets):
     """Everything after traffic generation — split out so a replica
-    sweep can generate the (replica-independent) traffic once."""
+    sweep can generate the (replica-independent) traffic once.
+
+    `rs` may hold N replicas of the E traffic rows, laid out
+    replica-major as in sim._finish_step: edges, delay line, counters and
+    pending lanes with N x E rows, node counters f32[N * n_nodes] and the
+    forwarding drops f32[N]; the routing table, traffic state, flow
+    destinations and the step's uniforms are shared. A replica's packets
+    forward onto its own rows only. With 0-dim drop counters this is the
+    one-state step."""
     sim = rs.sim
     E = sim.edges.capacity
     dev = sim.edges.device
-    n_nodes = rs.node_rx_packets.shape[0]
+    batched = rs.fwd_dropped.dim() == 1
+    n = replica_count(E, sizes_t.shape[0])
+    e_rep = E // n
+    n_nodes = rs.node_rx_packets.shape[0] // n
+    if n > 1:
+        sizes_t, valid_t, t_arr_t, shape_u = replica_inputs(
+            n, sizes_t, valid_t, t_arr_t, sizes_t.shape[1] + k_fwd,
+            generator, shape_u)
+        flow_dst = flow_dst.repeat(n)
     valid_t = valid_t & sim.edges.active[:, None]
     sizes_t = torch.where(valid_t, sizes_t, 0.0)  # keep byte counters honest
     fd = torch.where(flow_dst >= 0, flow_dst, sim.edges.dst)
@@ -214,9 +244,9 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
     #     first (a fixed-order reduction), then edges into nodes
     node = sim.edges.dst
     node_rx_p = rs.node_rx_packets + _node_sums(_count(at_dest), node,
-                                                n_nodes)
+                                                n_nodes, n)
     node_rx_b = rs.node_rx_bytes + _node_sums(
-        torch.where(at_dest, fl.size, 0.0).sum(dim=1), node, n_nodes)
+        torch.where(at_dest, fl.size, 0.0).sum(dim=1), node, n_nodes, n)
 
     # 4b. transit packets -> next-hop edge, re-inject next step
     flat_fd = fl.final_dst.reshape(-1)
@@ -229,16 +259,24 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
     if rs.next_edge.dim() == 3:
         group = rs.next_edge.reshape(n_nodes * n_nodes, -1).index_select(
             0, pair)
-        ingress = torch.arange(E, device=dev)[:, None].expand(
+        # the hash reads the ingress edge's row within its replica
+        ingress = (torch.arange(E, device=dev) % e_rep)[:, None].expand(
             due.shape).reshape(-1)
         nxt = _ecmp_pick(group, ingress, safe_fd)
     else:
         nxt = rs.next_edge.reshape(-1).index_select(0, pair)
     routed = flat_live & (nxt >= 0)
     no_route = flat_live & (nxt < 0)
+    if n > 1:
+        # the next hop's row in the packet's own replica
+        nxt = nxt + (torch.arange(E, device=dev) // e_rep * e_rep)[
+            :, None].expand(due.shape).reshape(-1).to(nxt.dtype)
     p_sz, p_dst, p_co, p_ok, fwd_drop = _group_into_lanes(
         torch.where(routed, nxt, E), fl.size.reshape(-1), flat_fd,
-        fl.corrupted.reshape(-1), routed, E, k_fwd)
+        fl.corrupted.reshape(-1), routed, E, k_fwd,
+        n if batched else None)
+    no_route_n = (no_route.view(n, -1).sum(dim=1) if batched
+                  else no_route.sum()).to(F32)
 
     counters = _add(
         sim.counters,
@@ -266,7 +304,7 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
         node_rx_packets=node_rx_p,
         node_rx_bytes=node_rx_b,
         fwd_dropped=rs.fwd_dropped + fwd_drop,
-        no_route_dropped=rs.no_route_dropped + no_route.sum().to(F32),
+        no_route_dropped=rs.no_route_dropped + no_route_n,
     )
 
 

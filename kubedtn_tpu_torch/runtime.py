@@ -1184,7 +1184,7 @@ class _ShapeJob:
             "_pipe_state", "_key", "_need_resync", "_chain_shaped_s",
             "_last_shaped_s", "_origin_s", "_disp_items", "_disp_decided",
             "_disp_samples", "_disp_samp_adv", "_drain_budget",
-            "_props_cache")
+            "_props_cache", "_update_stager")
 class WireDataPlane:
     """Shapes wire frames through the engine's edge state in real time
     (module docstring)."""
@@ -1312,6 +1312,8 @@ class WireDataPlane:
         # keyed on the engine's generation counter, never on tensor
         # identity (which an in-place UpdateLinks keeps)
         self._props_cache: tuple = (None, None)
+        # the planned-update stager (update_stager), made on first use
+        self._update_stager = None
         # adaptive drain budget (runner ticks only): halves toward
         # adapt_min_slots while the ingress backlog stays empty, doubles
         # back toward max_slots while the backlog grows across the
@@ -1565,6 +1567,48 @@ class WireDataPlane:
             self.pauses.record("pipeline_flush",
                                time.perf_counter() - t0, rows=shaped)
             return shaped
+
+    def stage_update_round(self, apply_fn, cause: str = "staged_update",
+                           **detail):
+        """Planned-update staging barrier (updates.stager): complete
+        every in-flight dispatch, run `apply_fn` (one round's engine
+        edits — it returns whatever the stager needs), and flush the
+        engine's pending scatters before the lock drops, so the next
+        tick snapshots the round fully applied or not at all. The
+        runner pauses one barrier per round, never stops. Re-entrant
+        under the tick lock (the stager's rollback holds it while
+        replaying the journal).
+
+        The engine flush runs in a FINALLY: if apply_fn raises after
+        enqueueing part of the round, the registries have already
+        moved, so the device must move with them before the lock can
+        drop — otherwise the next tick's lazy engine.state flush would
+        land the half-round mid-shaping. The stager's _apply_round
+        additionally replays its journal inside the same lock hold, so
+        no tick ever shapes against the mixture.
+
+        `cause`/`detail` label the pause in the plane's ledger (the
+        stager passes its plan id)."""
+        with self._tick_lock:
+            with self.pauses.pause(cause, **detail):
+                self.flush()
+                try:
+                    return apply_fn()
+                finally:
+                    self.engine.flush()
+
+    def update_stager(self, stats=None):
+        """This plane's planned-update stager, created on first use
+        (kubedtn_tpu_torch.updates.stager.UpdateStager). `stats`
+        attaches an UpdateStats sink the first time one is offered."""
+        from kubedtn_tpu_torch.updates.stager import UpdateStager
+
+        with self._tick_lock:
+            if self._update_stager is None:
+                self._update_stager = UpdateStager(self, stats=stats)
+            elif stats is not None and self._update_stager.stats is None:
+                self._update_stager.stats = stats
+            return self._update_stager
 
     def fast_forward(self, sim_seconds: float,
                      dt_s: float | None = None) -> dict:

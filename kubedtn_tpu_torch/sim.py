@@ -109,16 +109,52 @@ def _step_parts(sim: SimState, spec: TrafficSpec, generator, k_slots: int,
                         shape_fn=shape_fn)
 
 
+def replica_count(rows: int, traffic_rows: int) -> int:
+    """N of a state laid out as N replicas of `traffic_rows` rows."""
+    if traffic_rows <= 0 or rows % traffic_rows:
+        raise ValueError(f"{rows} state rows are not a whole number of "
+                         f"replicas of {traffic_rows} rows")
+    return rows // traffic_rows
+
+
+def replica_inputs(n: int, sizes, valid, t_arr, k_shape: int, generator,
+                   shape_u):
+    """One step's traffic ([E, K] each) for N replicas laid out
+    replica-major (N x E rows), and the step's [k_shape, E, NU] shaping
+    uniforms, drawn from `generator` unless given: every replica shares
+    them (K1 reads row r's at r % E), so the draws, like the traffic,
+    are the one-replica step's."""
+    if shape_u is None:
+        shape_u = torch.rand((k_shape, sizes.shape[0], netem.NU),
+                             generator=generator, dtype=F32,
+                             device=sizes.device)
+    return (sizes.repeat(n, 1), valid.repeat(n, 1), t_arr.repeat(n, 1),
+            shape_u)
+
+
 def _finish_step(sim: SimState, tstate, sizes, valid, t_arr, generator,
                  dt_us, size_scale=None, *, shape_u=None,
                  shape_fn=shape_packets):
     """Steps 2-4 of the data-plane step (everything after traffic
     generation): shape → enqueue → deliver → counters → epoch roll.
-    `size_scale` (scalar) multiplies the generated packet sizes — a
-    replica's offered-load dial."""
+
+    `sim` may hold N replicas of the E traffic rows, laid out
+    replica-major: edges, delay line and counters with N x E rows, the
+    traffic state and clock once (the twin's sweep, twin/engine.py). The
+    step's traffic and uniforms are then generated once and shared, and
+    `size_scale` (a scalar, or f32[N] per replica) multiplies the
+    generated packet sizes — a replica's offered-load dial. With N = 1
+    this is the one-state step."""
+    n = replica_count(sim.edges.capacity, sizes.shape[0])
+    if n > 1:
+        sizes, valid, t_arr, shape_u = replica_inputs(
+            n, sizes, valid, t_arr, sizes.shape[1], generator, shape_u)
     valid = valid & sim.edges.active[:, None]
     sizes = torch.where(valid, sizes, 0.0)  # keep byte counters honest
     if size_scale is not None:
+        if torch.is_tensor(size_scale) and size_scale.dim() == 1:
+            size_scale = size_scale.repeat_interleave(
+                sizes.shape[0] // size_scale.shape[0])[:, None]
         sizes = sizes * size_scale
 
     # 2. qdisc chain (netem root + TBF child), K sequential slots per edge

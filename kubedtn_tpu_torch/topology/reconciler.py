@@ -18,9 +18,9 @@ Differences by design: CalcDiff is O(n) over a hash of the
 scatters replaces the reference's 32 concurrent reconcile workers (:336) as
 the scaling mechanism.
 
-Port of kubedtn_tpu/topology/reconciler.py without the staged-update
-path (the twin-gated staged apply of kubedtn_tpu.updates) and without the
-tracing span around each pass; both come with their modules.
+Port of kubedtn_tpu/topology/reconciler.py, the twin-gated planned
+branch (kubedtn_tpu_torch.updates) included; the tracing span around
+each pass comes with the port's tracing module.
 """
 
 from __future__ import annotations
@@ -146,7 +146,10 @@ class WorkQueue:
 @dataclass
 class ReconcileResult:
     key: str
-    action: str  # "noop" | "first-seen" | "changed" | "deleted"
+    # "noop" | "first-seen" | "changed" | "deleted", and on the planned
+    # branch "planned" | "plan-rejected" | "plan-rolled-back" |
+    # "plan-busy" | "plan-failed"
+    action: str
     added: int = 0
     deleted: int = 0
     updated: int = 0
@@ -155,20 +158,39 @@ class ReconcileResult:
     # and retries — the reference returns the error to controller-runtime
     # for requeue (topology_controller.go:120-122)
     ok: bool = True
-    # False ⇔ the failure is a deterministic verdict, not a transient
-    # error: drain must not requeue it
+    # False ⇔ the failure is a deterministic VERDICT (the twin gate
+    # rejected the plan), not a transient error: drain must not requeue
+    # it — retrying re-rejects forever
     retryable: bool = True
     phase_ms: dict[str, float] = field(default_factory=dict)
 
 
 class Reconciler:
-    """Cluster-level reconcile loop over the TopologyStore: every delta
-    applies directly through the engine (DelLinks → AddLinks →
-    UpdateLinks)."""
+    """Cluster-level reconcile loop over the TopologyStore.
 
-    def __init__(self, store: TopologyStore, engine: SimEngine) -> None:
+    With `planned=True` and a live data plane attached, topology DELTAS
+    (action "changed" on an already-realized topology) route through the
+    planned-update engine (kubedtn_tpu_torch.updates): ordered rounds,
+    twin verification gate, staged apply with rollback. Direct apply
+    (DelLinks → AddLinks → UpdateLinks) remains the bootstrap path
+    (first-seen), the fallback when the planner infrastructure errors,
+    and the default (`planned=False`). A plan the GATE rejects is a
+    policy verdict, not a transient failure: status stays stale, the
+    result carries action "plan-rejected", and the key is NOT requeued
+    (retrying a deterministic rejection forever would spin); a
+    mid-staging ROLLBACK requeues like any transient failure.
+    """
+
+    def __init__(self, store: TopologyStore, engine: SimEngine,
+                 plane=None, planned: bool = False, guardrails=None,
+                 observe_ticks: int = 2, update_stats=None) -> None:
         self.store = store
         self.engine = engine
+        self.plane = plane
+        self.planned = bool(planned)
+        self.guardrails = guardrails
+        self.observe_ticks = observe_ticks
+        self.update_stats = update_stats
         self._watch = store.watch()
         # keys whose last reconcile failed, retried on the next drain pass
         # (controller-runtime's requeue-on-error)
@@ -201,27 +223,39 @@ class Reconciler:
             result.added = len(add)
             result.deleted = len(delete)
             result.updated = len(changed)
-            failed: dict[str, list[int]] = {}
-            t0 = time.perf_counter()
-            if not self.engine.del_links(topo, delete):
-                failed["del"] = [l.uid for l in delete]
-            result.phase_ms["del"] = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            if not self.engine.add_links(topo, add):
-                failed["add"] = [l.uid for l in add]
-            result.phase_ms["add"] = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            if not self.engine.update_links(topo, changed):
-                failed["update"] = [l.uid for l in changed]
-            result.phase_ms["update"] = (time.perf_counter() - t0) * 1e3
-            if failed:
-                result.ok = False
-                # partial apply: some phases landed, this one did not —
-                # name the failed link set so the half-applied delta is
-                # diagnosable, not just a boolean
-                self.log.warning("reconcile partial apply %s",
-                                 _fields(topology=key,
-                                         failed_links=failed))
+            handled = False
+            if self.planned and self.plane is not None:
+                handled = self._reconcile_planned(
+                    topo, key, result, diff=(add, delete, changed))
+                if handled and result.action == "plan-rejected":
+                    # a deterministic gate verdict: surface it, leave
+                    # status stale, do NOT requeue (see class docstring)
+                    result.phase_ms["total"] = (
+                        time.perf_counter() - t_start) * 1e3
+                    return result
+            if not handled:
+                failed: dict[str, list[int]] = {}
+                t0 = time.perf_counter()
+                if not self.engine.del_links(topo, delete):
+                    failed["del"] = [l.uid for l in delete]
+                result.phase_ms["del"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                if not self.engine.add_links(topo, add):
+                    failed["add"] = [l.uid for l in add]
+                result.phase_ms["add"] = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                if not self.engine.update_links(topo, changed):
+                    failed["update"] = [l.uid for l in changed]
+                result.phase_ms["update"] = (
+                    time.perf_counter() - t0) * 1e3
+                if failed:
+                    result.ok = False
+                    # partial apply: some phases landed, this one did
+                    # not — name the failed link set so the half-applied
+                    # delta is diagnosable, not just a boolean
+                    self.log.warning("reconcile partial apply %s",
+                                     _fields(topology=key,
+                                             failed_links=failed))
 
         if not result.ok:
             # Engine failure (e.g. the peer daemon rejected a cross-node
@@ -261,6 +295,94 @@ class Reconciler:
                 deleted=result.deleted, updated=result.updated,
                 ms=round(result.phase_ms["total"], 2)))
         return result
+
+    def _reconcile_planned(self, topo, key: str,
+                           result: ReconcileResult,
+                           diff=None) -> bool:
+        """Route one delta through the planned-update engine. Returns
+        True when handled (result carries the verdict: action
+        "planned" on success, "plan-rejected" on a gate veto,
+        "plan-rolled-back" on a staging rollback); False to fall back
+        to the direct path (planner infrastructure error — the delta
+        must still land)."""
+        from kubedtn_tpu_torch.updates import (PlanError, plan_update,
+                                               verify_plan_live)
+
+        t0 = time.perf_counter()
+        try:
+            plan = plan_update(topo.status.links, topo.spec.links,
+                               namespace=topo.namespace, name=topo.name,
+                               diff=diff)
+        except PlanError:
+            self.log.exception("planner failed; direct apply %s",
+                               _fields(topology=key))
+            if self.update_stats is not None:
+                self.update_stats.record_plan_error()
+            return False
+        if not plan.rounds:
+            return True  # empty diff (identity-only churn): nothing to do
+        try:
+            verdict = verify_plan_live(self.plane, plan,
+                                       guardrails=self.guardrails)
+        except Exception:
+            # gate infrastructure failure (not a verdict): the delta
+            # must still land — fall back to the direct path, loudly
+            self.log.exception("update gate failed; direct apply %s",
+                               _fields(topology=key))
+            if self.update_stats is not None:
+                self.update_stats.record_plan_error()
+            return False
+        if self.update_stats is not None:
+            self.update_stats.record_plan(verdict)
+        result.phase_ms["gate"] = (time.perf_counter() - t0) * 1e3
+        if not verdict.ok:
+            result.ok = False
+            result.retryable = False
+            result.action = "plan-rejected"
+            self.log.warning("plan rejected by twin gate %s", _fields(
+                topology=key, reason=verdict.reason,
+                gate_ms=round(verdict.gate_s * 1e3, 1)))
+            return True
+        t0 = time.perf_counter()
+        from kubedtn_tpu_torch.updates.stager import StagingBusyError
+
+        stager = self.plane.update_stager(stats=self.update_stats)
+        try:
+            stage = stager.stage(plan, topo,
+                                 observe_ticks=self.observe_ticks,
+                                 guardrails=self.guardrails)
+        except StagingBusyError as e:
+            # another staging in progress: a transient condition — fail
+            # the pass so the key requeues and retries next drain.
+            # (Deliberately NOT `except RuntimeError`: device errors
+            # are RuntimeErrors too and belong to the failure branch.)
+            result.ok = False
+            result.action = "plan-busy"
+            self.log.warning("staging busy %s", _fields(
+                topology=key, error=str(e)))
+            return True
+        except Exception:
+            # unexpected staging failure: the stager already rolled the
+            # applied rounds back before re-raising — swallow it HERE so
+            # one topology's failure cannot abort a serial drain() pass
+            # mid-loop (stranding every other pending delta after the
+            # watch events were consumed); fail the pass and requeue
+            result.ok = False
+            result.action = "plan-failed"
+            if self.update_stats is not None:
+                self.update_stats.record_plan_error()
+            self.log.exception("staged update failed %s",
+                               _fields(topology=key))
+            return True
+        result.phase_ms["stage"] = (time.perf_counter() - t0) * 1e3
+        if stage.ok:
+            result.action = "planned"
+            return True
+        result.ok = False
+        result.action = "plan-rolled-back"
+        self.log.warning("staged update rolled back %s", _fields(
+            topology=key, reason=stage.reason))
+        return True
 
     def drain(self, max_passes: int = 64,
               workers: int = 1) -> list[ReconcileResult]:

@@ -29,9 +29,12 @@ senders (coalesced SendToBulk), or one unary SendToOnce each through
 `deliver_egress`. An optional pcap tap (`capture`, utils/pcap.py)
 records "in" at ingestion and "out" at pod-side delivery.
 
-Not ported yet (the RPCs answer UNIMPLEMENTED): WhatIf, ObserveSLO,
-AutopilotCtl/Status, PlanUpdate/ApplyPlan, Tenant*, MigrateTenant /
-MigrationStatus and FleetStatus / FleetUpgrade. The shared-memory ingest
+WhatIf serves a what-if sweep (kubedtn_tpu_torch.twin), PlanUpdate and
+ApplyPlan the planned-update surface (kubedtn_tpu_torch.updates).
+
+Not ported yet (the RPCs answer UNIMPLEMENTED): ObserveSLO,
+AutopilotCtl/Status, Tenant*, MigrateTenant / MigrationStatus and
+FleetStatus / FleetUpgrade. The shared-memory ingest
 and the optional CPython extension of the JAX package are left out;
 their pure-Python paths are the ones here.
 """
@@ -750,14 +753,41 @@ class Daemon:
                                     "which is not ported")
         return self._health_response(self.health_snapshot())
 
+    # -- the what-if twin and planned updates --------------------------
+
+    def WhatIf(self, request, context):
+        """Framework extension: serve a what-if sweep from a consistent
+        fork of the LIVE data plane (kubedtn_tpu_torch.twin) — the
+        real-time runner keeps ticking while the replicas run; only the
+        snapshot barrier (one pipeline flush and a copy of the edge
+        state) briefly holds the tick lock."""
+        from kubedtn_tpu_torch.twin.query import serve_whatif
+
+        return serve_whatif(self, request)
+
+    def PlanUpdate(self, request, context):
+        """Framework extension: build + twin-verify an ordered update
+        schedule for a topology's declared desired links (the CLAIM
+        half of the planned-update surface, kubedtn_tpu_torch.updates)."""
+        from kubedtn_tpu_torch.updates.service import serve_plan_update
+
+        return serve_plan_update(self, request)
+
+    def ApplyPlan(self, request, context):
+        """Framework extension: stage a verified plan through the live
+        plane with watch windows and automatic rollback (the APPLY
+        half; kubedtn_tpu_torch.updates.stager)."""
+        from kubedtn_tpu_torch.updates.service import serve_apply_plan
+
+        return serve_apply_plan(self, request)
+
     # -- surfaces not ported yet --------------------------------------
 
     def _unimplemented(self, request, context):
         _abort(context, "UNIMPLEMENTED",
                "not implemented by this daemon yet")
 
-    WhatIf = ObserveSLO = AutopilotCtl = AutopilotStatus = _unimplemented
-    PlanUpdate = ApplyPlan = _unimplemented
+    ObserveSLO = AutopilotCtl = AutopilotStatus = _unimplemented
     TenantCreate = TenantList = TenantQuota = _unimplemented
     TenantStats = TenantDelete = _unimplemented
     MigrateTenant = MigrationStatus = _unimplemented

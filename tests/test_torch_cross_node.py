@@ -38,6 +38,7 @@ from kubedtn_tpu_torch.topology.engine import SimEngine
 from kubedtn_tpu_torch.topology.store import TopologyStore
 from kubedtn_tpu_torch.wire.server import Daemon, make_server
 
+from _torch_native_guard import assert_jax_wheel, ensure_jax_native
 from test_torch_plane import DET_PROPS, DT, PKG, frames_for
 
 FLUSH_S = 30.0   # bound on every flush_peers wait
@@ -517,8 +518,12 @@ def pair_run(send_pkg, recv_pkg, depth):
                 peer_ip=b.addr, peer_intf_id=resp.peer_intf_id)))
             wout.append(b.daemon.wires.get_by_key(f"default/b{i}", i + 1))
         c.close()
+        if send_pkg == "jax":
+            ensure_jax_native()
         plane = PKG[send_pkg][4].WireDataPlane(
             a.daemon, dt_us=DT * 1e6, seed=0, pipeline_depth=depth)
+        if send_pkg == "jax":
+            assert_jax_wheel(plane)
         plane.pipeline_explicit_clock = True
         rng = np.random.default_rng(1)
         for t in range(PAIR_FEED_TICKS + PAIR_DRAIN_TICKS):

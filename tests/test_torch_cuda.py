@@ -786,3 +786,97 @@ def test_cross_node_plane_on_card_delivers_what_the_cpu_does(dev, depth):
     cpu = _cross_node_run("cpu", depth)
     assert card == cpu
     assert all(len(w) > 0 for w in card[0]) and card[2] > 0
+
+
+# -- the what-if twin: K1 over replicas x rows --------------------------------
+
+@pytest.mark.parametrize("E,n_rep", [(1000, 1), (1000, 3), (8192, 15)])
+def test_k1_shared_uniform_rows_equals_plain(dev, E, n_rep):
+    """K1 over n_rep x E rows reading the [E, NU] uniforms at row % E:
+    one launch, bit for bit the plain step on the uniforms repeated."""
+    state = random_state(E * n_rep, 13 + n_rep, dev)
+    sizes, have, t_arr, _ = inputs(E * n_rep, 14, dev)
+    u = inputs(E, 15, dev)[3]
+    before = shaping.LAUNCHES["shape_step_rows"]
+    k_state, dep, fl = shaping.shape_step_flags(
+        state, sizes, have, t_arr, u, donate=False, u_rows=E)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + 1
+    p_state, p_res = netem._shape_step_from_u(state, sizes, have, t_arr,
+                                              u.repeat(n_rep, 1))
+    torch.cuda.synchronize()
+    assert_bitwise(dep, p_res.depart_us, "depart")
+    assert_bitwise(fl, shaping.pack_flags(p_res), "flags")
+    for name in ("tokens", "t_last", "backlog_until", "corr", "pkt_count"):
+        assert_bitwise(getattr(k_state, name), getattr(p_state, name), name)
+
+
+def test_k1_rejects_uniform_rows_it_does_not_take(dev):
+    state = random_state(1024, 16, dev)
+    sizes, have, t_arr, u = inputs(1024, 16, dev)
+    with pytest.raises(ValueError, match="divisor"):
+        shaping.shape_step_flags(state, sizes, have, t_arr, u[:384],
+                                 donate=False, u_rows=384)
+    with pytest.raises(ValueError, match="shape"):
+        shaping.shape_step_flags(state, sizes, have, t_arr, u,
+                                 donate=False, u_rows=512)
+
+
+def test_twin_sweep_on_the_card_equals_the_cpu(dev):
+    """A 5-lane sweep on a random mesh: one K1 launch per slot and step
+    over every lane's rows; replica 0 == sim.run on the card, bit for
+    bit; the card's lanes == the CPU's on the same draws (counters and
+    integers exactly, floats within the parity tolerances)."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.api.types import LinkProperties as LP
+    from kubedtn_tpu_torch.models import topologies, traffic
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.twin import (Perturbation, Scenario, run_sweep,
+                                        snapshot_from_sim)
+    from kubedtn_tpu_torch.twin.engine import replica_lane
+
+    el = topologies.random_mesh(24, 60, seed=3, props=LP(
+        latency="2ms", jitter="1ms", loss="1"))
+    state, rows = topologies.load_edge_list_into_state(el, device=dev)
+    spec = traffic.cbr_everywhere(state.capacity, len(rows), 2e6, 400.0,
+                                  device=dev)
+    snap = snapshot_from_sim(sim.run(sim.init_sim(state, q=16), spec, 10,
+                                     1000.0, 4, seed=1))
+    scen = [Scenario("baseline"),
+            Scenario("slow", (Perturbation("degrade", uid=1,
+                                           props=LP(latency="40ms")),)),
+            Scenario("fail", (Perturbation("fail", uid=2),)),
+            Scenario("bh", (Perturbation("blackhole", node=0),)),
+            Scenario("half", (Perturbation("scale", factor=0.5),))]
+    g = torch.Generator(device=dev).manual_seed(4)
+    dt = sim.as_dt(1000.0, dev)
+    draws = [sim.StepDraws(traffic=traffic.draw(spec, dt, 4, g),
+                           shape_u=queues.draw_shape_uniforms(state, 4, g))
+             for _ in range(20)]
+    before = shaping.LAUNCHES["shape_step_rows"]
+    card = run_sweep(snap, scen, steps=20, dt_us=1000.0, spec=spec,
+                     k_slots=4, keep_final=True, draws=draws)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + 20 * 4
+    ref = sim.run(snap.sim, spec, 20, 1000.0, 4, draws=draws)
+    _assert_trees_bitwise(replica_lane(card.final, 0, 5), ref)
+    cpu = run_sweep(snapshot_from_sim(convert.tree_to(snap.sim, "cpu")),
+                    scen, steps=20, dt_us=1000.0,
+                    spec=convert.tree_to(spec, "cpu"), k_slots=4,
+                    keep_final=True,
+                    draws=[convert.tree_to(d, "cpu") for d in draws])
+    a, b = card.final, cpu.final
+    for tree in ("edges", "inflight", "counters"):
+        for f in dataclasses.fields(getattr(a, tree)):
+            x = getattr(getattr(a, tree), f.name).cpu()
+            y = getattr(getattr(b, tree), f.name)
+            if x.dtype != torch.float32 or tree == "counters":
+                assert torch.equal(x, y), f"{tree}.{f.name}"
+            else:
+                fin = torch.isfinite(y)
+                assert torch.equal(torch.isfinite(x), fin), f.name
+                tol = (dict(rtol=1e-5, atol=1e-2) if tree == "inflight"
+                       else dict(rtol=1e-6, atol=1e-3))
+                torch.testing.assert_close(x[fin], y[fin], **tol)
+    for mc, mp in zip(card.metrics, cpu.metrics):
+        for k in ("tx_packets", "delivered_packets", "dropped_loss",
+                  "dropped_queue", "dropped_ring", "latency_hist"):
+            assert mc[k] == mp[k], k

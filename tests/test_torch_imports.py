@@ -60,6 +60,13 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.wire.client", "kubedtn_tpu_torch.wire.server",
     # cross-node egress's chaos harness and the pcap tap
     "kubedtn_tpu_torch.chaos", "kubedtn_tpu_torch.utils.pcap",
+    # the what-if twin and the planned-update path
+    "kubedtn_tpu_torch.twin", "kubedtn_tpu_torch.twin.spec",
+    "kubedtn_tpu_torch.twin.snapshot", "kubedtn_tpu_torch.twin.engine",
+    "kubedtn_tpu_torch.twin.report", "kubedtn_tpu_torch.twin.query",
+    "kubedtn_tpu_torch.updates", "kubedtn_tpu_torch.updates.planner",
+    "kubedtn_tpu_torch.updates.gate", "kubedtn_tpu_torch.updates.stager",
+    "kubedtn_tpu_torch.updates.service",
 )
 
 

@@ -13,6 +13,17 @@ import pytest
 import kubedtn_tpu.native as jnat
 import kubedtn_tpu_torch.native as tnat
 
+from _torch_native_guard import ensure_jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native_loaded():
+    """The JAX bindings these tests compare against, loaded: a worker
+    that raced another's in-place build of the JAX package's library
+    has latched its build error (tests/_torch_native_guard.py)."""
+    err = ensure_jax_native()
+    assert err is None, f"kubedtn_tpu.native did not load: {err}"
+
 
 def tcp_frame(sip, sport, dip, dport, payload=b"", vlan=False, frag=0):
     eth = b"\x02" * 6 + b"\x04" * 6

@@ -42,6 +42,8 @@ import kubedtn_tpu_torch.topology.store as tst
 import kubedtn_tpu_torch.wire.server as tsrv
 from kubedtn_tpu_torch.ops import netem as tnetem
 
+from _torch_native_guard import assert_jax_wheel, ensure_jax_native
+
 PKG = {"jax": (jeng, jst, jrec, jsrv, jrt, jtypes),
        "torch": (teng, tst, trec, tsrv, trt, ttypes)}
 
@@ -85,8 +87,12 @@ def build(pkg, props, depth=1, capacity=64, seed=0, telemetry=False):
         engine.setup_pod(f"b{i}")
     rec.Reconciler(store, engine).drain()
     daemon = srv.Daemon(engine)
+    if pkg == "jax":
+        ensure_jax_native()
     plane = rt.WireDataPlane(daemon, dt_us=DT * 1e6, seed=seed,
                              pipeline_depth=depth)
+    if pkg == "jax":
+        assert_jax_wheel(plane)
     plane.pipeline_explicit_clock = True
     if telemetry:
         plane.enable_telemetry(window_s=10.0, sample_period=8)

@@ -314,8 +314,10 @@ def test_rpc_observers_and_health(served, client):
 
 
 @pytest.mark.parametrize("method,req", [
-    ("WhatIf", "WhatIfRequest"), ("ObserveSLO", "ObserveSLORequest"),
-    ("PlanUpdate", "PlanUpdateRequest"), ("TenantList", "TenantQuery"),
+    ("AutopilotCtl", "AutopilotCtlRequest"),
+    ("ObserveSLO", "ObserveSLORequest"),
+    ("MigrationStatus", "MigrationStatusRequest"),
+    ("TenantList", "TenantQuery"),
     ("MigrateTenant", "MigrateRequest"),
     ("FleetStatus", "FleetStatusRequest"),
     ("AutopilotStatus", "AutopilotStatusRequest")])
