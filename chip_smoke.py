@@ -80,13 +80,13 @@ Phases, each fatal on failure:
      columns == two CPU nodes' from the same CRs; (b) the first 3 x
      4,096 cross-node links re-shaped into phase 12's three classes, B's
      wire ends by AddGRPCWireRemote, A's ends pointing at them; phase
-     12's feed for 6 ticks at depth 1 through A's plane, whose released
+     12's feed for 4 ticks at depth 1 through A's plane, whose released
      frames stage in the 4 MiB remote ring and cross to B over
      SendToBulk: the books close (per edge; released == staged +
      ring-dropped, charged per row; staged == sent + queue-dropped +
      forwarding errors; sent == arrived at B's pod side), the ring-drop
      share, wall ms per tick and frames/s arrived at B reported; (c) 1
-     frame per wire and tick for 24 ticks (fits the ring: 0 ring and
+     frame per wire and tick for 20 ticks (fits the ring: 0 ring and
      queue drops): B's pod-side egress per wire is the same at depth 1,
      at depth 2 with telemetry and at depth 2 under a 50 ms / 50 % flap
      of B (breaker opened, retried, no forwarding error); on 4 ticks of
@@ -112,7 +112,27 @@ Phases, each fatal on failure:
      leaf through the planned reconciler (plan, the twin gate at full
      capacity, staged rounds) while the plane ticks: the engine's
      configuration columns == the change applied directly to a copy,
-     byte for byte.
+     byte for byte;
+ 15. checkpoint and restart, K1's launches counted from 0 around the
+     phase: phase 12's daemon with its Prometheus exporter, its classes
+     and wires, at depth 1 on an explicit clock; (a) 4 feed ticks, the
+     next tick's feed queued, save_live (seconds, the checkpoint_save
+     pause, directory bytes, frames pending and ingress captured), then
+     4 more fed ticks and the drain; (e) 3 scrapes of /metrics over HTTP:
+     the interface_* sums and node totals == the plane's counters, the
+     10,000-series cap and its truncation gauge, the request histogram
+     counting the daemon's UpdateLinks calls; (b) entry.restore_daemon
+     from the directory alone at the cut's clock: every EdgeState column,
+     the wires and the counters == the cut's, the same 4 fed ticks and
+     the drain: the TBF-only and delay-only wires release the same bytes
+     on the same ticks as the uninterrupted daemon, every frame pending
+     at the cut delivered exactly once; (c) a truncated edge_state.npz:
+     load_or_rebuild rebuilds from the store and logs the typed error; a
+     crash between the renames (only <dir>.prev left): load restores that
+     generation bit for bit; (d) save_snapshot / load_snapshot of phase
+     14's fork base onto the card: a 2-lane sweep's replica 0 == the
+     in-memory snapshot's, bit for bit; (f) kdt_ext's slice_frames ==
+     the Python path on phase 12's feed (or the reason it is not built).
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -124,6 +144,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import statistics
 import sys
 import threading
@@ -1260,9 +1281,25 @@ def feed_tick(win, t: int, rng, max_frames: int = PLANE_MAX_FRAMES) -> int:
     FrameSeg window each over one blob for the tick (the bulk ingress
     form). A frame's first 8 bytes are its tag (wire, tick, index).
     Returns the frames fed."""
+    return apply_feed(win, make_feed(len(win), t, rng, max_frames))
+
+
+def apply_feed(win, feed) -> int:
+    """Queue a make_feed tick on the wires `win` (one FrameSeg window of
+    the shared blob per wire); returns the frames fed."""
     from kubedtn_tpu_torch.wire.server import FrameSeg
 
-    n = len(win)
+    blob, offs, lens, counts = feed
+    lo = 0
+    for w, c in zip(win, counts):
+        w.ingress.append(FrameSeg(blob, offs, lens, lo, lo + c))
+        lo += c
+    return lo
+
+
+def make_feed(n: int, t: int, rng, max_frames: int = PLANE_MAX_FRAMES):
+    """One tick's feed for n ingress wires: (blob, offsets, lengths,
+    per-wire counts), the frames tagged (wire index, tick, index)."""
     counts = rng.integers(1, max_frames + 1, n)
     total = int(counts.sum())
     lens = rng.integers(*PLANE_SIZES, total).astype(np.uint64)
@@ -1278,12 +1315,7 @@ def feed_tick(win, t: int, rng, max_frames: int = PLANE_MAX_FRAMES) -> int:
     tag[:, 6:8] = idx.astype(np.uint16).view(np.uint8).reshape(-1, 2)
     pos = offs.astype(np.int64)[:, None] + np.arange(8)
     blob[pos] = tag
-    blob = blob.tobytes()
-    lo = 0
-    for w, c in zip(win, counts.tolist()):
-        w.ingress.append(FrameSeg(blob, offs, lens, lo, lo + c))
-        lo += c
-    return total
+    return blob.tobytes(), offs, lens, counts.tolist()
 
 
 def plane_run(built, win, wout, state0, seed: int, depth: int,
@@ -1692,18 +1724,19 @@ def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 13: two daemons, cross-node egress --------------------------------
 
 XN_B_LEAVES = 62            # leaves 0..61 on node B: 100 x 62 x 2 links
-XN_TICKS = 6                # full-feed ticks (phase 12's feed; 16 there:
+XN_TICKS = 4                # full-feed ticks (phase 12's feed; 16 there:
 #                             a tick here takes 4.0-5.2 s on an NVIDIA
 #                             H100 80GB HBM3 at 700.00 W, PERF.md; 8
-#                             until phase 14 joined, 6 keep the script
-#                             in its time budget)
-XN_EQ_TICKS = 24            # equality-feed ticks, 1 frame per wire: each
+#                             until phase 14 joined, 6 until phase 15
+#                             did: 4 keep the script in its time budget)
+XN_EQ_TICKS = 20            # equality-feed ticks, 1 frame per wire: each
 #                             first failure under the flap opens the
 #                             breaker with probability ~1/4 (two more
 #                             attempts land in a down half); 16 ticks
 #                             gave one open on the card, 24 gave 12
 #                             (PERF.md); cut from 32 to keep the script,
-#                             phase 14 included, near 600 s
+#                             phase 14 included, near 600 s, and from 24
+#                             when phase 15 joined
 XN_REF_TICKS = 4            # the reference-peer round's ticks: the
 #                             per-frame stream moved ~2,000 frames/s
 #                             with both daemons in one interpreter (NVIDIA
@@ -2788,6 +2821,399 @@ def run_twin_phase(el, fresh, dev, card, n_spine=None, n_leaf=None,
     return m, k1
 
 
+# -- phase 15: checkpoint and restart, the exporter, kdt_ext -----------------
+
+def toolchain_lines() -> list:
+    """What phase 15 depends on beside the card: prometheus_client (its
+    version), the interpreter's Python.h (kdt_ext's build), cc / g++."""
+    import importlib.metadata
+    import os
+    import subprocess
+    import sysconfig
+
+    try:
+        import prometheus_client  # noqa: F401
+        prom = importlib.metadata.version("prometheus_client")
+    except ImportError as e:
+        prom = f"does not import ({e})"
+    inc = sysconfig.get_paths()["include"]
+    out = [f"prometheus_client {prom}",
+           f"Python.h under {inc}: "
+           f"{os.path.exists(os.path.join(inc, 'Python.h'))}"]
+    for cc in ("cc", "g++"):
+        try:
+            v = subprocess.run([cc, "--version"], capture_output=True,
+                               text=True, timeout=60).stdout
+            out.append(v.splitlines()[0] if v else f"{cc}: no output")
+        except OSError as e:
+            out.append(f"{cc}: {e}")
+    return out
+
+CKPT_FEED_TICKS = 4         # k: phase 12's feed before the cut
+CKPT_RESUME_TICKS = 4       # m: the same feed after it, on both daemons
+SNAP_LANES = 2              # 15(d): scenarios of the snapshot-file sweep
+SNAP_STEPS = 20
+SCRAPES = 3
+SERIES_CAP = 10_000         # make_registry's default max_interfaces
+
+
+def _file_bytes(path: str) -> dict:
+    import os
+
+    return {f: os.path.getsize(os.path.join(path, f))
+            for f in sorted(os.listdir(path))}
+
+
+def _egress_log(wout, t: int, log_, tags=None, want=None) -> None:
+    """Append (tick, frames, digest) of each wire's released frames at
+    tick t to log_[k] and empty the egress; with `tags`, count the
+    delivered frames whose tag is in `want`."""
+    import hashlib
+
+    for k, w in enumerate(wout):
+        if not w.egress:
+            continue
+        frames = list(w.egress)
+        w.egress.clear()
+        log_[k].append((t, len(frames), hashlib.blake2b(
+            b"".join(frames), digest_size=16).digest()))
+        if tags is not None:
+            tags.update(f[:8] for f in frames if f[:8] in want)
+
+
+def _resume(plane, win, wout, feeds, k0: int, tags=None, want=None):
+    """Phase 15(a)/(b)'s resume: feeds[i] queued before tick k0 + i
+    (feeds[0] is already queued), then idle ticks until the delay line
+    is empty. Returns the per-wire release log."""
+    log_ = [[] for _ in wout]
+    t = k0
+    for i in range(len(feeds)):
+        if i:
+            apply_feed(win, feeds[i])
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        _egress_log(wout, t, log_, tags, want)
+        t += 1
+    for _ in range(PLANE_DRAIN_TICKS):
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        _egress_log(wout, t, log_, tags, want)
+        t += 1
+        if (not plane._inflight and not plane._holdback
+                and len(plane._wheel) == 0):
+            break
+    check(plane.tick_errors == 0, "15: tick errors")
+    check(len(plane._wheel) == 0 and not plane._pending,
+          "15: the delay line did not empty")
+    return log_
+
+
+def _draws_nothing(props: dict) -> bool:
+    """A class props entry whose shaping no random draw decides
+    (latency and TBF rate only)."""
+    return set(props) <= {"latency", "rate"}
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _scrape_values(body: str, name: str) -> list:
+    return [float(line.rsplit(" ", 1)[1]) for line in body.splitlines()
+            if line.startswith(name + "{") or line.startswith(name + " ")]
+
+
+def run_checkpoint_phase(dev, card, n_spine=None, n_leaf=None,
+                         n_rows: int = PLANE_ROWS) -> dict:
+    """Phase 15: checkpoint and restart of phase 12's daemon at depth 1
+    on an explicit clock, a damaged checkpoint, the twin's snapshot
+    files, the daemon's Prometheus exporter and kdt_ext."""
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.twin import snapshot_from_engine
+
+    m = {}
+    size = {} if n_spine is None else dict(n_spine=n_spine, n_leaf=n_leaf,
+                                           capacity=1 << 12)
+    try:
+        import prometheus_client  # noqa: F401
+        have_prom, why = True, ""
+    except ImportError as e:
+        have_prom, why = False, str(e)
+    plane_kw = dict(dt_us=PLANE_DT_S * 1e6, seed=15, pipeline_depth=1)
+    built = entry.build_daemon(dev, metrics_port=0 if have_prom else None,
+                               plane_kwargs=plane_kw, **size)
+    daemon, engine = built["daemon"], built["engine"]
+    plane = built.get("plane") or entry.build_plane(daemon, **plane_kw)
+    plane.pipeline_explicit_clock = True
+    # 15(d)'s fork base: phase 14's snapshot of the CR-built Clos
+    snap = snapshot_from_engine(engine)
+    # update observations so far (the reconciler's), then the phase's
+    # own UpdateLinks calls: one per re-shaped spine CR
+    n_update_calls = len(engine.stats.op_ms.get("update", ()))
+    classes = plane_classes(built, n_rows)
+    n_update_calls += len({spine for links in classes.values()
+                           for spine, _leaf, _uid in links})
+    win, wout = plane_wires(daemon, classes)
+    keep = []   # wire indices whose link's props draw nothing
+    i = 0
+    for kind in ("tbf", "seq", "ind"):
+        for _ in classes[kind]:
+            props = CLASS_PROPS[kind][i % len(CLASS_PROPS[kind])]
+            if _draws_nothing(props):
+                keep.append(i)
+            i += 1
+    check(len(keep) > n_rows, "15: no non-drawing class beside TBF")
+
+    # (a)-(f) in a directory of their own, removed afterwards
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-phase15-")
+    try:
+        return _checkpoint_phase(m, tmp, built, plane, snap, win, wout,
+                                 keep, n_update_calls, have_prom, why,
+                                 plane_kw, dev, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
+                      n_update_calls, have_prom, why, plane_kw, dev, card):
+    """Phase 15 (a)-(f) in the directory `tmp` (run_checkpoint_phase)."""
+    import os
+    import shutil
+    import urllib.request
+    from collections import Counter
+
+    from kubedtn_tpu_torch import checkpoint, entry, native
+    from kubedtn_tpu_torch.chaos import ChaosInjector
+    from kubedtn_tpu_torch.twin import (load_snapshot, run_sweep,
+                                        save_snapshot)
+    from kubedtn_tpu_torch.twin.engine import replica_lane
+    from kubedtn_tpu_torch.twin.query import build_cbr_spec
+    from kubedtn_tpu_torch.utils.logging import get_logger
+    from kubedtn_tpu_torch.wire.server import FrameSeg
+
+    daemon, engine, store = built["daemon"], built["engine"], built["store"]
+    cap = int(engine.state.capacity)
+    rng = np.random.default_rng(15)
+    for t in range(CKPT_FEED_TICKS):
+        feed_tick(win, t, rng)
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        for w in wout:
+            w.egress.clear()
+    feeds = [make_feed(len(win), CKPT_FEED_TICKS + i, rng)
+             for i in range(CKPT_RESUME_TICKS)]
+    apply_feed(win, feeds[0])   # queued at the cut: captured as ingress
+    cut_s = CKPT_FEED_TICKS * PLANE_DT_S
+    state_at_cut = clone_state(engine.state)
+    counters_at_cut = {f.name: getattr(plane.counters, f.name).copy()
+                       for f in dataclasses.fields(plane.counters)}
+    wires_at_cut = sorted((w.pod_key, w.uid, w.peer_ip, w.peer_intf_id,
+                           w.node_iface_name) for w in daemon.wires.all())
+    path = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save_live(path, store, engine, plane)
+    m["save_s"] = time.perf_counter() - t0
+    pz = plane.pauses.snapshot()["causes"]["checkpoint_save"]
+    m["save_pause_ms"] = 1e3 * pz["seconds"]
+    m["file_bytes"] = _file_bytes(path)
+    m["dir_bytes"] = sum(m["file_bytes"].values())
+    pending = checkpoint.read_pending_entries(path)
+    m["pending_frames"] = len(pending)
+    m["ingress_frames"] = len(checkpoint.read_ingress_entries(path))
+    check(m["pending_frames"] > 0, "15(a): no frame pending at the cut")
+    check(m["ingress_frames"] == sum(feeds[0][3]),
+          f"15(a): {m['ingress_frames']} ingress frames captured, "
+          f"{sum(feeds[0][3])} queued")
+    want = {f[:8] for _pk, _u, f, _r in pending}
+    check(len(want) == len(pending), "15(a): pending tags not unique")
+    del pending
+    log(f"15(a) save_live at the cut (tick {CKPT_FEED_TICKS}): "
+        f"{m['save_s']:.3f} s, tick-lock pause (checkpoint_save) "
+        f"{m['save_pause_ms']:.3f} ms, {m['dir_bytes']} bytes "
+        f"{m['file_bytes']}; {m['pending_frames']} frames pending, "
+        f"{m['ingress_frames']} ingress frames captured ({card})")
+    control = _resume(plane, win, wout, feeds, CKPT_FEED_TICKS)
+
+    # (e) the exporter of this daemon, after the control's ticks
+    if have_prom:
+        url = f"http://127.0.0.1:{built['metrics']['port']}/metrics"
+        walls, sizes, body = [], [], ""
+        for _ in range(SCRAPES):
+            t0 = time.perf_counter()
+            body = urllib.request.urlopen(url, timeout=120).read().decode()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            sizes.append(len(body))
+        c = plane.counters
+        snap_rows, n_active, active = engine.metrics_snapshot(
+            limit=SERIES_CAP)
+        tx = _scrape_values(body, "interface_tx_packets")
+        check(len(tx) == min(SERIES_CAP, n_active),
+              f"15(e): {len(tx)} interface series, the cap is "
+              f"{SERIES_CAP}")
+        check(_scrape_values(body, "kubedtn_interface_series_truncated")
+              == [float(max(0, n_active - SERIES_CAP))],
+              "15(e): the truncation gauge")
+        want_tx = sum(float(c.tx_packets[r]) for _p, _u, r, _v in snap_rows)
+        want_rx = sum(float(c.rx_packets[v]) for _p, _u, _r, v in snap_rows
+                      if v is not None)
+        check(sum(tx) == want_tx and sum(_scrape_values(
+            body, "interface_rx_packets")) == want_rx,
+              "15(e): interface_* sums != the plane's counters")
+        for k in ("tx_packets", "rx_packets", "dropped_loss",
+                  "dropped_queue"):
+            check(_scrape_values(body, f"kubedtn_node_{k}_total")
+                  == [float(getattr(c, k)[active].sum())],
+                  f"15(e): kubedtn_node_{k}_total != the counters")
+        n_upd = _scrape_values(body, 'kubedtnd_request_duration_'
+                                     'milliseconds_count{method="update"}')
+        check(n_upd == [float(n_update_calls)],
+              f"15(e): update observations {n_upd}, the daemon made "
+              f"{n_update_calls} UpdateLinks calls")
+        m["scrape_ms"] = walls
+        m["scrape_bytes"] = sizes
+        log(f"15(e) /metrics over HTTP: {SCRAPES} scrapes in "
+            f"{', '.join(f'{w:.1f}' for w in walls)} ms, {sizes[-1]} bytes; "
+            f"{len(tx)} interface series (cap {SERIES_CAP}, "
+            f"{n_active - len(tx)} truncated); interface_* sums and node "
+            f"totals == the plane's counters; request histogram counts "
+            f"the daemon's {n_update_calls} UpdateLinks calls ({card})")
+        built["metrics"]["server"].stop()
+    else:
+        log(f"15(e) metrics: not run, prometheus_client does not import "
+            f"here: {why}")
+
+    # (b) restart from the directory alone
+    t0 = time.perf_counter()
+    r = entry.restore_daemon(path, dev, capacity=cap, now_s=cut_s,
+                             plane_kwargs=plane_kw)
+    m["load_s"] = time.perf_counter() - t0
+    rplane, rd = r["plane"], r["daemon"]
+    m["load_pause_ms"] = 1e3 * rplane.pauses.snapshot()["causes"][
+        "checkpoint_load"]["seconds"]
+    check(r["source"] == "checkpoint", "15(b): not restored from the "
+                                       "checkpoint")
+    check(r["pending"] == m["pending_frames"]
+          and r["ingress"] == m["ingress_frames"],
+          "15(b): pending / ingress frames restored")
+    same(r["engine"].state, state_at_cut, "15(b) EdgeState after load")
+    got_w = sorted((w.pod_key, w.uid, w.peer_ip, w.peer_intf_id,
+                    w.node_iface_name) for w in rd.wires.all())
+    check(got_w == wires_at_cut, "15(b): the wire registry differs")
+    for name, col in counters_at_cut.items():
+        check(np.array_equal(getattr(rplane.counters, name), col),
+              f"15(b): counter {name} differs from the cut")
+    rplane.pipeline_explicit_clock = True
+    rwin = [rd.wires.get_by_key(w.pod_key, w.uid) for w in win]
+    rwout = [rd.wires.get_by_key(w.pod_key, w.uid) for w in wout]
+    tags = Counter()
+    restored = _resume(rplane, rwin, rwout, feeds, CKPT_FEED_TICKS,
+                       tags, want)
+    for k in keep:
+        check(restored[k] == control[k],
+              f"15(b): wire {k} (non-drawing) egress differs from the "
+              f"uninterrupted daemon's")
+    twice = sum(1 for v in tags.values() if v > 1)
+    check(len(tags) == len(want) and twice == 0,
+          f"15(b): {len(want) - len(tags)} pending frames not delivered, "
+          f"{twice} twice")
+    m["compared_wires"] = len(keep)
+    log(f"15(b) restore_daemon from the directory: {m['load_s']:.3f} s, "
+        f"checkpoint_load pause {m['load_pause_ms']:.3f} ms; EdgeState, "
+        f"wires and counters == the cut's; {len(keep)} non-drawing wires "
+        f"(TBF-only and delay-only) released the same bytes on the same "
+        f"ticks as the uninterrupted daemon over {CKPT_RESUME_TICKS} fed "
+        f"ticks and the drain; all {len(want)} frames pending at the cut "
+        f"delivered exactly once ({card})")
+    del r, rplane, rd, restored, control
+
+    # (c) damage: a truncated edge_state.npz, then a crash between renames
+    bad = path + "-damaged"
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.copytree(path, bad)
+    ChaosInjector(seed=15).truncate_file(os.path.join(bad,
+                                                      "edge_state.npz"))
+    rec = _Records()
+    lg = get_logger("checkpoint")
+    lg.addHandler(rec)
+    try:
+        _s, e_rb, src = checkpoint.load_or_rebuild(
+            bad, store=store, capacity=cap, node_ip=engine.node_ip,
+            device=dev)
+    finally:
+        lg.removeHandler(rec)
+    check(src == "rebuild" and e_rb.num_active == engine.num_active,
+          "15(c): no reconstruction from the store")
+    check(any("CheckpointCorruptError" in x for x in rec.lines),
+          "15(c): the typed error was not logged")
+    del e_rb
+    os.rename(path, path + ".prev")
+    _s, e_prev = checkpoint.load(path, device=dev)
+    same(e_prev.state, state_at_cut, "15(c) the .prev generation")
+    check(e_prev._rows == engine._rows, "15(c) .prev registries")
+    del e_prev
+    log(f"15(c) truncated edge_state.npz: load_or_rebuild rebuilt "
+        f"{engine.num_active} rows from the store, CheckpointCorruptError "
+        f"logged; with only <dir>.prev left (a crash between the "
+        f"renames) load restored the previous generation bit for bit")
+
+    # (d) the twin's snapshot files
+    spath = os.path.join(tmp, "snapshot.npz")
+    t0 = time.perf_counter()
+    save_snapshot(spath, snap)
+    m["snapshot_save_s"] = time.perf_counter() - t0
+    m["snapshot_bytes"] = os.path.getsize(spath)
+    t0 = time.perf_counter()
+    snap2 = load_snapshot(spath, dev)
+    m["snapshot_load_s"] = time.perf_counter() - t0
+    check(snap2.sim.edges.uid.device.type == dev.type,
+          "15(d): the snapshot did not load onto the device")
+    same(snap2.sim, snap.sim, "15(d) loaded snapshot")
+    n_leaf_ = sum(1 for t in store.list() if t.name.startswith("leaf"))
+    scen = twin_scenarios(store, n_leaf_)[:SNAP_LANES]
+    with engine._lock:
+        pod_ids = dict(engine._pod_ids)
+    kw = dict(steps=SNAP_STEPS, dt_us=TWIN_DT_US, k_slots=TWIN_K,
+              seed=TWIN_SEED, pod_ids=pod_ids, keep_final=True,
+              spec=build_cbr_spec(snap.sim.edges))
+    a = run_sweep(snap, scen, **kw)
+    b = run_sweep(snap2, scen, **kw)
+    same(replica_lane(b.final, 0, SNAP_LANES),
+         replica_lane(a.final, 0, SNAP_LANES),
+         "15(d) replica 0 from the file vs in memory")
+    check(a.metrics == b.metrics, "15(d): sweep metrics differ")
+    log(f"15(d) save_snapshot {m['snapshot_bytes']} bytes in "
+        f"{m['snapshot_save_s']:.3f} s, load_snapshot onto the card in "
+        f"{m['snapshot_load_s']:.3f} s; run_sweep ({SNAP_LANES} lanes x "
+        f"{SNAP_STEPS} steps) replica 0 == the in-memory snapshot's, bit "
+        f"for bit ({card})")
+    del snap, snap2, a, b
+
+    # (f) kdt_ext on phase 12's ingress blobs
+    ext = native.kdt_ext()
+    m["kdt_ext"] = ext is not None
+    if ext is None:
+        log(f"15(f) kdt_ext: not built, {native.kdt_ext_reason()}")
+    else:
+        blob, offs, lens, counts = make_feed(len(win), 99, rng)
+        lo, n = 0, 0
+        for c in counts:
+            py = [blob[o:o + ln] for o, ln in
+                  zip(offs[lo:lo + c].tolist(), lens[lo:lo + c].tolist())]
+            check(ext.slice_frames(blob, offs, lens, lo, lo + c) == py
+                  and FrameSeg(blob, offs, lens, lo, lo + c).materialize()
+                  == py, "15(f): slice_frames != the Python path")
+            lo += c
+            n += len(py)
+        log(f"15(f) kdt_ext loaded ({native.kdt_ext_path().name}): "
+            f"slice_frames == the Python path on {len(counts)} segments, "
+            f"{n} frames of phase 12's feed")
+    return m
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2808,6 +3234,15 @@ def main() -> int:
                                        "spill")):
                 log(f"ptxas {name}: {line.strip()}")
     log(f"built {libs} in {build_s:.1f} s")
+    for line in toolchain_lines():
+        log(line)
+    from kubedtn_tpu_torch import native
+
+    t0 = time.perf_counter()
+    ext = native.kdt_ext()   # raises where the headers resolve and it fails
+    log(f"kdt_ext: {native.kdt_ext_path().name} in "
+        f"{time.perf_counter() - t0:.1f} s" if ext is not None
+        else f"kdt_ext: not built, {native.kdt_ext_reason()}")
 
     el, state, _ = entry.build_clos_100k()
     check(state.capacity == 1 << 18, "Clos capacity is not 2^18")
@@ -2852,9 +3287,21 @@ def main() -> int:
     twin_m, twin_k1 = run_twin_phase(el, fresh, dev, card)
     check(all(v > 0 for v in twin_k1.values()),
           f"K1 never launched on a twin path: {twin_k1}")
+    t0 = time.perf_counter()
+    shaping.reset_launches()
+    ckpt_m = run_checkpoint_phase(dev, card)
+    ckpt_k1 = shaping.LAUNCHES["shape_step_rows"]
+    ckpt_m["phase_s"] = time.perf_counter() - t0
+    log(f"15: phase {ckpt_m['phase_s']:.1f} s; checkpoint path launches: "
+        f"K1 {ckpt_k1}")
+    check(ckpt_k1 > 0, "K1 never launched on the checkpoint path")
+    release = plane_m["plane"]["stage_depth1"]["share"]["release"]
+    log(f"12(b) depth-1 release share {release} with kdt_ext "
+        f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
                 "routed": routed_launches, "plane": plane_k1,
-                "cross_node": xn_k1, "twin": sum(twin_k1.values())}
+                "cross_node": xn_k1, "twin": sum(twin_k1.values()),
+                "checkpoint": ckpt_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -2883,7 +3330,7 @@ def main() -> int:
     detail = {"card": card, "build_s": build_s, "main_path": main_m,
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
-              "cross_node": xn_m, "twin": twin_m,
+              "cross_node": xn_m, "twin": twin_m, "checkpoint": ckpt_m,
               "twin_k1_launches": twin_k1,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))

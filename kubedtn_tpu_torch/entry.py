@@ -15,7 +15,10 @@ state lies on, and the loaders put the state on the card by default.
 `build_daemon` builds the same 100k-link Clos the way a KubeDTN cluster
 does — 600 Topology CRs through the store, the reconciler and the
 SimEngine — behind a wire Daemon, and `build_plane` puts the live
-WireDataPlane on top of it.
+WireDataPlane on top of it. `restore_daemon` brings a daemon and its
+plane back from a checkpoint directory in the JAX CLI's restore order.
+With `metrics_port`, either serves the daemon's Prometheus exporter
+(metrics/metrics.py) as the JAX CLI's daemon does.
 """
 
 from __future__ import annotations
@@ -226,16 +229,48 @@ def clos_crs(n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     return out
 
 
+def serve_metrics(daemon, plane, port: int = 0,
+                  host: str = "0.0.0.0") -> dict:
+    """The daemon's Prometheus exporter, wired as the JAX CLI's
+    `cmd_daemon` wires it: a registry over the engine, the plane's
+    counters, the plane, the WhatIf and update stats; the request
+    histogram observing every engine op (`engine.stats.observer`) and
+    set on the daemon; a MetricsServer started on `port` (0 = pick one).
+    Returns {"server", "registry", "hist", "port"}."""
+    from kubedtn_tpu_torch.metrics.metrics import (MetricsServer,
+                                                   make_registry)
+    from kubedtn_tpu_torch.twin.query import stats_for
+    from kubedtn_tpu_torch.updates.stager import stats_for as ustats_for
+
+    engine = daemon.engine
+    registry, hist = make_registry(engine,
+                                   sim_counters_fn=plane.counters_fn,
+                                   dataplane=plane,
+                                   whatif_stats=stats_for(daemon),
+                                   update_stats=ustats_for(daemon))
+    engine.stats.observer = hist
+    daemon.hist = hist
+    server = MetricsServer(registry, port=port, host=host)
+    server.start()
+    return {"server": server, "registry": registry, "hist": hist,
+            "port": server.port}
+
+
 def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
                  links_per_pair: int = LINKS_PER_PAIR,
                  capacity: int = 1 << 18, props=None,
-                 node_ip: str = "10.0.0.1") -> dict:
+                 node_ip: str = "10.0.0.1", metrics_port: int | None = None,
+                 plane_kwargs: dict | None = None) -> dict:
     """The Clos through the control plane on `device` (None = the CUDA
     card): `clos_crs` into a TopologyStore, one reconciler drain into a
     SimEngine of `capacity` rows, the engine flushed, a Daemon in front.
     Returns {"store", "engine", "reconciler", "daemon", "crs",
     "reconcile_s"} — reconcile_s is the drain plus the device flush,
-    ended by a device sync."""
+    ended by a device sync. With `metrics_port`, the daemon's plane is
+    built first (`build_plane(daemon, **plane_kwargs)`) and its exporter
+    served on that port before the drain, so the request histogram sees
+    every engine op; the dict then also holds "plane" and "metrics"
+    (serve_metrics)."""
     from kubedtn_tpu_torch.topology.engine import SimEngine
     from kubedtn_tpu_torch.topology.reconciler import Reconciler
     from kubedtn_tpu_torch.topology.store import TopologyStore
@@ -251,6 +286,11 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     for t in crs:
         store.create(t)
     engine.warm_kernels()
+    daemon = Daemon(engine)
+    out = {}
+    if metrics_port is not None:
+        out["plane"] = build_plane(daemon, **(plane_kwargs or {}))
+        out["metrics"] = serve_metrics(daemon, out["plane"], metrics_port)
     rec = Reconciler(store, engine)
     t0 = time.perf_counter()
     rec.drain()
@@ -262,9 +302,9 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     if engine.num_active != 2 * n_links:
         raise AssertionError(f"{engine.num_active} rows realized, "
                              f"expected {2 * n_links}")
-    return {"store": store, "engine": engine, "reconciler": rec,
-            "daemon": Daemon(engine), "crs": crs,
-            "reconcile_s": reconcile_s}
+    out.update(store=store, engine=engine, reconciler=rec, daemon=daemon,
+               crs=crs, reconcile_s=reconcile_s)
+    return out
 
 
 def build_plane(daemon, **kwargs):
@@ -274,3 +314,69 @@ def build_plane(daemon, **kwargs):
     from kubedtn_tpu_torch.runtime import WireDataPlane
 
     return WireDataPlane(daemon, **kwargs)
+
+
+def restore_daemon(ckpt_dir: str, device=None, store=None,
+                   capacity: int = 1 << 18, node_ip: str = "10.0.0.1",
+                   now_s: float | None = None,
+                   metrics_port: int | None = None,
+                   plane_kwargs: dict | None = None) -> dict:
+    """A daemon and its live plane restored from the checkpoint
+    directory `ckpt_dir` on `device` (None = the CUDA card), in the JAX
+    CLI's order (kubedtn_tpu/cli.py cmd_daemon): `load_or_rebuild` (the
+    reconstruction from `store` when the checkpoint is damaged and a
+    store is given), the Daemon, the plane (`build_plane(daemon,
+    **plane_kwargs)`), then `load_wires`, `load_ingress`,
+    `restore_plane_counters`, `load_pending` at `now_s` (None = the
+    monotonic clock) and `consume_pending`. A damaged wire, ingress,
+    counter or pending file is logged and skipped, as the CLI does; the
+    pending file is consumed only once restored.
+
+    With `now_s` on the saved plane's clock (an explicit-clock plane
+    resumed where it was cut), the plane first resumes that clock
+    (`WireDataPlane.resume_clock` with `plane_meta`'s origin_s and
+    last_shaped_s): deadlines come from the same clock offsets, and the
+    first tick rolls the restored token buckets and backlog clocks by
+    the time since the last shaped tick, as the uninterrupted plane
+    would. The JAX CLI's restore starts a new origin and leaves the
+    epoch unset, so its first tick rolls by 0.
+
+    Returns {"store", "engine", "daemon", "plane", "source", "wires",
+    "ingress", "pending", "counters"} (+ "metrics" with
+    `metrics_port`, served as `serve_metrics` does)."""
+    from kubedtn_tpu_torch import checkpoint
+    from kubedtn_tpu_torch.utils.logging import fields, get_logger
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    log = get_logger("checkpoint")
+    store, engine, source = checkpoint.load_or_rebuild(
+        ckpt_dir, store=store, capacity=capacity, node_ip=node_ip,
+        device=device)
+    daemon = Daemon(engine)
+    plane = build_plane(daemon, **(plane_kwargs or {}))
+    out = {"store": store, "engine": engine, "daemon": daemon,
+           "plane": plane, "source": source, "wires": 0, "ingress": 0,
+           "pending": 0, "counters": False}
+    try:
+        out["wires"] = checkpoint.load_wires(ckpt_dir, daemon)
+        out["ingress"] = checkpoint.load_ingress(ckpt_dir, daemon)
+        out["counters"] = checkpoint.restore_plane_counters(ckpt_dir, plane)
+    except checkpoint.CheckpointError:
+        log.exception("wire/counter restore failed; continuing without %s",
+                      fields(path=ckpt_dir))
+    if now_s is not None and source == "checkpoint":
+        meta = checkpoint.plane_meta(ckpt_dir)
+        plane.resume_clock(now_s, meta.get("origin_s"),
+                           meta.get("last_shaped_s"))
+    try:
+        out["pending"] = checkpoint.load_pending(ckpt_dir, plane,
+                                                 now_s=now_s)
+    except checkpoint.CheckpointError:
+        # the file stays on disk: a later start can still restore it
+        log.exception("pending-frame restore failed; continuing without "
+                      "%s", fields(path=ckpt_dir))
+    else:
+        checkpoint.consume_pending(ckpt_dir)
+    if metrics_port is not None:
+        out["metrics"] = serve_metrics(daemon, plane, metrics_port)
+    return out

@@ -17,6 +17,15 @@ carries a hash of the source and the flags, so an edited source is never
 served a stale build. The build never writes into `native/` or the JAX
 package. A failed build raises `NativeUnavailable`; the live plane has no
 fallback without the library.
+
+`kdt_ext()` builds the CPython extension native/kdt_ext.c the same way,
+with cc against the running interpreter's headers, into `_build/` under
+an ABI-tagged name (sysconfig's EXT_SUFFIX), and loads it from that path
+with importlib. Its `slice_frames` materializes a segment's frames in one
+C loop (wire/server.FrameSeg.materialize). As in the JAX package, the
+extension is optional where the Python headers do not resolve: the
+pure-Python path stays, and the reason is logged once. Where the headers
+resolve and the build fails, it raises.
 """
 
 from __future__ import annotations
@@ -31,11 +40,15 @@ from pathlib import Path
 
 SOURCE = (Path(__file__).resolve().parent.parent / "native"
           / "kubedtn_native.cc")
+EXT_SOURCE = SOURCE.with_name("kdt_ext.c")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
+EXT_FLAGS = ("-O2", "-fPIC", "-Wall", "-Wextra", "-shared")
 
 _lock = threading.Lock()
 _lib = None
+# the CPython extension: (tried, module or None, reason it is absent)
+_ext_state: tuple = (False, None, None)
 
 FRAME_TYPES = {
     0: "UNKNOWN", 1: "IPv4", 2: "IPv6", 3: "ARP", 4: "VLAN", 5: "LLC",
@@ -129,24 +142,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkubedtn_native-{digest.hexdigest()[:16]}.so"
 
 
+def _compile(cmd: list, target: Path, what: str) -> None:
+    """Run one compiler command that writes `target` through a temp
+    file and an atomic rename (a concurrent loader never sees half)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run([*cmd, "-o", str(tmp)], check=True,
+                       capture_output=True, text=True, timeout=300)
+    except subprocess.CalledProcessError as e:
+        tmp.unlink(missing_ok=True)
+        raise NativeUnavailable(f"{what} build failed:\n{e.stderr}") from e
+    except (OSError, subprocess.TimeoutExpired) as e:
+        tmp.unlink(missing_ok=True)
+        raise NativeUnavailable(f"{what} build failed: {e}") from e
+    os.replace(tmp, target)
+
+
 def _build(target: Path) -> None:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
         raise NativeUnavailable("g++ not found: the native library "
                                 "cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       check=True, capture_output=True, text=True,
-                       timeout=300)
-    except subprocess.CalledProcessError as e:
-        tmp.unlink(missing_ok=True)
-        raise NativeUnavailable(f"native build failed:\n{e.stderr}") from e
-    except (OSError, subprocess.TimeoutExpired) as e:
-        tmp.unlink(missing_ok=True)
-        raise NativeUnavailable(f"native build failed: {e}") from e
-    os.replace(tmp, target)  # atomic: a concurrent loader never sees half
+    _compile([cxx, *CXX_FLAGS, str(SOURCE)], target, "native")
 
 
 def _load():
@@ -164,6 +182,79 @@ def _load():
             raise NativeUnavailable(f"native load failed: {e}") from e
         _lib = lib
         return lib
+
+
+def python_include() -> tuple[str, bool]:
+    """The running interpreter's header directory, and whether it holds
+    Python.h (the extension's build needs it)."""
+    import sysconfig
+
+    inc = sysconfig.get_paths()["include"]
+    return inc, os.path.exists(os.path.join(inc, "Python.h"))
+
+
+def kdt_ext_path() -> Path:
+    """Where the extension's build for this source, these flags and this
+    interpreter lives (ABI-tagged: another interpreter's build does not
+    import, it is rebuilt)."""
+    import sysconfig
+
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    inc, _ = python_include()
+    digest = hashlib.sha256(EXT_SOURCE.read_bytes()
+                            + " ".join(EXT_FLAGS).encode()
+                            + inc.encode() + suffix.encode())
+    return BUILD_DIR / f"kdt_ext-{digest.hexdigest()[:16]}{suffix}"
+
+
+def kdt_ext():
+    """The loaded kdt_ext module, built at first use; None where the
+    Python headers do not resolve (the reason is logged once and kept in
+    `kdt_ext_reason()`). Raises NativeUnavailable when the headers
+    resolve and the build or the import fails."""
+    global _ext_state
+    tried, mod, _why = _ext_state
+    if tried:
+        return mod
+    with _lock:
+        if _ext_state[0]:
+            return _ext_state[1]
+        inc, ok = python_include()
+        if not ok:
+            why = f"Python.h not found under {inc}"
+            from kubedtn_tpu_torch.utils.logging import fields, get_logger
+
+            get_logger("native").warning(
+                "kdt_ext not built; frames materialize in Python %s",
+                fields(reason=why))
+            _ext_state = (True, None, why)
+            return None
+        target = kdt_ext_path()
+        if not target.exists():
+            cc = (os.environ.get("CC") or shutil.which("cc")
+                  or shutil.which("gcc"))
+            if not cc:
+                raise NativeUnavailable("no C compiler found: kdt_ext "
+                                        "cannot be built")
+            _compile([cc, *EXT_FLAGS, f"-I{inc}", str(EXT_SOURCE)],
+                     target, "kdt_ext")
+        import importlib.util
+
+        try:
+            spec = importlib.util.spec_from_file_location("kdt_ext",
+                                                          target)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        except ImportError as e:
+            raise NativeUnavailable(f"kdt_ext load failed: {e}") from e
+        _ext_state = (True, mod, None)
+        return mod
+
+
+def kdt_ext_reason() -> str | None:
+    """Why kdt_ext is not loaded (None when it is, or before the first
+    kdt_ext() call)."""
+    return _ext_state[2]
 
 
 def have_native() -> bool:

@@ -58,8 +58,11 @@ backoff, a bounded outage buffer and the UNIMPLEMENTED -> SendToStream
 fallback for reference-built peers. `attach_chaos` wires a
 chaos.ChaosInjector into the peer RPCs and the dispatch hook.
 
-Left out for now: export/restore of the delay line (checkpoint), the
-planned-update stager, and the tenancy / shared-memory hooks.
+`export_pending` / `restore_pending` make the delay line checkpointable
+(kubedtn_tpu_torch.checkpoint): each pending entry keeps its frames'
+wheel deadlines, and a restored frame completes its REMAINING delay.
+`stage_update_round` is the planned-update stager's barrier. Left out
+for now: the tenancy / shared-memory hooks.
 
 THE TICK KEY is two uint32 words (Python ints, so splitting it never
 touches the device). `split(key)` is one Philox4x32-10 call under `key`
@@ -1238,6 +1241,11 @@ class WireDataPlane:
         # TCP/IP bypass flow table (eBPF sockops/redir equivalent)
         self._wheel = native.TimingWheel(tick_us=1000)
         self._flowtable = native.FlowTable()
+        # the CPython extension that materializes released segments in
+        # one C loop: built here, so a build failure surfaces at
+        # construction and not inside a tick (None where the Python
+        # headers do not resolve: the pure-Python path then runs)
+        native.kdt_ext()
         self._remote = _RemoteStage()
         # one sender thread + bounded queue per peer daemon: a slow peer
         # stalls only its own wires, never the tick
@@ -1786,6 +1794,8 @@ class WireDataPlane:
         """The plane-local slice of the Local.Health surface. Every field
         is a torn-read-tolerant gauge snapshot: this must answer even
         while a wedged dispatch holds the tick lock."""
+        from kubedtn_tpu_torch import native
+
         return {
             "running": self.running,
             "heartbeat_age_s": self.heartbeat_age_s,
@@ -1804,6 +1814,9 @@ class WireDataPlane:
             # bottom rung or the runner is stalled past the watchdog
             "serving": not (self.degrade_level >= 2
                             or self.watchdog_stalled),
+            # frame materialization in C (native.kdt_ext), or in Python
+            # where the interpreter's headers did not resolve
+            "kdt_ext": native.kdt_ext() is not None,
         }
 
     def attach_chaos(self, injector) -> None:
@@ -2529,10 +2542,12 @@ class WireDataPlane:
             # below still schedule deliveries
 
         # -- schedule releases: batched wheel insert ------------------
-        # per row, ONE pending entry [pod_key, uid, frames, remaining
-        # (, delay-line slot -> trace id)]; the deadlines and the wheel
-        # tokens of all rows are built with vector ops (row-major order
-        # of the delivered lanes == each entry's slot order)
+        # per row, ONE pending entry [pod_key, uid, frames, deadlines,
+        # remaining (, delay-line slot -> trace id)]; the deadlines and
+        # the wheel tokens of all rows are built with vector ops
+        # (row-major order of the delivered lanes == each entry's slot
+        # order), and each entry keeps a view of its own deadlines so
+        # the frames stay exportable (checkpointing)
         t_sched0 = time.perf_counter()
         shaped = 0
         deadline_parts: list[np.ndarray] = []
@@ -2582,17 +2597,21 @@ class WireDataPlane:
                                 if tids else None)
                 self._bseq += 1
                 row_bseq[r] = self._bseq
-                entry = [target[0], target[1], sel_frames, nd]
+                entry = [target[0], target[1], sel_frames, None, nd]
                 if slot_map:
                     entry.append(slot_map)
                 pending[self._bseq] = entry
             keep = row_bseq > 0
             if keep.any():
                 lanes = dmask & keep[:, None]
-                deadline_parts.append(base_us
-                                      + depart[lanes].astype(np.float64))
+                dls = base_us + depart[lanes].astype(np.float64)
+                deadline_parts.append(dls)
                 counts = nd_all[keep]
-                first = np.repeat(np.cumsum(counts) - counts, counts)
+                ends = np.cumsum(counts)
+                for b, e, n in zip(row_bseq[keep].tolist(), ends.tolist(),
+                                   counts.tolist()):
+                    pending[b][3] = dls[e - n:e]
+                first = np.repeat(ends - counts, counts)
                 slot = np.arange(int(counts.sum()), dtype=np.int64) - first
                 token_parts.append(
                     ((np.repeat(row_bseq[keep], counts) << _TOK_BITS)
@@ -2690,12 +2709,12 @@ class WireDataPlane:
                 entry = pending[bid]
                 key = (entry[0], entry[1])
                 cur_list = setd(key, [])
-                tmap = entry[4] if len(entry) > 4 else None
+                tmap = entry[5] if len(entry) > 5 else None
                 frames_l = entry[2]
                 lazy = type(frames_l) is _LazyFrames
                 n = b - a
                 sel = il[a:b]
-                if n == entry[3] and (lazy or n == len(frames_l)) \
+                if n == entry[4] and (lazy or n == len(frames_l)) \
                         and sel == list(range(n)):
                     # full batch, token order == index order (a lazy
                     # entry can only be whole: any earlier partial
@@ -2718,8 +2737,10 @@ class WireDataPlane:
                         if i in tmap:
                             tdst[base + pos] = tmap.pop(i)
                 cur_list.extend([frames_l[i] for i in sel])
-                entry[3] -= n
-                if entry[3] == 0:
+                for i in sel:
+                    frames_l[i] = None  # released: no longer exportable
+                entry[4] -= n
+                if entry[4] == 0:
                     del pending[bid]
         if self._orphans:
             # wires that appeared since last release get their waiting
@@ -2839,6 +2860,107 @@ class WireDataPlane:
             if not s.wait_empty(max(0.0, deadline - time.monotonic())):
                 return False
         return True
+
+    # -- pending-frame persistence ------------------------------------
+    #
+    # In the reference, in-flight packets live in kernel qdisc queues and
+    # SURVIVE a daemon restart; here the delay line is process state, so
+    # these two methods make it checkpointable with the same guarantee:
+    # a restored frame completes its REMAINING delay, not a fresh one.
+
+    def export_pending(self) -> list[tuple[str, int, bytes, float]]:
+        """(pod_key, uid, frame, remaining_delay_us) for every frame
+        still held in the delay line, in wheel-token order per batch."""
+        with self._tick_lock:
+            # pipeline barrier: in-flight dispatches hold frames that are
+            # not yet in _pending — they must land before export
+            self.flush()
+            base, origin = self.last_now_s, self._origin_s
+            wheel_now = (0.0 if base is None or origin is None
+                         else (base - origin) * 1e6)
+            out: list[tuple[str, int, bytes, float]] = []
+            for entry in self._pending.values():
+                pk, uid, frames, deadlines = entry[:4]
+                if type(frames) is _LazyFrames:
+                    # materialize IN the entry so a later partial release
+                    # and this export agree on slot identity
+                    frames = entry[2] = frames.materialize()
+                for i, frame in enumerate(frames):
+                    if frame is not None:  # still in flight
+                        out.append((pk, uid, frame,
+                                    max(0.0, float(deadlines[i])
+                                        - wheel_now)))
+            return out
+
+    def restore_pending(self, entries, now_s: float | None = None) -> int:
+        """Schedule exported frames to release after their remaining
+        delays, counted from `now_s` (default: the monotonic clock —
+        pass an explicit clock when driving deterministic ticks)."""
+        entries = list(entries)
+        with self._tick_lock, \
+                self.pauses.pause("checkpoint_load", rows=len(entries)):
+            # pipeline barrier: restored entries share _pending/_bseq
+            # with in-flight completions — drain them first
+            self.flush()
+            explicit = now_s is not None
+            if now_s is None:
+                if self._clock_ext:
+                    # the plane runs on a synthetic clock; mixing a
+                    # monotonic now with the synthetic origin would skew
+                    # every restored deadline by the epoch difference
+                    raise ValueError(
+                        "restore_pending: plane uses an explicit clock; "
+                        "pass now_s from the same clock")
+                now_s = time.monotonic()
+            elif (not self._clock_ext and self._origin_s is not None
+                    and abs(now_s - time.monotonic()) > 10.0):
+                # mirror direction: a synthetic now_s against a
+                # monotonic-derived origin makes every restored deadline
+                # hugely past/future due
+                raise ValueError(
+                    "restore_pending: plane origin is on the monotonic "
+                    "clock but now_s is not; pass now_s from the same "
+                    "clock")
+            if self._origin_s is None:
+                self._origin_s = now_s
+                self.last_now_s = now_s
+                self._clock_ext = explicit
+            base_us = (now_s - self._origin_s) * 1e6
+            for pk, uid, frame, rem_us in entries:
+                deadline = base_us + rem_us
+                self._bseq += 1
+                # batch of one: restored frames are rare and the release
+                # loop handles any batch size uniformly
+                self._pending[self._bseq] = [
+                    pk, uid, [bytes(frame)],
+                    np.asarray([deadline], np.float64), 1]
+                self._wheel.schedule(deadline, self._bseq << _TOK_BITS)
+            return len(entries)
+
+    def resume_clock(self, now_s: float, origin_s: float | None,
+                     last_shaped_s: float | None) -> None:
+        """Continue a checkpointed plane's EXPLICIT clock on this fresh
+        plane (before its first tick or restore): the wheel keeps the
+        saved origin, so every deadline and release tick is computed
+        from the same clock offsets as on the saved plane, and the first
+        tick rolls the restored shaping clocks by the time since the
+        saved plane's last shaped tick. Values later than `now_s` are
+        ignored (they are not on this clock)."""
+        with self._tick_lock:
+            if self._origin_s is not None or self._inflight:
+                raise RuntimeError("resume_clock: the plane has ticked")
+            self.last_now_s = now_s
+            self._clock_ext = True
+            if origin_s is not None and origin_s <= now_s:
+                self._origin_s = float(origin_s)
+            if last_shaped_s is not None and last_shaped_s <= now_s:
+                self._last_shaped_s = float(last_shaped_s)
+
+    # -- metrics feed --------------------------------------------------
+
+    def counters_fn(self):
+        """For metrics.make_registry(sim_counters_fn=...)."""
+        return self.counters
 
     def _on_rows_remapped(self, old_rows, n_active: int) -> None:
         """Carry cumulative per-row counters through compact()'s row

@@ -11,7 +11,8 @@ step is one launch of kernel K1 over all of them.
 Layers:
 - snapshot: consistent capture from a live plane / engine / sim /
   router state (crossing the pipeline flush() barrier — the runner
-  never stops).
+  never stops), and its snapshot files (save_snapshot /
+  load_snapshot).
 - spec: the perturbation vocabulary and its compilation into padded
   per-replica edit batches (device scatters, update_links semantics).
 - engine: the batched replica engine — sim._finish_step /
@@ -28,6 +29,8 @@ from kubedtn_tpu_torch.twin.engine import (SweepResult, run_sweep,
 from kubedtn_tpu_torch.twin.report import rank_results, render_report
 from kubedtn_tpu_torch.twin.snapshot import (
     TwinSnapshot,
+    load_snapshot,
+    save_snapshot,
     snapshot_from_engine,
     snapshot_from_plane,
     snapshot_from_router,
@@ -42,10 +45,12 @@ __all__ = [
     "SweepResult",
     "TwinSnapshot",
     "compile_scenarios",
+    "load_snapshot",
     "rank_results",
     "render_report",
     "run_sweep",
     "run_sweep_routed",
+    "save_snapshot",
     "snapshot_from_engine",
     "snapshot_from_plane",
     "snapshot_from_router",

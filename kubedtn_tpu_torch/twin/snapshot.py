@@ -19,14 +19,19 @@ Port of kubedtn_tpu/twin/snapshot.py. The consistency contract:
   t of a virtual run continues it bit-exactly (replica 0 of an
   unperturbed sweep equals the unforked run).
 
-Saving and loading a snapshot go through the checkpoint module, which
-the port does not have yet.
+`save_snapshot` / `load_snapshot` persist a snapshot's SimState as one
+npz through the checkpoint module's shared codec (the `<field>.<leaf>`
+layout, edges inlined): the JAX package's snapshot files, read and
+written by either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+
+import numpy as np
 
 from kubedtn_tpu_torch.ops.edge_state import EdgeState
 from kubedtn_tpu_torch.sim import SimState, init_sim
@@ -104,3 +109,31 @@ def snapshot_from_plane(plane, q: int = 32) -> TwinSnapshot:
     return TwinSnapshot(sim=sim, router=None, n_nodes=max(n_nodes, 1),
                         captured_at_s=time.time(), source="plane",
                         plane_clock_s=clock_s)
+
+
+# -- offline persistence (checkpoint-machinery npz codec) --------------
+
+def save_snapshot(path: str, snap: TwinSnapshot) -> None:
+    """Persist a snapshot's SimState as one npz via the checkpoint
+    module's shared flatten (the `<field>.<leaf>` layout, edges inlined
+    — one codec for both formats)."""
+    from kubedtn_tpu_torch.checkpoint import flatten_sim_arrays
+
+    flat = flatten_sim_arrays(snap.sim, include_edges=True)
+    flat["n_nodes"] = np.asarray(snap.n_nodes, np.int64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+def load_snapshot(path: str, device=None) -> TwinSnapshot:
+    """A saved snapshot with its SimState on `device` (None = the
+    card)."""
+    from kubedtn_tpu_torch import resolve_device
+    from kubedtn_tpu_torch.checkpoint import unflatten_sim_arrays
+
+    dev = resolve_device(device)
+    with np.load(path) as z:
+        sim = unflatten_sim_arrays(z, device=dev)
+        n_nodes = int(z["n_nodes"])
+    return TwinSnapshot(sim=sim, router=None, n_nodes=n_nodes,
+                        captured_at_s=time.time(), source="sim")

@@ -32,11 +32,13 @@ records "in" at ingestion and "out" at pod-side delivery.
 WhatIf serves a what-if sweep (kubedtn_tpu_torch.twin), PlanUpdate and
 ApplyPlan the planned-update surface (kubedtn_tpu_torch.updates).
 
+`FrameSeg.materialize` slices a segment's frames in one C loop
+(`slice_frames` of native/kdt_ext.c, built by kubedtn_tpu_torch.native)
+and keeps the pure-Python path where the Python headers do not resolve.
+
 Not ported yet (the RPCs answer UNIMPLEMENTED): ObserveSLO,
 AutopilotCtl/Status, Tenant*, MigrateTenant / MigrationStatus and
-FleetStatus / FleetUpgrade. The shared-memory ingest
-and the optional CPython extension of the JAX package are left out;
-their pure-Python paths are the ones here.
+FleetStatus / FleetUpgrade. The shared-memory ingest is left out.
 """
 
 from __future__ import annotations
@@ -131,7 +133,15 @@ class FrameSeg:
 
     def materialize(self) -> list[bytes]:
         """The window's frames as individual bytes objects (delivery,
-        bypass)."""
+        checkpoint, bypass). One C loop when the kdt_ext extension is
+        loaded — materialization is the live plane's dominant
+        release-stage cost once ingress is zero-copy."""
+        from kubedtn_tpu_torch import native
+
+        ext = native.kdt_ext()
+        if ext is not None:
+            return ext.slice_frames(self.blob, self.offs, self.lens,
+                                    self.lo, self.hi)
         b = self.blob
         return [b[o:o + ln] for o, ln in
                 zip(self.offs[self.lo:self.hi].tolist(),

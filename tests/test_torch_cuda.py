@@ -880,3 +880,124 @@ def test_twin_sweep_on_the_card_equals_the_cpu(dev):
         for k in ("tx_packets", "delivered_packets", "dropped_loss",
                   "dropped_queue", "dropped_ring", "latency_hist"):
             assert mc[k] == mp[k], k
+
+
+# -- checkpoint and restart, the exporter, kdt_ext (on the card machine) ---
+
+def _feed_plane(win, t, rng):
+    for k, w in enumerate(win):
+        w.ingress.extend(
+            bytes([k, t]) + j.to_bytes(2, "big") + b"\x5a" * int(s)
+            for j, s in enumerate(rng.integers(60, 1497,
+                                               (20, 30, 70, 40)[k])))
+
+
+def test_checkpoint_loads_onto_the_card(dev, tmp_path):
+    """A checkpoint and a snapshot file written from a CPU plane load
+    onto the card by default (device=None), every column bit for bit."""
+    from kubedtn_tpu_torch import checkpoint
+    from kubedtn_tpu_torch.sim import init_sim
+    from kubedtn_tpu_torch.twin import (load_snapshot, save_snapshot,
+                                        snapshot_from_engine)
+
+    engine, plane, win, _wout = _plane("cpu", 1)
+    rng = np.random.default_rng(1)
+    for t in range(3):
+        _feed_plane(win, t, rng)
+        plane.tick(now_s=(t + 1) * 0.01)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save(path, engine.store, engine,
+                    sim=init_sim(engine.state, q=8), dataplane=plane)
+    _store, e2 = checkpoint.load(path)
+    assert e2.device.type == "cuda" and e2._rows == engine._rows
+    for f in dataclasses.fields(e2.state):
+        assert torch.equal(getattr(e2.state, f.name).cpu(),
+                           getattr(engine.state, f.name)), f.name
+    sim = checkpoint.load_sim(path, e2)
+    assert sim.inflight.t.device.type == "cuda"
+    p = str(tmp_path / "snap.npz")
+    save_snapshot(p, snapshot_from_engine(engine, q=8))
+    snap = load_snapshot(p)
+    assert snap.sim.edges.uid.device.type == "cuda"
+    for f in dataclasses.fields(snap.sim.edges):
+        assert torch.equal(getattr(snap.sim.edges, f.name).cpu(),
+                           getattr(engine.state, f.name)), f.name
+
+
+def test_restored_daemon_on_the_card_resumes_and_scrapes(dev, tmp_path):
+    """save_live on the card mid-run, entry.restore_daemon onto the card
+    at the cut's clock with its exporter: the per-wire egress equals the
+    uninterrupted plane's (release ticks too on the wires without a
+    seq-slots holdback at the cut), and a scrape's node totals equal the
+    restored plane's counters."""
+    import urllib.request
+
+    from kubedtn_tpu_torch import checkpoint, entry
+
+    engine, plane, win, wout = _plane("cuda", 1)
+    rng = np.random.default_rng(1)
+    for t in range(3):
+        _feed_plane(win, t, rng)
+        plane.tick(now_s=(t + 1) * 0.01)
+        for w in wout:
+            w.egress.clear()
+    held = {h[0].wire_id for h in plane._holdback.values()}
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_live(path, engine.store, engine, plane)
+    r = entry.restore_daemon(path, capacity=64, now_s=0.03,
+                             metrics_port=0,
+                             plane_kwargs=dict(dt_us=10_000))
+    try:
+        assert r["engine"].device.type == "cuda"
+        d = r["daemon"]
+        runs = {"control": (plane, win, wout),
+                "restored": (r["plane"],
+                             [d.wires.get_by_key(w.pod_key, w.uid)
+                              for w in win],
+                             [d.wires.get_by_key(w.pod_key, w.uid)
+                              for w in wout])}
+        got = {}
+        for name, (pl, wi, wo) in runs.items():
+            pl.pipeline_explicit_clock = True
+            frng = np.random.default_rng(2)
+            out = [[] for _ in wo]
+            for t in range(3, 30):
+                if t < 5:
+                    _feed_plane(wi, t, frng)
+                pl.tick(now_s=(t + 1) * 0.01)
+                for k, w in enumerate(wo):
+                    while w.egress:
+                        out[k].append((t, w.egress.popleft()))
+            got[name] = out
+        for k, w in enumerate(win):
+            a, b = got["control"][k], got["restored"][k]
+            assert [f for _t, f in a] == [f for _t, f in b]
+            if w.wire_id not in held:
+                assert a == b
+        url = f"http://127.0.0.1:{r['metrics']['port']}/metrics"
+        body = urllib.request.urlopen(url, timeout=30).read().decode()
+        c = r["plane"].counters
+        active = np.fromiter(r["engine"]._rows.values(), np.int64)
+        line = [l for l in body.splitlines()
+                if l.startswith("kubedtn_node_tx_packets_total ")][0]
+        assert float(line.split()[1]) == float(c.tx_packets[active].sum())
+    finally:
+        r["metrics"]["server"].stop()
+
+
+def test_kdt_ext_on_the_card_machine(dev):
+    """Where the interpreter's headers resolve, kdt_ext builds and
+    slice_frames equals the Python path; where not, it is None with the
+    reason."""
+    from kubedtn_tpu_torch import native
+
+    _inc, ok = native.python_include()
+    mod = native.kdt_ext()
+    if not ok:
+        assert mod is None and "Python.h" in native.kdt_ext_reason()
+        return
+    blob = bytes(range(256)) * 4
+    offs = np.array([0, 10, 300, 1000], np.uint64)
+    lens = np.array([5, 0, 200, 24], np.uint64)
+    assert mod.slice_frames(blob, offs, lens, 0, 4) == [
+        blob[o:o + n] for o, n in zip(offs.tolist(), lens.tolist())]

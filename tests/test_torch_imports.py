@@ -67,6 +67,9 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.updates", "kubedtn_tpu_torch.updates.planner",
     "kubedtn_tpu_torch.updates.gate", "kubedtn_tpu_torch.updates.stager",
     "kubedtn_tpu_torch.updates.service",
+    # checkpoint and restart, and the daemon's Prometheus exporter
+    "kubedtn_tpu_torch.checkpoint", "kubedtn_tpu_torch.metrics",
+    "kubedtn_tpu_torch.metrics.metrics",
 )
 
 
