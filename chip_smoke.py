@@ -61,7 +61,7 @@ Phases, each fatal on failure:
      engine's again); (d) ping on a 10 ms link (K1): one-way == 10 ms and
      == the plain step; (b) 3 x 4,096 links re-shaped into the three
      kernel classes by UpdateLinks, wires on both ends, 1-64 tagged
-     frames per ingress wire and tick for 16 ticks of 10 ms, drained:
+     frames per ingress wire and tick for 10 ticks of 10 ms, drained:
      depth 1 (telemetry off) == depth 2 (telemetry on), byte for byte
      per wire (digests),
      the books close per edge, the window totals == the counters, the
@@ -114,7 +114,8 @@ Phases, each fatal on failure:
      configuration columns == the change applied directly to a copy,
      byte for byte;
  15. checkpoint and restart, K1's launches counted from 0 around the
-     phase: phase 12's daemon with its Prometheus exporter, its classes
+     phase: phase 12's daemon with its Prometheus exporter and a tenancy
+     registry (the "default" tenant owns all 200,000 rows), its classes
      and wires, at depth 1 on an explicit clock; (a) 4 feed ticks, the
      next tick's feed queued, save_live (seconds, the checkpoint_save
      pause, directory bytes, frames pending and ingress captured), then
@@ -123,7 +124,8 @@ Phases, each fatal on failure:
      10,000-series cap and its truncation gauge, the request histogram
      counting the daemon's UpdateLinks calls; (b) entry.restore_daemon
      from the directory alone at the cut's clock: every EdgeState column,
-     the wires and the counters == the cut's, the same 4 fed ticks and
+     the wires, the counters and the registry (export_config,
+     rows_of("default")) == the cut's, the same 4 fed ticks and
      the drain: the TBF-only and delay-only wires release the same bytes
      on the same ticks as the uninterrupted daemon, every frame pending
      at the cut delivered exactly once; (c) a truncated edge_state.npz:
@@ -132,7 +134,40 @@ Phases, each fatal on failure:
      generation bit for bit; (d) save_snapshot / load_snapshot of phase
      14's fork base onto the card: a 2-lane sweep's replica 0 == the
      in-memory snapshot's, bit for bit; (f) kdt_ext's slice_frames ==
-     the Python path on phase 12's feed (or the reason it is not built).
+     the Python path on phase 12's feed (or the reason it is not built);
+ 16. tenancy and shared-memory ingest, K1's and K4's launches counted from
+     0 around the phase: three tenant fabrics t0, t1, t2, each
+     clos(100, 166) x 2 links (33,200 links, 66,400 rows) in its own
+     namespace with disjoint uids, one kernel class each (t0 jitter +
+     10 % loss, t1 a 2 Mbit TBF-only rate, t2 10 % loss with 25 %
+     correlation); (a) the 798 CRs into one daemon of 2^18 rows (t1's
+     rows packed into a reserved block of 70,000) and each tenant's CRs
+     into a daemon of its own: reconcile-to-steady, rows_of(t1) inside
+     its block, the ownership masks == a walk of the engine's rows,
+     TenantList / TenantStats / Health over the Daemon; (b) each tenant's
+     first 4,096 spine links wired on both ends and fed phase 12's feed
+     for 6 ticks and the drain at depth 1: per tenant, the per-wire
+     egress bytes, the telemetry and counter rows (by link identity) and
+     tenant_counters of the cohabited plane == the tenant's own plane,
+     bit for bit, the tenants' counters summing to the plane's; (c) the
+     cohabited plane at depth 2 on 2 virtual shards (K4) == (b)'s depth
+     1, K4 == plain on a ring step of this plane's mailbox; (d) t0's
+     frame budget cut to 20 % of its fed rate for 4 fed ticks: admitted
+     + queued == fed, typed frame-budget verdicts, t1 and t2 == alone;
+     (e) tenant_snapshot(plane, "t1"): active rows == rows_of(t1); a
+     4-lane x 50-step sweep of it (each slot one K1 launch over 4 x 2^18
+     rows): replica 0 == sim.run, no packet outside t1, 2 steps through
+     K1 == the plain version; WhatIf tenant=t1 served, tenant=nope
+     refused; (f) 8 producer processes (python -m
+     kubedtn_tpu_torch.shm.producer) x 50,000 indexed frames of 256 B
+     into rings on t1's first 8 wires (re-shaped latency-only), the
+     plane attached with attach_shm: every wire delivers 0..N-1 once, in
+     order, frames/s from ring to egress; rings pre-filled with 8,192
+     frames == the same frames through wire.ingress, tick for tick;
+     admission parks over-budget frames in a ring, none dropped; (g) a
+     scrape of /metrics: kubedtn_tenant_* == registry.stats,
+     kubedtn_shm_* == ShmIngest.stats(); (h) the depth-1 drain share with
+     tenancy against 12(b)'s without.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -1177,7 +1212,9 @@ def run_routed_phase(el, fresh, dev, card):
 # -- phase 12: the host live plane -------------------------------------------
 
 PLANE_ROWS = 4096           # rows per kernel class (the live tick's width)
-PLANE_TICKS = 16            # explicit-clock ticks that feed frames
+PLANE_TICKS = 10            # explicit-clock ticks that feed frames (16
+#                             until phase 16 joined: 10 keep the script
+#                             near its time budget, PERF.md §4)
 PLANE_DT_S = 0.01
 PLANE_MAX_FRAMES = 64       # 1..64 frames per ingress wire and tick
 PLANE_SIZES = (64, 257)     # frame bytes drawn from [64, 257)
@@ -2947,7 +2984,7 @@ def run_checkpoint_phase(dev, card, n_spine=None, n_leaf=None,
         have_prom, why = False, str(e)
     plane_kw = dict(dt_us=PLANE_DT_S * 1e6, seed=15, pipeline_depth=1)
     built = entry.build_daemon(dev, metrics_port=0 if have_prom else None,
-                               plane_kwargs=plane_kw, **size)
+                               plane_kwargs=plane_kw, tenancy=True, **size)
     daemon, engine = built["daemon"], built["engine"]
     plane = built.get("plane") or entry.build_plane(daemon, **plane_kw)
     plane.pipeline_explicit_clock = True
@@ -3018,6 +3055,13 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
     t0 = time.perf_counter()
     checkpoint.save_live(path, store, engine, plane)
     m["save_s"] = time.perf_counter() - t0
+    # the auto-registered "default" tenant (every CR's namespace)
+    reg = built["tenancy"]
+    tenancy_at_cut = reg.export_config()
+    rows_at_cut = reg.rows_of("default")
+    check([t.name for t in reg.list()] == ["default"]
+          and rows_at_cut.size == engine.num_active,
+          "15(a): the default tenant does not own every row")
     pz = plane.pauses.snapshot()["causes"]["checkpoint_save"]
     m["save_pause_ms"] = 1e3 * pz["seconds"]
     m["file_bytes"] = _file_bytes(path)
@@ -3097,6 +3141,11 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
         "checkpoint_load"]["seconds"]
     check(r["source"] == "checkpoint", "15(b): not restored from the "
                                        "checkpoint")
+    check(r["tenancy"] is not None and rd.tenancy is r["tenancy"]
+          and rplane.tenancy is r["tenancy"]
+          and r["tenancy"].export_config() == tenancy_at_cut
+          and np.array_equal(r["tenancy"].rows_of("default"), rows_at_cut),
+          "15(b): the restored registry differs from the cut's")
     check(r["pending"] == m["pending_frames"]
           and r["ingress"] == m["ingress_frames"],
           "15(b): pending / ingress frames restored")
@@ -3124,7 +3173,8 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
     m["compared_wires"] = len(keep)
     log(f"15(b) restore_daemon from the directory: {m['load_s']:.3f} s, "
         f"checkpoint_load pause {m['load_pause_ms']:.3f} ms; EdgeState, "
-        f"wires and counters == the cut's; {len(keep)} non-drawing wires "
+        f"wires, counters and the tenant registry (export_config, "
+        f"rows_of('default'): {rows_at_cut.size} rows) == the cut's; {len(keep)} non-drawing wires "
         f"(TBF-only and delay-only) released the same bytes on the same "
         f"ticks as the uninterrupted daemon over {CKPT_RESUME_TICKS} fed "
         f"ticks and the drain; all {len(want)} frames pending at the cut "
@@ -3214,6 +3264,747 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
             f"{n} frames of phase 12's feed")
     return m
 
+
+# -- phase 16: tenancy and the shared-memory ingest plane --------------------
+
+TEN_NAMES = ("t0", "t1", "t2")
+TEN_SPINE, TEN_LEAF, TEN_LPP = 100, 166, 2   # 33,200 links a tenant
+TEN_BLOCK = 70_000          # t1's reserved rows (66,400 used)
+TEN_TICKS = 6               # fed ticks of (b)-(d)
+TEN_NOISY_TICKS = 4         # (d): t0 throttled on these fed ticks
+TEN_NOISY_SHARE = 0.2       # (d): t0's frame budget over its fed rate
+TEN_SEED = 16
+TEN_SWEEP_STEPS = 50        # (e): the t1-scoped sweep's 4 lanes
+TEN_CHECK_STEPS = 2         # (e): K1 vs the plain version
+SHM_PRODUCERS = 8           # (f): one ring each, on t1's wires
+SHM_FRAMES = 50_000         # frames per producer
+SHM_FRAME_BYTES = 256
+SHM_PREFILL = 8_192         # frames per ring of the equivalence round
+SHM_WAIT_S = 300.0          # bound on (f)'s producer run
+# one kernel class per tenant (tests/test_tenant_isolation.py): t1 is
+# TBF-only because of the depth-2 lossy-TBF fault (ROADMAP §3)
+TENANT_CLASS_PROPS = {
+    "t0": dict(latency="2ms", jitter="1ms", loss="10"),
+    "t1": dict(rate="2Mbit"),
+    "t2": dict(latency="1ms", loss="10", loss_corr="25"),
+}
+
+
+def ten_crs(names, n_spine, n_leaf, lpp):
+    """Each tenant's Clos in its own namespace, uids disjoint."""
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+
+    n = n_spine * n_leaf * lpp
+    return {t: entry.clos_crs(n_spine, n_leaf, lpp,
+                              props=LinkProperties(**TENANT_CLASS_PROPS[t]),
+                              namespace=t, uid_base=TEN_NAMES.index(t) * n)
+            for t in names}
+
+
+def ten_wires(daemon, crs, n_rows: int) -> tuple:
+    """Wires on both ends of a tenant's first n_rows spine links (the
+    spine end is the ingress direction): ([ingress], [egress],
+    [(spine, leaf, uid)])."""
+    import types
+
+    def wd(pod, ns, uid):
+        return types.SimpleNamespace(
+            local_pod_name=pod, kube_ns=ns, link_uid=uid,
+            intf_name_in_pod="eth1", veth_name_local_host="",
+            peer_intf_id=0, peer_ip="")
+
+    win, wout, links = [], [], []
+    for t in crs:
+        if not t.name.startswith("spine") or len(links) >= n_rows:
+            continue
+        for link in t.spec.links[:n_rows - len(links)]:
+            links.append((t.name, link.peer_pod, link.uid))
+            win.append(daemon._add_wire(wd(t.name, t.namespace, link.uid)))
+            wout.append(daemon._add_wire(wd(link.peer_pod, t.namespace,
+                                            link.uid)))
+    return win, wout, links
+
+
+def ten_rows_by_identity(engine, ns: str):
+    """The tenant's rows in link-identity order ((pod_key, uid) sorted),
+    so two engines' rows of one link line up."""
+    keys = sorted(k for k in engine._rows if k[0].partition("/")[0] == ns)
+    return np.fromiter((engine._rows[k] for k in keys), np.int64, len(keys))
+
+
+def ten_run(built, wires: dict, feeds: dict, state0, depth: int,
+            ticks: int = TEN_TICKS, mesh=None, hook=None) -> dict:
+    """One run on a fresh plane over the daemon's engine restored to
+    state0: feeds[t][i] queued on tenant t's ingress wires before fed
+    tick i, then idle ticks until the delay line is empty; `hook(plane,
+    i)` runs before fed tick i. Per tenant: egress digests and counts per
+    wire, counter and telemetry rows in link-identity order, and the
+    registry's tenant_counters."""
+    import hashlib
+
+    from kubedtn_tpu_torch import entry
+
+    engine = built["engine"]
+    engine.state = clone_state(state0)
+    plane = entry.build_plane(built["daemon"], dt_us=PLANE_DT_S * 1e6,
+                              seed=TEN_SEED, pipeline_depth=depth)
+    plane.pipeline_explicit_clock = True
+    plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+    if mesh is not None:
+        plane.enable_sharding(mesh)
+    dev = engine.device
+    dig = {t: [hashlib.blake2b(digest_size=16) for _ in wires[t][1]]
+           for t in wires}
+    counts = {t: [0] * len(wires[t][1]) for t in wires}
+    fed = {t: 0 for t in wires}
+
+    def collect():
+        for t, (_win, wout, _l) in wires.items():
+            for k, w in enumerate(wout):
+                if w.egress:
+                    dig[t][k].update(b"".join(w.egress))
+                    counts[t][k] += len(w.egress)
+                    w.egress.clear()
+
+    walls = []
+    t = 0
+    for t in range(ticks):
+        if hook is not None:
+            hook(plane, t)
+        for ten, (win, _wout, _l) in wires.items():
+            fed[ten] += apply_feed(win, feeds[ten][t])
+        w0 = time.perf_counter()
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - w0)
+        collect()
+    stage = plane.stage_breakdown()
+    for _ in range(PLANE_DRAIN_TICKS):
+        t += 1
+        plane.tick(now_s=(t + 1) * PLANE_DT_S)
+        collect()
+        if (not plane._inflight and not plane._holdback
+                and len(plane._wheel) == 0
+                and not any(w.ingress for v in wires.values()
+                            for w in v[0])):
+            break
+    plane.flush()
+    collect()
+    check(plane.tick_errors == 0, "16: tick errors")
+    check(len(plane._wheel) == 0 and not plane._pending,
+          "16: the delay line did not empty")
+    reg = built["tenancy"]
+    c = plane.counters
+    total, _secs = plane.telemetry.window_sum()
+    out = {"plane": plane, "fed": fed, "walls": walls, "stage": stage,
+           "digests": {t: [d.hexdigest() for d in v] for t, v in dig.items()},
+           "counts": counts, "rows": {}, "tel": {}, "cnt": {},
+           "tenant_counters": {}}
+    for ten in wires:
+        rows = ten_rows_by_identity(engine, ten)
+        out["rows"][ten] = rows
+        out["cnt"][ten] = {f.name: getattr(c, f.name)[rows].copy()
+                           for f in dataclasses.fields(c)}
+        out["tel"][ten] = total[rows].copy()
+        out["tenant_counters"][ten] = reg.tenant_counters(plane, ten)
+    return out
+
+
+def ten_same(a: dict, b: dict, ten: str, name: str,
+             lat_tol: bool = False) -> int:
+    """Tenant `ten` of two runs: per-wire egress bytes, counter rows in
+    link-identity order and the registry's tenant_counters, bit for bit;
+    telemetry rows bit for bit too, but with `lat_tol` the latency-sum
+    column within the parity tolerance (STATE_TOL): a depth-2 plane
+    corrects FORCED fallback rows' window stats on the host in float64
+    where depth 1 folds them in float32 on the card, in the JAX package
+    as in the port (ROADMAP §3). Returns the rows whose latency sums
+    differ."""
+    from kubedtn_tpu_torch.telemetry import T_LAT_SUM_US
+
+    check(a["counts"][ten] == b["counts"][ten],
+          f"{name}: tenant {ten} per-wire egress counts differ")
+    check(a["digests"][ten] == b["digests"][ten],
+          f"{name}: tenant {ten} per-wire egress bytes differ")
+    ta, tb = a["tel"][ten], b["tel"][ten]
+    cols = [c for c in range(ta.shape[1]) if not lat_tol or c != T_LAT_SUM_US]
+    check(np.array_equal(ta[:, cols], tb[:, cols]),
+          f"{name}: tenant {ten} telemetry rows differ")
+    lat_a, lat_b = ta[:, T_LAT_SUM_US], tb[:, T_LAT_SUM_US]
+    check(np.allclose(lat_a, lat_b, **STATE_TOL),
+          f"{name}: tenant {ten} latency sums beyond the tolerance")
+    for k, col in a["cnt"][ten].items():
+        check(np.array_equal(col, b["cnt"][ten][k]),
+              f"{name}: tenant {ten} counter {k} differs")
+    check(a["tenant_counters"][ten] == b["tenant_counters"][ten],
+          f"{name}: tenant {ten} tenant_counters differ")
+    return int((lat_a != lat_b).sum())
+
+
+def _ns_update_links(daemon, ns: str, pod: str, links) -> None:
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    q = pb.LinksBatchQuery(local_pod=pb.Pod(name=pod, kube_ns=ns),
+                           links=[pb.link_to_proto(l) for l in links])
+    check(daemon.UpdateLinks(q, None).response, f"UpdateLinks {ns}/{pod}")
+
+
+def run_tenancy_phase(dev, card, n_spine=None, n_leaf=None,
+                      n_rows: int = PLANE_ROWS, block: int = TEN_BLOCK,
+                      capacity: int = 1 << 18, shm_frames: int = SHM_FRAMES,
+                      prefill: int = SHM_PREFILL,
+                      sweep_steps: int = TEN_SWEEP_STEPS,
+                      plane_d1_drain_share=None) -> tuple:
+    """Phase 16: three tenant fabrics cohabiting one plane against each
+    alone, sharded, under a noisy neighbour, the tenant-scoped WhatIf,
+    shared-memory ingest from producer processes and the scrape. Returns
+    (metrics, K1 launches, K4 launches) of the phase's path."""
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+    from kubedtn_tpu_torch.tenancy import HostTokenBucket
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    n_spine = n_spine or TEN_SPINE
+    n_leaf = n_leaf or TEN_LEAF
+    m = {"rows_per_class": n_rows}
+    shaping.reset_launches()
+    pex.reset_launches()
+    cmp = {"k1": 0, "k4": 0}   # launches made only to compare
+    crs = ten_crs(TEN_NAMES, n_spine, n_leaf, TEN_LPP)
+    n_rows_ten = 2 * n_spine * n_leaf * TEN_LPP
+
+    # (a) the cohabited daemon and one solo daemon per tenant
+    co = entry.build_daemon(
+        dev, capacity=capacity, crs=[c for t in TEN_NAMES for c in crs[t]],
+        tenancy={"t1": {"block_edges": block}})
+    solo = {t: entry.build_daemon(dev, capacity=capacity, crs=crs[t],
+                                  tenancy=True) for t in TEN_NAMES}
+    m["reconcile_s"] = {"cohabited": co["reconcile_s"],
+                        **{t: solo[t]["reconcile_s"] for t in TEN_NAMES}}
+    reg, engine = co["tenancy"], co["engine"]
+    check(engine.num_active == 3 * n_rows_ten,
+          f"16(a): {engine.num_active} rows realized")
+    lo, hi = reg.get("t1").block
+    rows_t1 = reg.rows_of("t1")
+    check(hi - lo == block and bool(((rows_t1 >= lo) & (rows_t1 < hi)).all()),
+          "16(a): t1's rows are not inside its block")
+    walk = {}
+    for (pod_key, _uid), row in engine._rows.items():
+        walk.setdefault(pod_key.partition("/")[0], []).append(row)
+    for t in TEN_NAMES:
+        check(reg.rows_of(t).tolist() == sorted(walk[t])
+              and len(walk[t]) == n_rows_ten,
+              f"16(a): rows_of({t}) != a walk of the engine's rows")
+    lst = co["daemon"].TenantList(pb.TenantQuery(), None)
+    check(lst.ok and sorted(x.name for x in lst.tenants) == list(TEN_NAMES)
+          and all(x.links == n_rows_ten for x in lst.tenants),
+          "16(a): TenantList over the Daemon")
+    st1 = co["daemon"].TenantStats(pb.TenantQuery(name="t1"), None)
+    check(st1.ok and st1.tenant.block_lo == lo and st1.tenant.links
+          == n_rows_ten, "16(a): TenantStats over the Daemon")
+    check(co["daemon"].health_snapshot()["tenants"] == 3,
+          "16(a): Health's tenant count")
+    alone = ", ".join(f"{t} {m['reconcile_s'][t]:.3f} s"
+                      for t in TEN_NAMES)
+    log(f"16(a) {sum(len(c) for c in crs.values())} CRs of 3 tenant "
+        f"fabrics: {engine.num_active} rows in capacity "
+        f"{engine.state.capacity}, reconcile-to-steady "
+        f"{m['reconcile_s']['cohabited']:.3f} s cohabited, {alone} "
+        f"alone; t1's {rows_t1.size} rows inside its block [{lo}, {hi}); "
+        f"rows_of == a walk of the engine's rows; TenantList / TenantStats "
+        f"/ Health answer over the Daemon ({card})")
+
+    # the fed wires, each tenant's feed made once from its own seed
+    wires_co = {t: ten_wires(co["daemon"], crs[t], n_rows) for t in TEN_NAMES}
+    wires_so = {t: ten_wires(solo[t]["daemon"], crs[t], n_rows)
+                for t in TEN_NAMES}
+    feeds = {}
+    for j, t in enumerate(TEN_NAMES):
+        rng = np.random.default_rng(TEN_SEED + j)
+        feeds[t] = [make_feed(n_rows, i, rng) for i in range(TEN_TICKS)]
+    state_co = clone_state(engine.state)
+    state_so = {t: clone_state(solo[t]["engine"].state) for t in TEN_NAMES}
+
+    # (b) solo == cohabited at depth 1
+    b_co = ten_run(co, wires_co, feeds, state_co, depth=1)
+    b_so = {t: ten_run(solo[t], {t: wires_so[t]}, feeds, state_so[t],
+                       depth=1) for t in TEN_NAMES}
+    for t in TEN_NAMES:
+        ten_same(b_co, b_so[t], t, "16(b) cohabited vs alone")
+    c = b_co["plane"].counters
+    for f in dataclasses.fields(c):
+        col = getattr(c, f.name).astype(np.float64)
+        check(sum(float(b_co["cnt"][t][f.name].astype(np.float64).sum())
+                  for t in TEN_NAMES) == float(col.sum()),
+              f"16(b): the tenants' {f.name} do not sum to the plane's")
+    p = b_co["plane"]
+    check(p.shaped + p.dropped == sum(b_co["fed"].values()),
+          "16(b): shaped + dropped != fed")
+    m["b"] = {
+        "fed": b_co["fed"], "shaped": p.shaped, "dropped": p.dropped,
+        "tenant_counters": b_co["tenant_counters"],
+        "wall_ms_per_tick_cohabited": 1e3 * statistics.median(
+            b_co["walls"]),
+        "wall_ms_per_tick_alone": {t: 1e3 * statistics.median(
+            b_so[t]["walls"]) for t in TEN_NAMES},
+        "stage_cohabited": b_co["stage"]}
+    share = b_co["stage"]["share"]
+    alone = {t: round(v, 3) for t, v in
+             m["b"]["wall_ms_per_tick_alone"].items()}
+    log(f"16(b) depth 1, {TEN_TICKS} fed ticks and the drain: each "
+        f"tenant's per-wire egress bytes, telemetry rows and counter rows "
+        f"(by link identity) and tenant_counters cohabited == alone, bit "
+        f"for bit; the three tenants' counters sum to the plane's; fed "
+        f"{b_co['fed']}, shaped {p.shaped}, dropped {p.dropped}; wall "
+        f"{m['b']['wall_ms_per_tick_cohabited']:.3f} ms/tick cohabited, "
+        f"{alone} alone; shares {share} ({card})")
+
+    # (h) the drain's cost with tenancy on
+    hot = 3 * n_rows
+    drain_s = b_co["stage"]["seconds"]["drain"]
+    m["h"] = {"drain_share_tenancy": share["drain"],
+              "drain_us_per_hot_wire_tick": 1e6 * drain_s
+              / (TEN_TICKS * hot),
+              "drain_share_phase12_depth1": plane_d1_drain_share}
+    log(f"16(h) depth-1 drain share with tenancy {share['drain']} "
+        f"({m['h']['drain_us_per_hot_wire_tick']:.2f} us per hot wire and "
+        f"tick, budget_for once per hot wire and tick) against 12(b)'s "
+        f"{plane_d1_drain_share} without it ({card})")
+
+    # (c) depth 2 on 2 virtual shards == depth 1 unsharded; K4
+    captured = []
+    real_shift = pex.ring_right_shift
+
+    def capture(blocks, mesh):
+        if not captured:
+            captured.append(([b.clone() for b in blocks], tuple(mesh)))
+        return real_shift(blocks, mesh)
+
+    k4_0 = pex.LAUNCHES["ring_step"]
+    pex.ring_right_shift = capture
+    try:
+        c_sh = ten_run(co, wires_co, feeds, state_co, depth=2,
+                       mesh=make_mesh([dev] * 2))
+    finally:
+        pex.ring_right_shift = real_shift
+    k4_c = pex.LAUNCHES["ring_step"] - k4_0
+    lat_rows = sum(ten_same(c_sh, b_co, t, "16(c) depth 2 on 2 virtual "
+                                           "shards vs depth 1 unsharded",
+                            lat_tol=True) for t in TEN_NAMES)
+    check(captured, "16(c): the sharded plane ran no ring step")
+    blocks, mesh = captured[0]
+    before = pex.LAUNCHES["ring_step"]
+    same(pex.ring_right_shift(blocks, mesh),
+         pex.ring_right_shift_plain(blocks), "16(c) K4 vs plain")
+    cmp["k4"] += pex.LAUNCHES["ring_step"] - before
+    summ = c_sh["plane"].shard_summary()
+    m["c"] = {"wall_ms_per_tick": 1e3 * statistics.median(c_sh["walls"]),
+              "k4_launches": k4_c, "mailbox_rows": int(blocks[0].shape[0]),
+              "xshard_frames": summ["xshard_frames"],
+              "latency_sum_rows_within_tol": lat_rows,
+              "fallback_rows": c_sh["plane"].fallbacks}
+    check(k4_c > 0 or dev.type != "cuda", "16(c): K4 never launched")
+    log(f"16(c) depth 2 on 2 virtual shards == depth 1 unsharded per "
+        f"tenant, bit for bit (egress, counters, telemetry; the latency "
+        f"sums of {lat_rows} forced fallback rows within rtol 1e-6 / atol "
+        f"1e-3 of {c_sh['plane'].fallbacks} fallback rows); {k4_c} K4 "
+        f"launches, K4 == plain on one ring "
+        f"step of this plane's mailbox ({blocks[0].shape[0]} x "
+        f"{blocks[0].shape[1]} words a shard); {summ['xshard_frames']} "
+        f"cross-shard frames; wall {m['c']['wall_ms_per_tick']:.3f} "
+        f"ms/tick ({card})")
+
+    # (d) noisy neighbour: t0 at 20 % of its fed rate for 4 fed ticks
+    t0 = reg.get("t0")
+    fed_t0 = sum(sum(feeds["t0"][i][3]) for i in range(TEN_NOISY_TICKS))
+    rate = TEN_NOISY_SHARE * fed_t0 / (TEN_NOISY_TICKS * PLANE_DT_S)
+    base = {"admitted": t0.admitted_frames,
+            "events": reg.admission.stats_for("t0")["throttle_events"]}
+    seen = {}
+
+    def noisy(plane, i):
+        if i == 0:
+            reg.set_quota("t0", frame_budget_per_s=rate)
+            # a burst of one tick's budget, so the cut bites at once
+            t0.bucket_frames = HostTokenBucket(rate, rate * PLANE_DT_S)
+        elif i == TEN_NOISY_TICKS:
+            queued = sum(len(w.ingress) for w in wires_co["t0"][0])
+            seen.update(admitted=t0.admitted_frames - base["admitted"],
+                        queued=queued)
+            reg.set_quota("t0", frame_budget_per_s=0.0)
+
+    d = ten_run(co, wires_co, feeds, state_co, depth=1, hook=noisy)
+    events = (reg.admission.stats_for("t0")["throttle_events"]
+              - base["events"])
+    reasons = {v.reason for v in reg.admission.recent(1024)
+               if v.tenant == "t0"}
+    check(seen["admitted"] + seen["queued"] == fed_t0,
+          f"16(d): t0 admitted {seen['admitted']} + queued "
+          f"{seen['queued']} != fed {fed_t0}")
+    check(seen["queued"] > 0 and events > 0 and reasons == {"frame-budget"},
+          f"16(d): no typed frame-budget verdicts ({events}, {reasons})")
+    for t in ("t1", "t2"):
+        ten_same(d, b_so[t], t, "16(d) noisy t0: cohabited vs alone")
+    pd = d["plane"]
+    check(pd.shaped + pd.dropped == sum(d["fed"].values()),
+          "16(d): t0's frames were not all shaped after the cut")
+    m["d"] = {"t0_fed_4_ticks": fed_t0, "t0_admitted": seen["admitted"],
+              "t0_queued": seen["queued"], "verdicts": events,
+              "budget_frames_per_s": rate}
+    log(f"16(d) t0 cut to {TEN_NOISY_SHARE:.0%} of its fed rate "
+        f"({rate:.1f} frames/s) for {TEN_NOISY_TICKS} fed ticks: admitted "
+        f"{seen['admitted']} + queued {seen['queued']} == fed {fed_t0}, "
+        f"none dropped; {events} typed frame-budget verdicts; t1 and t2 "
+        f"egress, telemetry and counters == alone, bit for bit ({card})")
+    del b_so, c_sh, d
+
+    # (e) the tenant-scoped WhatIf on the live cohabited plane
+    m["e"], k1_cmp = ten_sweep(co, co["daemon"].dataplane, dev, card,
+                               sweep_steps)
+    cmp["k1"] += k1_cmp
+    del b_co
+
+    # (f) shared-memory ingest; (g) the scrape
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-phase16-")
+    try:
+        m["f"] = ten_shm(co, wires_co["t1"], state_co, dev, card, tmp,
+                         shm_frames, prefill)
+        m["g"] = ten_scrape(co, card)
+    finally:
+        if co["daemon"].shm is not None:
+            co["daemon"].shm.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1 = shaping.LAUNCHES["shape_step_rows"] - cmp["k1"]
+    k4 = pex.LAUNCHES["ring_step"] - cmp["k4"]
+    check(k1 > 0 or dev.type != "cuda", "16: K1 never launched")
+    return m, k1, k4
+
+
+def ten_sweep(co, plane, dev, card, steps: int) -> tuple:
+    """16(e): t1's scoped fork of the live plane swept on the card.
+    Returns (metrics, K1 launches made only to compare)."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.twin import Perturbation, Scenario, run_sweep
+    from kubedtn_tpu_torch.twin.engine import replica_lane
+    from kubedtn_tpu_torch.twin.query import build_cbr_spec
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    reg = co["tenancy"]
+    t0 = time.perf_counter()
+    snap = reg.tenant_snapshot(plane, "t1")
+    snap_s = time.perf_counter() - t0
+    rows = reg.rows_of("t1")
+    active = snap.sim.edges.active.cpu().numpy()
+    check(np.array_equal(np.flatnonzero(active), rows),
+          "16(e): the fork's active rows != rows_of(t1)")
+    uid = next(iter(sorted(u for (pk, u) in co["engine"]._rows
+                           if pk.startswith("t1/"))))
+    scen = [Scenario("baseline"),
+            Scenario("t1-slower", (Perturbation(
+                "degrade", uid=uid, props=LinkProperties(rate="1Mbit")),)),
+            Scenario("t1-fail", (Perturbation("fail", uid=uid),)),
+            Scenario("half-load", (Perturbation("scale", factor=0.5),))]
+    E = snap.sim.edges.capacity
+    spec = build_cbr_spec(snap.sim.edges)
+    kw = dict(dt_us=TWIN_DT_US, spec=spec, k_slots=TWIN_K, seed=TWIN_SEED,
+              keep_final=True)
+    before = shaping.LAUNCHES["shape_step_rows"]
+    res = run_sweep(snap, scen, steps=steps, **kw)
+    _sync(dev)
+    launches = shaping.LAUNCHES["shape_step_rows"] - before
+    check(launches == steps * TWIN_K or dev.type != "cuda",
+          f"16(e): {launches} K1 launches for {steps} steps")
+    ref = sim.run(snap.sim, spec, steps, TWIN_DT_US, TWIN_K, seed=TWIN_SEED)
+    same(replica_lane(res.final, 0, len(scen)), ref,
+         "16(e) replica 0 vs sim.run on the scoped snapshot")
+    tx = res.final.counters.tx_packets.reshape(len(scen), E).cpu().numpy()
+    outside = np.setdiff1d(np.arange(E), rows)
+    check(not tx[:, outside].any() and tx[0, rows].sum() > 0,
+          "16(e): a row outside t1 carried packets, or t1 none")
+    del ref
+    before = shaping.LAUNCHES["shape_step_rows"]
+    two = dict(steps=TEN_CHECK_STEPS, **kw)
+    k2 = run_sweep(snap, scen, shape_fn=queues.shape_packets, **two)
+    p2 = run_sweep(snap, scen, shape_fn=queues.shape_packets_plain, **two)
+    same(k2.final, p2.final, "16(e) 2 steps: K1 vs the plain version")
+    k1_cmp = shaping.LAUNCHES["shape_step_rows"] - before
+    del k2, p2
+    req = dict(ticks=20, dt_us=TWIN_DT_US, seed=3, include_baseline=True)
+    t0 = time.perf_counter()
+    ok = co["daemon"].WhatIf(pb.WhatIfRequest(tenant="t1", **req), None)
+    rpc_s = time.perf_counter() - t0
+    check(ok.ok and ok.results[0].tx_packets > 0,
+          f"16(e): WhatIf tenant=t1 not served: {ok.error}")
+    bad = co["daemon"].WhatIf(pb.WhatIfRequest(tenant="nope", **req), None)
+    check(not bad.ok and "unknown tenant" in bad.error,
+          "16(e): WhatIf tenant=nope was not refused")
+    m = {"lanes": len(scen), "rows": len(scen) * E, "steps": steps,
+         "ms_per_step": res.run_s * 1e3 / steps, "snapshot_s": snap_s,
+         "whatif_rpc_s": rpc_s, "k1_launches": launches,
+         "metrics": {n: {k: x[k] for k in ("tx_packets", "delivered_packets",
+                                           "dropped_queue")}
+                     for n, x in zip(res.names, res.metrics)}}
+    log(f"16(e) tenant_snapshot(plane, 't1') in {snap_s:.3f} s: active rows "
+        f"== rows_of(t1) ({rows.size}); {len(scen)} lanes x {E} rows x "
+        f"{steps} steps: {m['ms_per_step']:.3f} ms/step, {launches} K1 "
+        f"launches (one per slot and step over {len(scen) * E} rows); "
+        f"replica 0 == sim.run on the scoped snapshot; no packet outside "
+        f"t1; {TEN_CHECK_STEPS} steps through K1 == the plain version, bit "
+        f"for bit; WhatIf tenant=t1 served in {rpc_s:.3f} s, tenant=nope "
+        f"refused ({card})")
+    return m, k1_cmp
+
+
+def ten_shm(co, wires_t1, state_co, dev, card, tmp: str, n_frames: int,
+            prefill: int) -> dict:
+    """16(f): producer processes into rings on t1's first ingress wires;
+    the rings pre-filled against the same frames through wire.ingress;
+    admission parking frames in a ring."""
+    import os
+    import subprocess
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.shm import ShmIngest, ShmRing, ShmSender
+    from kubedtn_tpu_torch.shm.producer import make_frame
+    from kubedtn_tpu_torch.tenancy import HostTokenBucket
+
+    daemon, engine, reg = co["daemon"], co["engine"], co["tenancy"]
+    win, wout, links = wires_t1
+    n_p = min(SHM_PRODUCERS, len(win))
+    # the fed links re-shaped latency-only (1 ms, no draw, no queue): every
+    # frame must arrive once, in order
+    spine = co["store"].get("t1", links[0][0])
+    uids = {u for _s, _l, u in links[:n_p]}
+    check(all(s == links[0][0] for s, _l, _u in links[:n_p]),
+          "16(f): the fed links span two spines")
+    _ns_update_links(daemon, "t1", spine.name, [
+        l.with_properties(LinkProperties(latency="1ms"))
+        for l in spine.spec.links if l.uid in uids])
+    engine.flush()
+    state_f = clone_state(engine.state)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+
+    def fresh_plane(ingest, watcher, max_slots=4096):
+        engine.state = clone_state(state_f)
+        daemon.shm = None
+        plane = entry.build_plane(daemon, dt_us=PLANE_DT_S * 1e6,
+                                  seed=TEN_SEED, pipeline_depth=1,
+                                  max_slots=max_slots)
+        plane.pipeline_explicit_clock = True
+        if ingest is not None:
+            plane.attach_shm(ingest, watcher=watcher)
+        return plane
+
+    # producers in their own processes, the plane ticking as they push
+    ring_dir = os.path.join(tmp, "rings")
+    os.makedirs(ring_dir)
+    ingest = ShmIngest(ring_dir, scan_interval_s=0.01)
+    plane = fresh_plane(ingest, watcher=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kubedtn_tpu_torch.shm.producer",
+         os.path.join(ring_dir, f"p{k}.ring"), str(win[k].wire_id),
+         str(n_frames), "--frame-size", str(SHM_FRAME_BYTES),
+         "--namespace", "t1"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(n_p)]
+    nxt = [0] * n_p
+    bad = []
+    total = n_p * n_frames
+    t, t_first, t_last = 0, None, None
+    deadline = time.monotonic() + SHM_WAIT_S
+    try:
+        while sum(nxt) < total and time.monotonic() < deadline:
+            if t_first is None:
+                # the producers start up (a few seconds each): tick only
+                # once a ring holds frames
+                if not ingest.stats()["pending"]:
+                    ingest.scan(force=True)
+                    time.sleep(0.005)
+                    continue
+                t_first = time.perf_counter()
+            t += 1
+            plane.tick(now_s=t * PLANE_DT_S)
+            for k in range(n_p):
+                q = wout[k].egress
+                while q:
+                    f = q.popleft()
+                    i = int.from_bytes(f[:8], "little")
+                    if i != nxt[k] or len(f) != SHM_FRAME_BYTES:
+                        bad.append((k, i, nxt[k]))
+                    nxt[k] += 1
+            if sum(nxt) >= total:
+                t_last = time.perf_counter()
+        outs = [p.communicate(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"16(f): a producer failed: {[o[1][-500:] for o in outs]}")
+    check(all(o[0].splitlines()[-1] == f"done pushed={n_frames}"
+              for o in outs), "16(f): a producer did not push every frame")
+    check(not bad and nxt == [n_frames] * n_p,
+          f"16(f): delivered {nxt} of {n_frames} a wire, out of order "
+          f"{bad[:5]}")
+    st = ingest.stats()
+    check(st["frames_in"] == total and st["pending"] == 0,
+          f"16(f): ingest stats {st}")
+    rate = total / (t_last - t_first)
+    m = {"producers": n_p, "frames": total, "ticks": t,
+         "frames_per_s": rate, "ingest": st,
+         "stage": plane.stage_breakdown()}
+    log(f"16(f) {n_p} producer processes x {n_frames} frames of "
+        f"{SHM_FRAME_BYTES} B into their rings on t1's wires: every wire "
+        f"delivered frames 0..{n_frames - 1} once, in order, in {t} ticks; "
+        f"{rate:.1f} frames/s from ring to egress ({card})")
+    ingest.close()
+
+    # the rings pre-filled == the same frames through wire.ingress
+    frames = [make_frame(i, SHM_FRAME_BYTES) for i in range(prefill)]
+    pre_dir = os.path.join(tmp, "prefill")
+    os.makedirs(pre_dir)
+    senders = [ShmSender(os.path.join(pre_dir, f"q{k}.ring"),
+                         slots=max(prefill, 64), namespace="t1")
+               for k in range(n_p)]
+    for k, s in enumerate(senders):
+        s.send(win[k].wire_id, frames)
+        check(s.buffered() == 0, "16(f): a pre-filled ring overflowed")
+    logs = {}
+    for mode in ("shm", "ingress"):
+        ing = None
+        if mode == "shm":
+            ing = ShmIngest(pre_dir)
+            for s in senders:
+                ing.attach_ring(ShmRing.attach(s.ring.path))
+        p = fresh_plane(ing, watcher=False)
+        if mode == "ingress":
+            for k in range(n_p):
+                win[k].ingress.extend(frames)
+        out = [[] for _ in range(n_p)]
+        for i in range(PLANE_DRAIN_TICKS):
+            p.tick(now_s=(i + 1) * PLANE_DT_S)
+            _egress_log(wout[:n_p], i, out)
+            if (sum(len(x) for x in out) and not p._inflight
+                    and len(p._wheel) == 0 and not any(
+                        w.ingress for w in win[:n_p])
+                    and (ing is None or ing.pending_total() == 0)):
+                break
+        logs[mode] = out
+        if ing is not None:
+            ing.close()
+    check(logs["shm"] == logs["ingress"],
+          "16(f): pre-filled rings != the same frames through wire.ingress")
+    check(sum(n for x in logs["shm"] for _t, n, _d in x) == n_p * prefill,
+          "16(f): the pre-filled frames were not all delivered")
+    log(f"16(f) {n_p} rings pre-filled with {prefill} frames each, "
+        f"explicit ticks: per wire and tick the egress == the same frames "
+        f"fed through wire.ingress, bit for bit ({card})")
+
+    # admission at the ring head: t1 at 5 % of the ring's frames a tick,
+    # a quarter of the ring drained a tick while admitted
+    rate_t1 = 0.05 * prefill / PLANE_DT_S
+    reg.set_quota("t1", frame_budget_per_s=rate_t1)
+    t1 = reg.get("t1")
+    t1.bucket_frames = HostTokenBucket(rate_t1, rate_t1 * PLANE_DT_S)
+    adm_dir = os.path.join(tmp, "admission")
+    os.makedirs(adm_dir)
+    sender = ShmSender(os.path.join(adm_dir, "a.ring"),
+                       slots=max(prefill, 64), namespace="t1")
+    sender.send(win[0].wire_id, frames)
+    ing = ShmIngest(adm_dir)
+    ing.attach_ring(ShmRing.attach(sender.ring.path))
+    p = fresh_plane(ing, watcher=False, max_slots=prefill // 4)
+    parked, got = 0, 0
+    for i in range(4):
+        p.tick(now_s=(i + 1) * PLANE_DT_S)
+        st = ing.stats()
+        parked = max(parked, st["throttled_frames_last"])
+        check(st["frames_in"] + st["pending"] == prefill,
+              "16(f): admission lost or duplicated ring frames")
+    st_adm = ing.stats()
+    check(st_adm["pending"] > 0 and st_adm["throttled_events"] > 0
+          and parked > 0, f"16(f): admission did not park frames {st_adm}")
+    reg.set_quota("t1", frame_budget_per_s=0.0)
+    for i in range(4, 4 + PLANE_DRAIN_TICKS):
+        p.tick(now_s=(i + 1) * PLANE_DT_S)
+        got += len(wout[0].egress)
+        wout[0].egress.clear()
+        if ing.pending_total() == 0 and len(p._wheel) == 0:
+            break
+    check(got == prefill and p.dropped == 0,
+          f"16(f): {got} of {prefill} parked frames delivered")
+    log(f"16(f) admission at the ring head: t1 cut to {rate_t1:.0f} "
+        f"frames/s: {st_adm['pending']} frames parked in the ring, "
+        f"{st_adm['throttled_events']} throttled drains, frames_in + "
+        f"pending == pushed every tick; budget restored, all {prefill} "
+        f"delivered, none dropped ({card})")
+    sender.close()
+    m["admission"] = st_adm
+    # (g) scrapes this daemon's shm ingest: the admission round's
+    daemon.shm = ing
+    return m
+
+
+def ten_scrape(co, card) -> dict:
+    """16(g): one scrape of /metrics with the tenant and shm collectors;
+    the kubedtn_tenant_* series == registry.stats, kubedtn_shm_* ==
+    ShmIngest.stats()."""
+    import urllib.request
+
+    from kubedtn_tpu_torch import entry
+
+    daemon, reg = co["daemon"], co["tenancy"]
+    plane = daemon.dataplane
+    srv = entry.serve_metrics(daemon, plane, port=0, host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv['port']}/metrics", timeout=120
+        ).read().decode()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        srv["server"].stop()
+    for t in TEN_NAMES + ("default",):
+        if reg.get(t) is None:
+            continue
+        s = reg.stats(plane, t)
+        for key, fam in (("admitted_frames", "admitted_frames_total"),
+                         ("admitted_bytes", "admitted_bytes_total"),
+                         ("throttle_events", "throttle_events_total"),
+                         ("tx_packets", "tx_packets_total"),
+                         ("delivered_packets", "delivered_packets_total"),
+                         ("dropped_queue", "dropped_queue_total"),
+                         ("links", "links")):
+            got = _scrape_values(body, f'kubedtn_tenant_{fam}'
+                                       f'{{tenant="{t}"}}')
+            check(got == [float(s[key])],
+                  f"16(g): kubedtn_tenant_{fam}{{{t}}} {got} != {s[key]}")
+    st = daemon.shm.stats()
+    for fam, key in (("frames_total", "frames_in"),
+                     ("bytes_total", "bytes_in"),
+                     ("throttled_events_total", "throttled_events"),
+                     ("pending_frames", "pending"), ("rings", "rings")):
+        check(_scrape_values(body, f"kubedtn_shm_{fam}") == [float(st[key])],
+              f"16(g): kubedtn_shm_{fam} != ShmIngest.stats()[{key}]")
+    log(f"16(g) /metrics with the tenant and shm collectors: {ms:.1f} ms, "
+        f"{len(body)} bytes; kubedtn_tenant_* == registry.stats, "
+        f"kubedtn_shm_* == ShmIngest.stats() ({card})")
+    return {"scrape_ms": ms, "bytes": len(body)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3295,13 +4086,26 @@ def main() -> int:
     log(f"15: phase {ckpt_m['phase_s']:.1f} s; checkpoint path launches: "
         f"K1 {ckpt_k1}")
     check(ckpt_k1 > 0, "K1 never launched on the checkpoint path")
+    t0 = time.perf_counter()
+    ten_m, ten_k1, ten_k4 = run_tenancy_phase(
+        dev, card, plane_d1_drain_share=plane_m["plane"]["stage_depth1"][
+            "share"]["drain"])
+    ten_m["phase_s"] = time.perf_counter() - t0
+    log(f"16: phase {ten_m['phase_s']:.1f} s; tenancy path launches: K1 "
+        f"{ten_k1}, K4 {ten_k4}")
+    check(ten_k1 > 0 and ten_k4 > 0,
+          "K1 or K4 never launched on the tenancy path")
+    if "grpc" in plane_m:
+        log(f"16(f) shm ring to egress {ten_m['f']['frames_per_s']:.1f} "
+            f"frames/s against 12(e)'s gRPC "
+            f"{plane_m['grpc']['frames_per_s']:.1f} frames/s ({card})")
     release = plane_m["plane"]["stage_depth1"]["share"]["release"]
     log(f"12(b) depth-1 release share {release} with kdt_ext "
         f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
                 "routed": routed_launches, "plane": plane_k1,
                 "cross_node": xn_k1, "twin": sum(twin_k1.values()),
-                "checkpoint": ckpt_k1}
+                "checkpoint": ckpt_k1, "tenancy": ten_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -3321,8 +4125,10 @@ def main() -> int:
     r = k4[K4_ROWS[0]]   # the live tick's mailbox shape
     kernels.append({
         "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
-        "replaces": K4_REPLACES, "launches": k4_launches + plane_k4,
-        "launches_by_path": {"live_tick": k4_launches, "plane": plane_k4},
+        "replaces": K4_REPLACES,
+        "launches": k4_launches + plane_k4 + ten_k4,
+        "launches_by_path": {"live_tick": k4_launches, "plane": plane_k4,
+                             "tenancy": ten_k4},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -3331,6 +4137,7 @@ def main() -> int:
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
               "cross_node": xn_m, "twin": twin_m, "checkpoint": ckpt_m,
+              "tenancy": ten_m,
               "twin_k1_launches": twin_k1,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))

@@ -38,10 +38,13 @@ The loaders verify the checksums and raise TYPED errors
 (`CheckpointCorruptError`) on any damage; `load_or_rebuild` turns that
 into the reference's reconstruction fallback.
 
-A port engine has no tenancy, so `save` never writes the tenancy section.
-A JAX checkpoint that carries one loads with its reserved rows in the
-global pool (the JAX package's tenancy-less load); `load_tenancy` refuses
-the section rather than drop its quotas. Not ported: the trace spans
+With a tenancy registry on the engine (`engine.tenancy`), `save` writes
+the JAX package's tenancy section (quotas, QoS, block entitlements,
+namespace bindings, admitted meters) and appends the blocks' unused rows
+to the saved free list, reverse-sorted; `load_tenancy` rebuilds the
+registry from it, re-carving each block from the restored free list. A
+load without tenancy keeps those rows in the global pool. Not ported:
+the trace spans
 around save/load (the port has no tracing module yet) and
 `load_or_rebuild`'s mesh re-sharding (the port's plane splits the whole
 state into shards per dispatch).
@@ -454,6 +457,16 @@ def _capture(store: TopologyStore, engine: SimEngine,
             "has_counters": True,
             "origin_s": None if origin is None else float(origin),
         }
+    tenancy = getattr(engine, "tenancy", None)
+    if tenancy is not None:
+        # quotas / QoS / block entitlements / namespace bindings survive
+        # the restart (load_tenancy); the blocks' unused rows go back
+        # into the saved free list, or each restart would leak them
+        # (gone from the global pool AND from the re-carved blocks)
+        manifest["tenancy"] = tenancy.export_config()
+        manifest["engine"]["free"] = (
+            manifest["engine"]["free"]
+            + sorted(tenancy.reserved_free_rows(), reverse=True))
     cap["manifest"] = manifest
     return cap
 
@@ -757,18 +770,38 @@ def consume_pending(path: str) -> None:
 
 
 def load_tenancy(path: str, engine: SimEngine):
-    """None when the checkpoint (or its tenancy section) does not exist.
-    A tenancy section raises CheckpointError: the port has no tenancy
-    registry yet, and a restore must never drop quotas silently."""
+    """Rebuild the TenantRegistry from a checkpoint's tenancy section
+    against a restored engine: quotas, QoS class, namespace bindings,
+    admitted meters, and each tenant's `block_rows` entitlement (the
+    block re-carves from the restored free list — same rows when the
+    layout is unchanged; the ENTITLEMENT, not the position, is the
+    contract). None when the checkpoint (or its tenancy section) does
+    not exist; a malformed section raises CheckpointCorruptError."""
     try:
         _dirpath, manifest = _resolve_dir(os.path.abspath(path))
     except CheckpointMissingError:
         return None
-    if manifest.get("tenancy") is None:
+    section = manifest.get("tenancy")
+    if section is None:
         return None
-    raise CheckpointError(
-        f"checkpoint {path} carries a tenancy section; tenancy is not "
-        f"ported to kubedtn_tpu_torch yet")
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+    try:
+        registry = TenantRegistry(
+            engine, default_qos=section.get("default_qos", "gold"))
+        for t in section.get("tenants", ()):
+            won = registry.create(
+                t["name"], qos=t.get("qos"),
+                frame_budget_per_s=t.get("frame_budget_per_s"),
+                byte_budget_per_s=t.get("byte_budget_per_s"),
+                block_edges=int(t.get("block_rows", 0)),
+                namespaces=t.get("namespaces"))
+            won.admitted_frames = int(t.get("admitted_frames", 0))
+            won.admitted_bytes = int(t.get("admitted_bytes", 0))
+    except (KeyError, TypeError, ValueError, AttributeError) as e:
+        raise CheckpointCorruptError(
+            f"malformed tenancy section in {path}: {e}") from e
+    return registry
 
 
 def load_wires(path: str, daemon) -> int:

@@ -18,7 +18,13 @@ SimEngine — behind a wire Daemon, and `build_plane` puts the live
 WireDataPlane on top of it. `restore_daemon` brings a daemon and its
 plane back from a checkpoint directory in the JAX CLI's restore order.
 With `metrics_port`, either serves the daemon's Prometheus exporter
-(metrics/metrics.py) as the JAX CLI's daemon does.
+(metrics/metrics.py) as the JAX CLI's daemon does. `build_daemon(...,
+tenancy=True)` attaches a tenancy.TenantRegistry before the reconcile
+(every namespace becomes a tenant), `shm_dir` a shm.ShmIngest on that
+directory; `build_plane` wires both into the plane, and
+`restore_daemon` restores a checkpoint's registry. The JAX CLI's daemon
+always attaches a registry; here the default stays without one until
+the port has that CLI.
 """
 
 from __future__ import annotations
@@ -198,17 +204,20 @@ def build_clos_100k(device=None):
 
 def clos_crs(n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
              links_per_pair: int = LINKS_PER_PAIR, props=None,
-             node_ip: str = "10.0.0.1"):
+             node_ip: str = "10.0.0.1", namespace: str = "default",
+             uid_base: int = 0):
     """The Clos as Topology CRs, as the JAX package's reconcile_100k
-    scenario writes them: one CR per spine and per leaf, link uids
-    1..n_spine*n_leaf*links_per_pair, every pod placed on `node_ip`
-    (the CNI ran) with no link realized yet (status.links = [])."""
+    scenario writes them: one CR per spine and per leaf in `namespace`,
+    link uids uid_base+1..uid_base+n_spine*n_leaf*links_per_pair, every
+    pod placed on `node_ip` (the CNI ran) with no link realized yet
+    (status.links = []). Fabrics in distinct namespaces with disjoint
+    uid ranges share one store (one tenant each)."""
     from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
 
     props = props or LinkProperties(latency="10ms", rate="10Gbit")
     spines = [[] for _ in range(n_spine)]
     leaves = [[] for _ in range(n_leaf)]
-    uid = 0
+    uid = uid_base
     for s in range(n_spine):
         for l in range(n_leaf):
             for k in range(links_per_pair):
@@ -222,7 +231,8 @@ def clos_crs(n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     out = []
     for name, links in ([(f"spine{s}", x) for s, x in enumerate(spines)]
                         + [(f"leaf{l}", x) for l, x in enumerate(leaves)]):
-        t = Topology(name=name, spec=TopologySpec(links=links))
+        t = Topology(name=name, namespace=namespace,
+                     spec=TopologySpec(links=links))
         t.status.src_ip, t.status.net_ns = node_ip, f"/run/netns/{name}"
         t.status.links = []
         out.append(t)
@@ -233,7 +243,8 @@ def serve_metrics(daemon, plane, port: int = 0,
                   host: str = "0.0.0.0") -> dict:
     """The daemon's Prometheus exporter, wired as the JAX CLI's
     `cmd_daemon` wires it: a registry over the engine, the plane's
-    counters, the plane, the WhatIf and update stats; the request
+    counters, the plane, the WhatIf and update stats, the daemon's
+    tenancy registry and shm ingest where attached; the request
     histogram observing every engine op (`engine.stats.observer`) and
     set on the daemon; a MetricsServer started on `port` (0 = pick one).
     Returns {"server", "registry", "hist", "port"}."""
@@ -247,7 +258,8 @@ def serve_metrics(daemon, plane, port: int = 0,
                                    sim_counters_fn=plane.counters_fn,
                                    dataplane=plane,
                                    whatif_stats=stats_for(daemon),
-                                   update_stats=ustats_for(daemon))
+                                   update_stats=ustats_for(daemon),
+                                   tenancy=daemon.tenancy, shm=daemon.shm)
     engine.stats.observer = hist
     daemon.hist = hist
     server = MetricsServer(registry, port=port, host=host)
@@ -260,7 +272,8 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
                  links_per_pair: int = LINKS_PER_PAIR,
                  capacity: int = 1 << 18, props=None,
                  node_ip: str = "10.0.0.1", metrics_port: int | None = None,
-                 plane_kwargs: dict | None = None) -> dict:
+                 plane_kwargs: dict | None = None, tenancy=False,
+                 shm_dir: str | None = None, crs=None) -> dict:
     """The Clos through the control plane on `device` (None = the CUDA
     card): `clos_crs` into a TopologyStore, one reconciler drain into a
     SimEngine of `capacity` rows, the engine flushed, a Daemon in front.
@@ -270,7 +283,18 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     built first (`build_plane(daemon, **plane_kwargs)`) and its exporter
     served on that port before the drain, so the request histogram sees
     every engine op; the dict then also holds "plane" and "metrics"
-    (serve_metrics)."""
+    (serve_metrics).
+
+    With `tenancy`, a fresh tenancy.TenantRegistry is attached to the
+    engine and the daemon before the drain, so the reconciler registers
+    a tenant per namespace; a mapping {name: create() keyword arguments}
+    creates those tenants first (quotas, QoS, a reserved block that the
+    tenant's rows then pack into); with `shm_dir`, a shm.ShmIngest on that
+    directory is set as the daemon's `shm` (cmd_daemon's --shm-dir).
+    `crs` replaces the Clos's CRs (several tenant fabrics of
+    `clos_crs(namespace=, uid_base=)`); the realized row count is then
+    checked against their links. The dict then also holds "tenancy" and
+    "shm"."""
     from kubedtn_tpu_torch.topology.engine import SimEngine
     from kubedtn_tpu_torch.topology.reconciler import Reconciler
     from kubedtn_tpu_torch.topology.store import TopologyStore
@@ -282,12 +306,27 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     store = TopologyStore()
     engine = SimEngine(store, capacity=capacity, node_ip=node_ip,
                        device=dev)
-    crs = clos_crs(n_spine, n_leaf, links_per_pair, props, node_ip)
+    if crs is None:
+        crs = clos_crs(n_spine, n_leaf, links_per_pair, props, node_ip)
     for t in crs:
         store.create(t)
     engine.warm_kernels()
     daemon = Daemon(engine)
-    out = {}
+    out = {"tenancy": None, "shm": None}
+    if tenancy:
+        from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+        out["tenancy"] = daemon.tenancy = TenantRegistry(engine)
+        if isinstance(tenancy, dict):
+            for name, kw in tenancy.items():
+                daemon.tenancy.create(name, **kw)
+    if shm_dir is not None:
+        import os
+
+        from kubedtn_tpu_torch.shm import ShmIngest
+
+        os.makedirs(shm_dir, exist_ok=True)
+        out["shm"] = daemon.shm = ShmIngest(shm_dir)
     if metrics_port is not None:
         out["plane"] = build_plane(daemon, **(plane_kwargs or {}))
         out["metrics"] = serve_metrics(daemon, out["plane"], metrics_port)
@@ -298,7 +337,7 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     reconcile_s = time.perf_counter() - t0
-    n_links = n_spine * n_leaf * links_per_pair
+    n_links = sum(len(t.spec.links) for t in crs) // 2
     if engine.num_active != 2 * n_links:
         raise AssertionError(f"{engine.num_active} rows realized, "
                              f"expected {2 * n_links}")
@@ -310,10 +349,17 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
 def build_plane(daemon, **kwargs):
     """The live WireDataPlane over `daemon` (its engine's device);
     `kwargs` go to WireDataPlane (dt_us, max_slots, seed,
-    pipeline_depth)."""
+    pipeline_depth). The daemon's tenancy registry and shm ingest, where
+    set, are attached to the plane (attach_tenancy; attach_shm with its
+    watcher, as cmd_daemon does)."""
     from kubedtn_tpu_torch.runtime import WireDataPlane
 
-    return WireDataPlane(daemon, **kwargs)
+    plane = WireDataPlane(daemon, **kwargs)
+    if daemon.tenancy is not None:
+        plane.attach_tenancy(daemon.tenancy)
+    if daemon.shm is not None:
+        plane.attach_shm(daemon.shm)
+    return plane
 
 
 def restore_daemon(ckpt_dir: str, device=None, store=None,
@@ -326,11 +372,18 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
     CLI's order (kubedtn_tpu/cli.py cmd_daemon): `load_or_rebuild` (the
     reconstruction from `store` when the checkpoint is damaged and a
     store is given), the Daemon, the plane (`build_plane(daemon,
-    **plane_kwargs)`), then `load_wires`, `load_ingress`,
+    **plane_kwargs)`), the checkpoint's tenancy registry where it has
+    a tenancy section (`load_tenancy`, attached to the plane), then
+    `load_wires`,
+    `load_ingress`,
     `restore_plane_counters`, `load_pending` at `now_s` (None = the
     monotonic clock) and `consume_pending`. A damaged wire, ingress,
     counter or pending file is logged and skipped, as the CLI does; the
-    pending file is consumed only once restored.
+    pending file is consumed only once restored. A tenancy section
+    that does not load raises CheckpointError: a restore never drops a
+    registry's quotas, QoS classes or block reservations (after a
+    rebuild from `store`, when the checkpoint was already found damaged,
+    the failure is logged instead).
 
     With `now_s` on the saved plane's clock (an explicit-clock plane
     resumed where it was cut), the plane first resumes that clock
@@ -341,8 +394,8 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
     would. The JAX CLI's restore starts a new origin and leaves the
     epoch unset, so its first tick rolls by 0.
 
-    Returns {"store", "engine", "daemon", "plane", "source", "wires",
-    "ingress", "pending", "counters"} (+ "metrics" with
+    Returns {"store", "engine", "daemon", "plane", "source", "tenancy",
+    "wires", "ingress", "pending", "counters"} (+ "metrics" with
     `metrics_port`, served as `serve_metrics` does)."""
     from kubedtn_tpu_torch import checkpoint
     from kubedtn_tpu_torch.utils.logging import fields, get_logger
@@ -354,9 +407,21 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
         device=device)
     daemon = Daemon(engine)
     plane = build_plane(daemon, **(plane_kwargs or {}))
+    try:
+        registry = checkpoint.load_tenancy(ckpt_dir, engine)
+    except checkpoint.CheckpointError:
+        if source == "checkpoint":
+            raise
+        # the checkpoint was already found damaged and the engine
+        # rebuilt from the store (logged by load_or_rebuild)
+        log.exception("tenancy restore failed on a damaged checkpoint %s",
+                      fields(path=ckpt_dir))
+        registry = None
+    if registry is not None:
+        plane.attach_tenancy(registry)
     out = {"store": store, "engine": engine, "daemon": daemon,
-           "plane": plane, "source": source, "wires": 0, "ingress": 0,
-           "pending": 0, "counters": False}
+           "plane": plane, "source": source, "tenancy": registry,
+           "wires": 0, "ingress": 0, "pending": 0, "counters": False}
     try:
         out["wires"] = checkpoint.load_wires(ckpt_dir, daemon)
         out["ingress"] = checkpoint.load_ingress(ckpt_dir, daemon)

@@ -18,14 +18,16 @@ labels and buckets the JAX package's daemon serves on :51112/metrics.
   `kubedtn_link_*`, `kubedtn_flight_*`, `kubedtn_whatif_*`,
   `kubedtn_update_*`, `kubedtn_pause_*` and
   `kubedtn_tick_latency_seconds{cause}`: the live plane's own series.
+- `kubedtn_tenant_*` per tenant of the tenancy registry and
+  `kubedtn_shm_*` from the shared-memory ingest plane.
 
 Mapping from simulation taxa to interface counters:
 - tx_dropped  ← netem loss + TBF queue + delay-ring drops (egress side)
 - rx_errors   ← corrupt-flagged deliveries
 
-Not ported yet: the tenant, SLO, autopilot, migration, fleet and
-shared-memory collectors; `make_registry` refuses their arguments with a
-ValueError naming the collector. `prometheus_client` is imported by this
+Not ported yet: the SLO, autopilot, migration and fleet collectors;
+`make_registry` refuses their arguments with a ValueError naming the
+collector. `prometheus_client` is imported by this
 module only.
 """
 
@@ -586,6 +588,181 @@ class PauseStatsCollector:
         return out
 
 
+class TenantStatsCollector:
+    """kubedtn_tenant_* per-tenant series from the tenancy registry —
+    the multi-tenant plane's observability face: per-tenant admission
+    meters (admitted frames/bytes, typed throttle verdicts), the
+    tenant's slice of the cumulative counters (tx / delivered /
+    dropped-by-cause / bytes), its telemetry-window delivery rate and
+    p99, QoS level and link count.
+
+    Cardinality guard (the InterfaceStatsCollector truncation-guard
+    pattern): per-tenant series are exported for at most `max_tenants`
+    tenants (name-sorted, so the exported set is stable across
+    scrapes); `kubedtn_tenant_series_truncated` reports how many fell
+    past the cap — a runaway tenant-creation loop degrades to one
+    guard gauge, never an unbounded label explosion."""
+
+    COUNTER_KEYS = (
+        ("admitted_frames", "Frames admitted past the tenant's "
+                            "ingress token bucket"),
+        ("admitted_bytes", "Bytes admitted past the tenant's ingress "
+                           "token bucket"),
+        ("throttle_events", "Typed admission throttle verdicts "
+                            "(wire skipped for a tick, frames kept)"),
+        ("throttled_frame_ticks",
+         "Frame-ticks spent queued behind an admission throttle"),
+        ("tx_packets", "Frames offered by this tenant's links"),
+        ("delivered_packets", "Frames delivered on this tenant's "
+                              "links"),
+        ("delivered_bytes", "Bytes delivered on this tenant's links"),
+        ("dropped_loss", "Tenant frames dropped by netem loss"),
+        ("dropped_queue", "Tenant frames dropped by TBF queue "
+                          "overflow"),
+        ("dropped_ring", "Tenant frames dropped by egress ring "
+                         "overflow"),
+    )
+    GAUGE_KEYS = (
+        ("links", "Realized SoA rows owned by the tenant"),
+        ("qos_level", "QoS class (0=gold, 1=silver, 2=bronze)"),
+        ("frame_budget_per_s", "Admission frame budget (0=unlimited)"),
+        ("byte_budget_per_s", "Admission byte budget (0=unlimited)"),
+        ("delivered_pps", "Delivered frames/s over the telemetry "
+                          "window span"),
+        ("p99_us", "p99 shaping latency (µs) over the telemetry "
+                   "window span"),
+    )
+
+    def __init__(self, tenancy, dataplane=None,
+                 max_tenants: int = 256) -> None:
+        self._tenancy = tenancy
+        self._plane = dataplane
+        self._max_tenants = max_tenants
+
+    def collect(self):
+        from kubedtn_tpu_torch.tenancy.registry import QOS_LEVELS
+
+        reg = self._tenancy
+        out = []
+        # ONE ring reduction per scrape, sliced per tenant below —
+        # not one full window_sum per tenant
+        tel = (getattr(self._plane, "telemetry", None)
+               if self._plane is not None else None)
+        win_sum = tel.window_sum() if tel is not None else None
+        tenants = sorted(reg.list(), key=lambda t: t.name)
+        truncated = max(0, len(tenants) - self._max_tenants)
+        shown = tenants[:self._max_tenants]
+        fams = {}
+        for key, doc in self.COUNTER_KEYS:
+            fams[key] = CounterMetricFamily(f"kubedtn_tenant_{key}",
+                                            doc, labels=["tenant"])
+        for key, doc in self.GAUGE_KEYS:
+            fams[key] = GaugeMetricFamily(f"kubedtn_tenant_{key}",
+                                          doc, labels=["tenant"])
+        for t in shown:
+            lab = [t.name]
+            adm = reg.admission.stats_for(t.name)
+            vals = {
+                "admitted_frames": t.admitted_frames,
+                "admitted_bytes": t.admitted_bytes,
+                "throttle_events": adm["throttle_events"],
+                "throttled_frame_ticks": adm["throttled_frame_ticks"],
+                "links": 0.0,
+                "qos_level": QOS_LEVELS.get(t.qos, -1),
+                "frame_budget_per_s": t.frame_budget_per_s,
+                "byte_budget_per_s": t.byte_budget_per_s,
+            }
+            if self._plane is not None:
+                c = reg.tenant_counters(self._plane, t.name)
+                vals.update({
+                    "links": c["links"],
+                    "tx_packets": c["tx_packets"],
+                    "delivered_packets": c["delivered_packets"],
+                    "delivered_bytes": c["delivered_bytes"],
+                    "dropped_loss": c["dropped_loss"],
+                    "dropped_queue": c["dropped_queue"],
+                    "dropped_ring": c["dropped_ring"],
+                })
+                win = reg.tenant_window(self._plane, t.name,
+                                        window=win_sum)
+                if win:
+                    vals["delivered_pps"] = win["delivered_pps"]
+                    if win["p99_us"] is not None:
+                        vals["p99_us"] = win["p99_us"]
+            for key, fam in fams.items():
+                if key in vals:
+                    fam.add_metric(lab, float(vals[key]))
+        out.extend(fams.values())
+        trunc = GaugeMetricFamily(
+            "kubedtn_tenant_series_truncated",
+            "Tenants beyond the per-tenant series cap "
+            "(0 = full per-tenant coverage)")
+        trunc.add_metric([], float(truncated))
+        out.append(trunc)
+        return out
+
+
+class ShmStatsCollector:
+    """kubedtn_shm_* series — the shared-memory ingest plane
+    (kubedtn_tpu_torch.shm): attached/retired ring segments, dequeue volume
+    (frames/bytes/native calls/plane batches), crash-skip accounting
+    (uncommitted reservations crossed after a producer death), the
+    admission face (throttle events at the ring head + frames left
+    parked in-ring by the last drain), producer-side ring-full events
+    summed across segments, and resolution failures (unknown wire ids,
+    frames parked for unrealized links). One stats() snapshot per
+    scrape — a handful of atomics and one lock hold, no ring walks."""
+
+    COUNTERS = (
+        ("frames_total", "frames_in", "Frames dequeued from shm rings "
+                                      "into the data plane"),
+        ("bytes_total", "bytes_in", "Payload bytes dequeued from shm "
+                                    "rings"),
+        ("dequeues_total", "dequeues", "Native batch-dequeue calls"),
+        ("batches_total", "batches", "Plane batches emitted from ring "
+                                     "spans"),
+        ("skipped_uncommitted_total", "skipped_uncommitted",
+         "Uncommitted reservations skipped after a producer death "
+         "(torn frames never surface; committed frames never lost)"),
+        ("throttled_events_total", "throttled_events",
+         "Drains that left a ring parked by per-tenant admission at "
+         "the ring head"),
+        ("unresolved_frames_total", "unresolved_frames",
+         "Ring frames whose wire id resolved to no registered wire"),
+        ("parked_unrealized_total", "parked_unrealized",
+         "Ring frames parked on wire ingress awaiting link "
+         "realization"),
+        ("rings_retired_total", "rings_retired",
+         "Dead producers' rings detached after fully draining"),
+        ("producer_full_failures_total", "full_failures",
+         "Producer-side pushes rejected ring-full (queued in the "
+         "sender's outage buffer, never dropped)"),
+    )
+    GAUGES = (
+        ("rings", "rings", "Ring segments currently attached"),
+        ("pending_frames", "pending",
+         "Entries reserved and unconsumed across attached rings"),
+        ("throttled_parked_frames", "throttled_frames_last",
+         "Frames left parked in-ring by admission on the last drain"),
+    )
+
+    def __init__(self, shm) -> None:
+        self._shm = shm
+
+    def collect(self):
+        snap = self._shm.stats()
+        out = []
+        for name, key, doc in self.COUNTERS:
+            c = CounterMetricFamily(f"kubedtn_shm_{name}", doc)
+            c.add_metric([], float(snap[key]))
+            out.append(c)
+        for name, key, doc in self.GAUGES:
+            g = GaugeMetricFamily(f"kubedtn_shm_{name}", doc)
+            g.add_metric([], float(snap[key]))
+            out.append(g)
+        return out
+
+
 class MetricsServer:
     """Serves the registry on an HTTP port — the daemon's :51112/metrics
     endpoint (reference daemon/main.go:57-66)."""
@@ -642,11 +819,9 @@ class MetricsServer:
 
 
 # make_registry's arguments whose collectors are not ported yet
-_NOT_PORTED = {"tenancy": "TenantStatsCollector",
-               "migration_stats": "MigrationStatsCollector",
+_NOT_PORTED = {"migration_stats": "MigrationStatsCollector",
                "fleet": "FleetStatsCollector",
                "slo": "SloStatsCollector",
-               "shm": "ShmStatsCollector",
                "autopilot": "AutopilotStatsCollector"}
 
 
@@ -658,9 +833,8 @@ def make_registry(engine=None, sim_counters_fn=None,
     """Registry with the parity collectors installed, and the request
     histogram (the JAX package's signature). Passing an argument whose
     collector is not ported yet raises ValueError naming it."""
-    given = {"tenancy": tenancy, "migration_stats": migration_stats,
-             "fleet": fleet, "slo": slo, "shm": shm,
-             "autopilot": autopilot}
+    given = {"migration_stats": migration_stats, "fleet": fleet,
+             "slo": slo, "autopilot": autopilot}
     for arg, value in given.items():
         if value is not None:
             raise ValueError(
@@ -681,4 +855,9 @@ def make_registry(engine=None, sim_counters_fn=None,
         registry.register(WhatIfStatsCollector(whatif_stats))
     if update_stats is not None:
         registry.register(UpdateStatsCollector(update_stats))
+    if tenancy is not None:
+        registry.register(TenantStatsCollector(
+            tenancy, dataplane, max_tenants=max_tenants))
+    if shm is not None:
+        registry.register(ShmStatsCollector(shm))
     return registry, hist

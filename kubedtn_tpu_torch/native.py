@@ -11,6 +11,11 @@ live plane needs three of its capabilities:
 - `FrameRing` and the PacketBatch / frame decoders (reference
   daemon/grpcwire/grpcwire.go:398-613).
 
+It also declares the shared-memory ring's `kdt_shm_*` entry points
+(native/kubedtn_native.cc section 5), which kubedtn_tpu_torch.shm.ring
+wraps: the segment format is the library's, so a ring one package
+writes the other reads.
+
 The library is built at first use with g++ (the flags of
 native/Makefile) into `kubedtn_tpu_torch/_build/`, under a name that
 carries a hash of the source and the flags, so an edited source is never
@@ -117,6 +122,27 @@ def _declare(lib) -> None:
         "kdt_rb_pop": (c.c_int64, [c.c_void_p, u8p, c.c_uint64]),
         "kdt_rb_count": (c.c_uint64, [c.c_void_p]),
         "kdt_rb_dropped": (c.c_uint64, [c.c_void_p]),
+        "kdt_shm_required": (c.c_int64, [c.c_uint64, c.c_uint32]),
+        "kdt_shm_init": (c.c_int32, [u8p, c.c_uint64, c.c_uint64,
+                                     c.c_uint32, c.c_uint64, c.c_char_p]),
+        "kdt_shm_check": (c.c_int32, [u8p, c.c_uint64]),
+        "kdt_shm_slots": (c.c_uint64, [u8p]),
+        "kdt_shm_slot_size": (c.c_uint32, [u8p]),
+        "kdt_shm_pid": (c.c_uint64, [u8p]),
+        "kdt_shm_set_pid": (None, [u8p, c.c_uint64]),
+        "kdt_shm_ns": (c.c_int32, [u8p, c.c_char_p, c.c_int32]),
+        "kdt_shm_pending": (c.c_uint64, [u8p]),
+        "kdt_shm_full_failures": (c.c_uint64, [u8p]),
+        "kdt_shm_committed": (c.c_uint64, [u8p]),
+        "kdt_shm_push": (c.c_int32, [u8p, u8p, c.c_uint32, c.c_uint32,
+                                     c.c_uint64]),
+        "kdt_shm_push_batch": (c.c_int64, [u8p, u8p, u64p, u64p,
+                                           c.POINTER(c.c_uint32), u64p,
+                                           c.c_int64]),
+        "kdt_shm_push_torn": (c.c_int32, [u8p, c.c_uint32]),
+        "kdt_shm_dequeue": (c.c_int64, [u8p, u8p, c.c_uint64,
+                                        c.POINTER(c.c_uint32), u64p, u64p,
+                                        u64p, c.c_int64, c.c_int32, u64p]),
         "kdt_tw_new": (c.c_void_p, [c.c_uint64, c.c_uint32, c.c_uint32]),
         "kdt_tw_free": (None, [c.c_void_p]),
         "kdt_tw_schedule": (None, [c.c_void_p, c.c_uint64, c.c_uint64]),

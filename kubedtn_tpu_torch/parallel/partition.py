@@ -2,7 +2,8 @@
 edge axis.
 
 Port of kubedtn_tpu/parallel/partition.py's `shard_ranges`,
-`shard_of_rows`, `pick_pair_rows` and `colocation_stats`. Shard s owns the contiguous row range
+`shard_of_rows`, `pick_pair_rows`, `tenant_blocks` / `tenant_block` and
+`colocation_stats`. Shard s owns the contiguous row range
 [s*E/S, (s+1)*E/S). A row is CROSS-SHARD for a tick when the shard that
 owns it is not the shard that shapes its peer direction; its state rides
 the mailbox ring (parallel/exchange.py) to every shard.
@@ -48,6 +49,83 @@ def pick_pair_rows(free, capacity: int, n_shards: int,
         i = len(free) - window.shape[0] + int(hits[-1])
         return r1, free.pop_at(i)
     return r1, free.pop()
+
+
+
+def tenant_blocks(free, capacity: int, n_shards: int,
+                  requests: list[int]) -> list[tuple[int, int] | None]:
+    """Carve a CONTIGUOUS run of currently free rows out of the engine's
+    free list for EACH requested tenant edge block, in ONE sorted pass
+    (the batch behind `tenant_block` and the registry's re-carve after a
+    compact).
+
+    Composition with shard blocks: for each request, a run that fits
+    entirely inside one shard's [s*E/S, (s+1)*E/S) range is preferred (a
+    tenant whose block sits inside one shard never pays the cross-shard
+    mailbox for intra-tenant hops), falling back to a boundary-spanning
+    run only when no shard-local run is free. Requests are served in
+    order; returns a same-length list of [lo, hi) (rows removed from
+    `free`) or None where no contiguous run of that length exists."""
+    loc = (capacity // n_shards
+           if n_shards > 1 and capacity % n_shards == 0 else capacity)
+    rows = np.sort(np.asarray(
+        free.view() if hasattr(free, "view") else free, np.int64))
+    # maximal contiguous runs as half-open [lo, hi), split as windows
+    # are carved out of them
+    runs: list[tuple[int, int]] = []
+    if rows.size:
+        breaks = np.nonzero(np.diff(rows) != 1)[0] + 1
+        starts = [0, *breaks.tolist(), rows.size]
+        runs = [(int(rows[a]), int(rows[b - 1]) + 1)
+                for a, b in zip(starts[:-1], starts[1:])]
+    out: list[tuple[int, int] | None] = []
+    carved: list[tuple[int, int]] = []
+    for n_rows in requests:
+        if n_rows <= 0:
+            out.append(None)
+            continue
+        local: tuple[int, int, int] | None = None
+        spanning: tuple[int, int, int] | None = None
+        for idx, (lo, hi) in enumerate(runs):
+            if hi - lo < n_rows:
+                continue
+            if spanning is None:
+                spanning = (idx, lo, lo + n_rows)
+            # the earliest window of the run that does not straddle a
+            # shard boundary: `lo` itself or the next boundary
+            if n_rows <= loc:
+                w_lo = (lo if lo // loc == (lo + n_rows - 1) // loc
+                        else (lo // loc + 1) * loc)
+                if w_lo + n_rows <= hi:
+                    local = (idx, w_lo, w_lo + n_rows)
+                    break
+        best = local if local is not None else spanning
+        if best is None:
+            out.append(None)
+            continue
+        idx, lo, hi = best
+        rlo, rhi = runs[idx]
+        runs[idx:idx + 1] = [r for r in ((rlo, lo), (hi, rhi))
+                             if r[1] > r[0]]
+        carved.append((lo, hi))
+        out.append((lo, hi))
+    if carved:
+        # one order-preserving filter of the free stack
+        taken = np.concatenate(
+            [np.arange(lo, hi, dtype=np.int64) for lo, hi in carved])
+        if hasattr(free, "remove_rows"):
+            free.remove_rows(taken)
+        else:  # a plain list
+            tset = set(taken.tolist())
+            free[:] = [r for r in free if r not in tset]
+    return out
+
+
+def tenant_block(free, capacity: int, n_shards: int,
+                 n_rows: int) -> tuple[int, int] | None:
+    """Single-request form of `tenant_blocks` (same preference order
+    and free-list contract)."""
+    return tenant_blocks(free, capacity, n_shards, [n_rows])[0]
 
 
 def colocation_stats(engine, n_shards: int) -> dict:

@@ -61,8 +61,14 @@ chaos.ChaosInjector into the peer RPCs and the dispatch hook.
 `export_pending` / `restore_pending` make the delay line checkpointable
 (kubedtn_tpu_torch.checkpoint): each pending entry keeps its frames'
 wheel deadlines, and a restored frame completes its REMAINING delay.
-`stage_update_round` is the planned-update stager's barrier. Left out
-for now: the tenancy / shared-memory hooks.
+`stage_update_round` is the planned-update stager's barrier.
+`attach_tenancy` wires a tenancy.TenantRegistry into the drain: every
+tick resolves the registry's per-wire budget once (`drain_policy`),
+drains with it and debits what was drained (`charge_drained`).
+`attach_shm` wires a shm.ShmIngest into the Daemon's drain, with a
+watcher thread that wakes the runner on ring traffic; the trace ids a
+producer stamped into its ring slots ride the frames' FrameSeg and join
+the flight recorder's samples under the same id.
 
 THE TICK KEY is two uint32 words (Python ints, so splitting it never
 touches the device). `split(key)` is one Philox4x32-10 call under `key`
@@ -1334,6 +1340,9 @@ class WireDataPlane:
         # optional chaos.ChaosInjector (tests / chip_smoke's flap run);
         # consulted at the head of every dispatch when set
         self.chaos = None
+        # optional tenancy.TenantRegistry (attach_tenancy): per-tenant
+        # admission and QoS drain weights at every tick's drain
+        self.tenancy = None
         # dispatch-failure requeue bookkeeping: what the in-progress
         # dispatch holds and whether its frames passed the decide stage
         self._disp_items: list | None = None
@@ -1688,9 +1697,18 @@ class WireDataPlane:
             not explicit or self.pipeline_explicit_clock)
         budget = self.max_slots if explicit else self._drain_budget
         t0 = time.perf_counter()
+        # tenancy: QoS drain weights + admission throttling resolve to
+        # ONE per-wire budget callable (0 = tenant over budget, wire
+        # skipped this tick with a typed verdict, frames kept queued)
+        admit = (self.tenancy.drain_policy(budget, now_s)
+                 if self.tenancy is not None else None)
         drained = self.daemon.drain_ingress(max_per_wire=budget,
                                             skip=self._holdback.keys()
-                                            if self._holdback else None)
+                                            if self._holdback else None,
+                                            admit=admit)
+        if drained and self.tenancy is not None:
+            # batch-granular debit: what was drained was admitted
+            self.tenancy.charge_drained(drained, now_s)
         stage["drain"] += time.perf_counter() - t0
         if not explicit:
             self._adapt_budget()
@@ -1824,6 +1842,26 @@ class WireDataPlane:
         the per-peer egress RPCs and the dispatch hook."""
         self.chaos = injector
         injector.install_peer_faults(self.daemon)
+
+    def attach_tenancy(self, registry) -> None:
+        """Wire a tenancy.TenantRegistry into this plane: admission
+        buckets + QoS drain weights enforce at every tick's drain, and
+        the daemon's Local.Tenant* RPCs answer from it. The registry
+        already steers the engine's row allocator (it attached itself
+        at construction)."""
+        self.tenancy = registry
+        registry.plane = self
+        self.daemon.tenancy = registry
+
+    def attach_shm(self, ingest, watcher: bool = True) -> None:
+        """Wire a shm.ShmIngest into this plane: every drain folds the
+        attached rings' committed frames in (admission at the ring
+        head), and the watcher thread wakes the runner on ring traffic
+        as mark_hot does for gRPC ingress. Pass watcher=False under an
+        explicit clock (the caller drives the ticks)."""
+        self.daemon.shm = ingest
+        if watcher:
+            ingest.start_watcher(self.daemon)
 
     def peer_fault_stats(self) -> dict[str, dict]:
         """Per-peer breaker / retry / outage-buffer snapshot. Snapshot
@@ -2109,6 +2147,21 @@ class WireDataPlane:
                     continue
                 sm = rec.sample_batch(row, len(lens))
                 samp_adv.append((row, len(lens), len(sm)))
+                # carried ids (shm ingest: a producer's sampled trace
+                # rode the slot layout here) join the batch's samples
+                # under the SAME id; they are not counter-derived, so
+                # samp_adv (the requeue rollback) excludes them
+                base = 0
+                for p in _fr:
+                    if type(p) is FrameSeg:
+                        tr = p.traces
+                        if tr:
+                            sm.extend((base + (k - p.lo), tid)
+                                      for k, tid in tr
+                                      if p.lo <= k < p.hi)
+                        base += len(p)
+                    else:
+                        base += 1
                 for _off, tid in sm:
                     rec.record(tid, tele.ST_INGRESS, row=row,
                                wire=w.wire_id, batch=len(lens))

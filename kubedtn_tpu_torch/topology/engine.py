@@ -40,8 +40,12 @@ consequences shape this module:
   UpdateLinks scatter is ordered after a dispatched tick that read the
   old props (the JAX package gets that from immutable snapshots).
 
-Not ported yet: tenancy-steered allocation and the federation's
-`adopt_rows` / `abandon_rows`.
+Allocation honours tenant blocks as in the JAX package: with a
+tenancy.TenantRegistry attached (`engine.tenancy`, set by the registry)
+a tenant's rows come from its reserved block first and return to it on
+free, and the registry's ownership masks follow every bind, free, growth
+and compact. Not ported yet: the federation's `adopt_rows` /
+`abandon_rows`.
 """
 
 from __future__ import annotations
@@ -211,6 +215,10 @@ class SimEngine:
         # renumbering is one vectorized gather, not a per-row FNV
         # re-derive
         self._row_keyid: np.ndarray = np.zeros((capacity,), np.uint64)
+        # optional tenancy.TenantRegistry (set by the registry itself):
+        # consulted at row allocation so tenant-reserved blocks steer
+        # the free list, and at free so block rows return to their pool
+        self.tenancy = None
         # >1 when a sharded data plane is attached (set by
         # WireDataPlane.enable_sharding): row allocation colocates link
         # pairs inside one shard block (parallel.partition)
@@ -292,6 +300,10 @@ class SimEngine:
 
     def _ensure_capacity(self, extra: int) -> None:
         need = self.num_active + extra
+        if self.tenancy is not None:
+            # rows reserved inside tenant blocks but not yet realized
+            # are unavailable to the global pool (one O(1) counter)
+            need += self.tenancy.reserved_free()
         cap = self._state.capacity
         if need <= cap:
             return
@@ -307,6 +319,8 @@ class SimEngine:
         kid = np.zeros((new_cap,), np.uint64)
         kid[:old_cap] = self._row_keyid
         self._row_keyid = kid
+        if self.tenancy is not None:
+            self.tenancy.on_capacity(new_cap)
 
     # -- device op coalescing -----------------------------------------
     #
@@ -781,18 +795,33 @@ class SimEngine:
         self._rows[k] = row
         self._row_owner[row] = k
         self._row_keyid[row] = link_key_id(pod_key, uid)
+        if self.tenancy is not None:
+            # the per-tenant ownership masks follow every bind (O(1))
+            self.tenancy.note_bind(row, pod_key)
 
     def _alloc(self, pod_key: str, uid: int) -> int:
         k = (pod_key, uid)
         if k in self._rows:
             return self._rows[k]  # idempotent re-plumb (SetupVeth semantics)
-        row = self._free.pop()
+        row = None
+        if self.tenancy is not None:
+            # the tenant's reserved block first; the global free list
+            # when the tenant has no block or it is full
+            row = self.tenancy.alloc_row(pod_key)
+        if row is None:
+            row = self._free.pop()
         self._bind_row(pod_key, uid, row)
         return row
 
     def _free_row(self, row: int) -> None:
-        """Return a freed row to the free list."""
+        """Return a freed row to its pool: the owning tenant's block
+        free list when the row sits in a reserved block, the global
+        free list otherwise."""
         self._row_keyid[row] = 0
+        if self.tenancy is not None:
+            self.tenancy.note_unbind(row)
+            if self.tenancy.release_row(row):
+                return
         self._free.push(row)
 
     def _alloc_link_pair(self, k1: str, k2: str, uid: int):
@@ -801,11 +830,19 @@ class SimEngine:
         set by WireDataPlane.enable_sharding): frames between colocated
         endpoints never ride the cross-shard mailbox. Idempotent like
         _alloc; unsharded behavior is byte-for-byte the historical
-        two-pop path."""
+        two-pop path. Tenant-reserved blocks take precedence: both
+        directions of an intra-tenant link land inside the tenant's
+        block."""
         a = self._rows.get((k1, uid))
         b = self._rows.get((k2, uid))
         if a is not None and b is not None:
             return a, b
+        if a is None and b is None and self.tenancy is not None:
+            pair = self.tenancy.alloc_pair(k1, k2)
+            if pair is not None:
+                self._bind_row(k1, uid, pair[0])
+                self._bind_row(k2, uid, pair[1])
+                return pair
         S = getattr(self, "shard_count", 1)
         if (a is None and b is None and S > 1 and len(self._free) >= 2
                 and self._state.capacity % S == 0):
@@ -885,6 +922,11 @@ class SimEngine:
             kid[:n] = self._row_keyid[old_rows]
             self._row_keyid = kid
             self._free = FreeStack.from_range(n, cap)
+            if self.tenancy is not None:
+                # tenant blocks do not survive the repack: the registry
+                # re-carves each reservation from the rebuilt free list
+                # and permutes its ownership masks with old_rows
+                self.tenancy.on_compact(old_rows, n, cap)
             # the data plane's next write-back must not resurrect
             # pre-compact dynamic state for any row — raised as a flag,
             # never materialized as an O(capacity) Python set

@@ -204,6 +204,12 @@ class Reconciler:
         (topology_controller.go:61-156)."""
         key = f"{namespace or 'default'}/{name}"
         t_start = time.perf_counter()
+        tenancy = getattr(self.engine, "tenancy", None)
+        if tenancy is not None:
+            # namespace → tenant mapping: every reconciled topology is
+            # attributable to a tenant from its first link (an unmapped
+            # namespace auto-registers a default-QoS unlimited tenant)
+            tenancy.ensure_namespace(namespace or "default")
         try:
             topo = self.store.get(namespace, name)
         except NotFoundError:

@@ -7,14 +7,14 @@ the running data plane (snapshot_from_plane's flush barrier — the
 real-time runner keeps ticking, zero frame loss), compiles the
 request's scenarios, runs the batched replica sweep on device, and
 returns ranked per-scenario metrics. Sweep counts, replica volume and
-the compile/run split accumulate in `WhatIfStats` (the JAX package
-exports them as `kubedtn_whatif_*`; the port has no metrics exporter
-yet).
+the compile/run split accumulate in `WhatIfStats` (exported as
+`kubedtn_whatif_*` by metrics/metrics.py).
 
-Port of kubedtn_tpu/twin/query.py. Tenancy is not ported: a request
-naming a tenant is refused as an unknown tenant, and every sweep takes
-the untenanted "" slot. The tracing span around a sweep comes with the
-port's tracing module.
+Port of kubedtn_tpu/twin/query.py. A request naming a tenant is served
+from a fork scoped to that tenant's rows (registry.tenant_snapshot) and
+takes that tenant's sweep slot; it is refused as unknown when the daemon
+has no tenancy registry or the registry lacks the name. The tracing
+span around a sweep comes with the port's tracing module.
 """
 
 from __future__ import annotations
@@ -221,17 +221,19 @@ def serve_whatif(daemon, request):
         # sweeps compute for seconds-to-minutes: bound how many run at
         # once so they can never occupy the gRPC pool the live data
         # plane's peer RPCs share — refuse loudly rather than park.
-        # The slot is PER TENANT (plus a process-wide cap). The port has
-        # no tenancy registry, so a named tenant is unknown, as it is to
-        # a JAX daemon without one, and every sweep takes the "" slot.
+        # The slot is PER TENANT (plus a process-wide cap): tenant A's
+        # sweep never parks tenant B's Local.WhatIf.
         tenant = getattr(request, "tenant", "") or ""
-        if tenant:
+        registry = getattr(daemon, "tenancy", None)
+        if tenant and (registry is None
+                       or registry.get(tenant) is None):
             raise ValueError(f"unknown tenant {tenant!r}")
         slots = _sweep_slots(daemon, tenant)
         if not slots.acquire(timeout=SWEEP_WAIT_S):
             raise RuntimeError(
-                "another what-if sweep is in progress for this daemon; "
-                "retry later")
+                f"another what-if sweep is in progress for "
+                f"{'tenant ' + tenant if tenant else 'this daemon'}; "
+                f"retry later")
         proc = _process_slots(daemon)
         if not proc.acquire(timeout=SWEEP_WAIT_S):
             slots.release()
@@ -240,7 +242,13 @@ def serve_whatif(daemon, request):
                 "retry later")
         try:
             plane = getattr(daemon, "dataplane", None)
-            if plane is not None:
+            if tenant:
+                # tenant-scoped fork: only this tenant's edge slice is
+                # active in the replicas (registry.tenant_snapshot)
+                snap = registry.tenant_snapshot(
+                    plane if plane is not None else daemon.engine,
+                    tenant)
+            elif plane is not None:
                 snap = snapshot_from_plane(plane)
             else:
                 snap = snapshot_from_engine(daemon.engine)

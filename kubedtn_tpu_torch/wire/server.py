@@ -29,16 +29,23 @@ senders (coalesced SendToBulk), or one unary SendToOnce each through
 `deliver_egress`. An optional pcap tap (`capture`, utils/pcap.py)
 records "in" at ingestion and "out" at pod-side delivery.
 
-WhatIf serves a what-if sweep (kubedtn_tpu_torch.twin), PlanUpdate and
-ApplyPlan the planned-update surface (kubedtn_tpu_torch.updates).
+WhatIf serves a what-if sweep (kubedtn_tpu_torch.twin), tenant-scoped
+when the request names a tenant of the attached registry, PlanUpdate and
+ApplyPlan the planned-update surface (kubedtn_tpu_torch.updates), and
+the Tenant* RPCs the tenancy registry (kubedtn_tpu_torch.tenancy) that
+`WireDataPlane.attach_tenancy` installs as `tenancy`.
+
+`drain_ingress` takes the registry's per-wire admission budget
+(`admit`), and with a shm.ShmIngest attached as `shm` it folds the
+shared-memory rings' committed frames into the same batches and backlog.
 
 `FrameSeg.materialize` slices a segment's frames in one C loop
 (`slice_frames` of native/kdt_ext.c, built by kubedtn_tpu_torch.native)
 and keeps the pure-Python path where the Python headers do not resolve.
 
 Not ported yet (the RPCs answer UNIMPLEMENTED): ObserveSLO,
-AutopilotCtl/Status, Tenant*, MigrateTenant / MigrationStatus and
-FleetStatus / FleetUpgrade. The shared-memory ingest is left out.
+AutopilotCtl/Status, MigrateTenant / MigrationStatus and FleetStatus /
+FleetUpgrade.
 """
 
 from __future__ import annotations
@@ -472,6 +479,14 @@ class Daemon:
         # closing the cross-node half of a sampled trace. None = zero
         # cost on every ingestion path.
         self.recorder = None
+        # tenancy.TenantRegistry installed by attach_tenancy: the
+        # Local.Tenant* RPCs answer from it (without one they answer
+        # ok=False "tenancy not enabled")
+        self.tenancy = None
+        # optional shm.ShmIngest — the shared-memory ingest plane:
+        # drain_ingress folds its rings' committed frames into each
+        # drain (None = gRPC ingress only)
+        self.shm = None
 
     def count_forward_errors(self, n: int) -> None:
         """Thread-safe forward_errors increment (CPython += is not
@@ -723,7 +738,8 @@ class Daemon:
         h["capacity"] = cap
         h["active_rows"] = active
         h["headroom_rows"] = max(0, cap - active)
-        h["tenants"] = 0
+        reg = self.tenancy
+        h["tenants"] = len(reg.list()) if reg is not None else 0
         return h
 
     @staticmethod
@@ -791,6 +807,134 @@ class Daemon:
 
         return serve_apply_plan(self, request)
 
+    # -- tenancy (kubedtn_tpu_torch.tenancy) ---------------------------
+
+    def _tenant_info(self, t):
+        reg = self.tenancy
+        links = int(reg.rows_of(t.name).size) if reg is not None else 0
+        return _pb().TenantInfo(
+            name=t.name, qos=t.qos, namespaces=sorted(t.namespaces),
+            frame_budget_per_s=t.frame_budget_per_s,
+            byte_budget_per_s=t.byte_budget_per_s,
+            block_lo=t.block[0] if t.block else -1,
+            block_hi=t.block[1] if t.block else -1,
+            links=links)
+
+    @staticmethod
+    def _opt_budget(v: float) -> float | None:
+        """Wire budget semantics: negative = leave unchanged (None to
+        the registry; what the CLI sends for an omitted flag), 0 =
+        explicitly unlimited."""
+        return None if v < 0 else float(v)
+
+    def TenantCreate(self, request, context):
+        """Register (or quota-update, idempotent on name) one tenant:
+        QoS class, admission budgets, optional reserved edge block,
+        namespace bindings."""
+        pb = _pb()
+        reg = self.tenancy
+        if reg is None:
+            return pb.TenantResponse(
+                ok=False, error="tenancy not enabled on this daemon")
+        try:
+            t = reg.create(
+                request.name, qos=request.qos or None,
+                frame_budget_per_s=self._opt_budget(
+                    request.frame_budget_per_s),
+                byte_budget_per_s=self._opt_budget(
+                    request.byte_budget_per_s),
+                block_edges=int(request.block_edges),
+                namespaces=list(request.namespaces) or None)
+        except (ValueError, KeyError) as e:
+            return pb.TenantResponse(ok=False, error=str(e))
+        return pb.TenantResponse(ok=True, tenant=self._tenant_info(t))
+
+    def TenantList(self, request, context):
+        pb = _pb()
+        reg = self.tenancy
+        if reg is None:
+            return pb.TenantListResponse(
+                ok=False, error="tenancy not enabled on this daemon")
+        tenants = reg.list()
+        if request.name:
+            tenants = [t for t in tenants if t.name == request.name]
+        return pb.TenantListResponse(
+            ok=True, tenants=[self._tenant_info(t) for t in tenants])
+
+    def TenantQuota(self, request, context):
+        """Update an existing tenant's QoS class / admission budgets
+        (block reservations never move here)."""
+        pb = _pb()
+        reg = self.tenancy
+        if reg is None:
+            return pb.TenantResponse(
+                ok=False, error="tenancy not enabled on this daemon")
+        try:
+            t = reg.set_quota(
+                request.name, qos=request.qos or None,
+                frame_budget_per_s=self._opt_budget(
+                    request.frame_budget_per_s),
+                byte_budget_per_s=self._opt_budget(
+                    request.byte_budget_per_s))
+        except KeyError:
+            return pb.TenantResponse(
+                ok=False, error=f"unknown tenant {request.name!r}")
+        except ValueError as e:
+            return pb.TenantResponse(ok=False, error=str(e))
+        return pb.TenantResponse(ok=True, tenant=self._tenant_info(t))
+
+    def TenantStats(self, request, context):
+        """One tenant's full slice: quotas, admission meters, throttle
+        meters, cumulative counter slice, telemetry window slice."""
+        pb = _pb()
+        reg = self.tenancy
+        if reg is None:
+            return pb.TenantStatsResponse(
+                ok=False, error="tenancy not enabled on this daemon")
+        try:
+            s = reg.stats(self.dataplane, request.name)
+        except KeyError:
+            return pb.TenantStatsResponse(
+                ok=False, error=f"unknown tenant {request.name!r}")
+        t = reg.get(request.name)
+        win = s.get("window") or {}
+        nn = lambda v: -1.0 if v is None else float(v)  # noqa: E731
+        return pb.TenantStatsResponse(
+            ok=True, tenant=self._tenant_info(t),
+            admitted_frames=int(s["admitted_frames"]),
+            admitted_bytes=int(s["admitted_bytes"]),
+            throttle_events=int(s["throttle_events"]),
+            throttled_frame_ticks=int(s["throttled_frame_ticks"]),
+            tx_packets=float(s.get("tx_packets", 0.0)),
+            delivered_packets=float(s.get("delivered_packets", 0.0)),
+            delivered_bytes=float(s.get("delivered_bytes", 0.0)),
+            dropped_loss=float(s.get("dropped_loss", 0.0)),
+            dropped_queue=float(s.get("dropped_queue", 0.0)),
+            dropped_ring=float(s.get("dropped_ring", 0.0)),
+            corrupted=float(s.get("corrupted", 0.0)),
+            window_seconds=float(win.get("window_seconds", 0.0)),
+            delivered_pps=float(win.get("delivered_pps", 0.0)),
+            bytes_ps=float(win.get("bytes_ps", 0.0)),
+            p50_us=nn(win.get("p50_us")),
+            p99_us=nn(win.get("p99_us")))
+
+    def TenantDelete(self, request, context):
+        """Deregister a tenant: free its reserved block, unbind its
+        namespaces, end admission/QoS enforcement (the tenant's
+        realized links are untouched — DestroyPod owns pod lifecycle).
+        ok=False on an unknown name."""
+        pb = _pb()
+        reg = self.tenancy
+        if reg is None:
+            return pb.TenantResponse(
+                ok=False, error="tenancy not enabled on this daemon")
+        t = reg.get(request.name)
+        if t is None or not reg.delete(request.name):
+            return pb.TenantResponse(
+                ok=False, error=f"unknown tenant {request.name!r}")
+        return pb.TenantResponse(ok=True, tenant=pb.TenantInfo(
+            name=t.name, qos=t.qos, namespaces=sorted(t.namespaces)))
+
     # -- surfaces not ported yet --------------------------------------
 
     def _unimplemented(self, request, context):
@@ -798,8 +942,6 @@ class Daemon:
                "not implemented by this daemon yet")
 
     ObserveSLO = AutopilotCtl = AutopilotStatus = _unimplemented
-    TenantCreate = TenantList = TenantQuota = _unimplemented
-    TenantStats = TenantDelete = _unimplemented
     MigrateTenant = MigrationStatus = _unimplemented
     FleetStatus = FleetUpgrade = _unimplemented
 
@@ -1121,7 +1263,8 @@ class Daemon:
 
     # -- sim ingress/egress bridge ------------------------------------
 
-    def drain_ingress(self, max_per_wire: int = 64, skip=None):
+    def drain_ingress(self, max_per_wire: int = 64, skip=None,
+                      admit=None):
         """Collect queued external frames as (wire, row, sizes, frames)
         batches for the next sim step. Only wires marked hot are visited —
         O(wires with traffic), not O(all wires); a wire left with residue
@@ -1132,11 +1275,21 @@ class Daemon:
         untouched but stay hot — the data plane excludes wires whose
         previous drain is still in its holdback buffer.
 
+        `admit` (optional, the tenancy registry's drain policy) maps a
+        wire to ITS per-tick budget: a QoS weight scales the default,
+        and 0 means the wire's tenant is over its admission budget this
+        tick — the wire stays hot with its frames queued (throttled,
+        never dropped; the policy records the typed verdict) and, like
+        holdback skips, is excluded from the backlog signal.
+
         `last_drain_backlog` is left holding the entry count this drain
         had to leave behind but could take next call (budget residue
         only — the backpressure input of the plane's adaptive batching
-        and sleep-shedding; unrealized-wire and holdback-skipped queues
-        are excluded because ticking harder cannot drain them)."""
+        and sleep-shedding; unrealized-wire, holdback-skipped and
+        admission-throttled queues are excluded because ticking harder
+        cannot drain them). With `shm` attached, the rings' committed
+        spans join the same batch list (admission at the ring head) and
+        their residue the same backlog."""
         with self._hot_lock:
             hot, self._hot = self._hot, set()
         out: list = []
@@ -1149,6 +1302,13 @@ class Daemon:
             wire = self.wires.get_by_id(wire_id)
             if wire is None:
                 continue  # deleted since marked
+            wire_budget = max_per_wire
+            if admit is not None:
+                wire_budget = min(max_per_wire, admit(wire))
+                if wire_budget <= 0:
+                    if wire.ingress:  # throttled: keep hot, keep frames
+                        self._remark(wire)
+                    continue
             row = self.engine.row_of(wire.pod_key, wire.uid)
             if row is None:
                 if wire.ingress:
@@ -1161,7 +1321,7 @@ class Daemon:
             # the remaining budget is SPLIT by index, the residue goes
             # back on the left of the deque (still FIFO, still counted).
             q = wire.ingress
-            budget = max_per_wire
+            budget = wire_budget
             parts: list = []
             lens_parts: list = []
             segs = False
@@ -1206,6 +1366,12 @@ class Daemon:
                     # list, the shape tests and embedders rely on
                     lens = lens_parts
                 out.append((wire, row, lens, parts))
+        if self.shm is not None:
+            # shared-memory ingest: committed ring spans join the same
+            # batch list (admission at the ring head BEFORE dequeue),
+            # ring residue the same entry-denominated backlog
+            backlog += self.shm.drain_into(out, max_per_wire, admit,
+                                           self)
         self.last_drain_backlog = backlog
         return out
 

@@ -227,11 +227,35 @@ def test_snapshot_files_cross_packages(tmp_path, src, dst):
         assert got.sim.edges.uid.device.type == "cpu"
 
 
+def _tenant_view(engine, reg) -> dict:
+    return {"config": reg.export_config(),
+            "blocks": {t.name: (t.block, list(t.block_free), t.block_rows)
+                       for t in reg.list()},
+            "rows_of": {t.name: reg.rows_of(t.name).tolist()
+                        for t in reg.list()},
+            "free": engine._free.tolist(),
+            "reserved": reg.reserved_free()}
+
+
+def _break_tenancy(path: str) -> None:
+    """Rewrite the manifest's tenancy section with a tenant that has no
+    name (the data files and their checksums stay valid)."""
+    mpath = os.path.join(path, "manifest.json")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    manifest["tenancy"]["tenants"].append({"qos": "gold"})
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
+
+
 def test_tenancy_section_restores_rows_refuses_quotas(tmp_path):
     """A JAX checkpoint with a tenancy section: the port's load restores
     store and engine with the reserved rows in the global pool (the JAX
-    package's tenancy-less load), and load_tenancy refuses the section
-    instead of dropping its quotas; without the section it is None."""
+    package's tenancy-less load), and the port's load_tenancy rebuilds
+    the registry JAX's load_tenancy rebuilds (quotas, namespaces,
+    meters, the re-carved block and the free list after it); a malformed
+    section is refused with CheckpointError instead of dropped; without
+    the section it is None."""
     from kubedtn_tpu.tenancy import TenantRegistry
 
     ensure_jax_native()
@@ -239,6 +263,7 @@ def test_tenancy_section_restores_rows_refuses_quotas(tmp_path):
     reg = TenantRegistry(engine)
     reg.create("t1", block_edges=8, namespaces=["default"],
                frame_budget_per_s=1000)
+    reg.get("t1").admitted_frames = 17
     path = str(tmp_path / "ckpt")
     jck.save(path, store, engine)
     _s, e_jax = jck.load(path)   # the JAX package's tenancy-less load
@@ -246,14 +271,94 @@ def test_tenancy_section_restores_rows_refuses_quotas(tmp_path):
     assert sorted(e2._free.tolist()) == sorted(e_jax._free.tolist())
     assert e2._rows == engine._rows
     assert len(e2._free) + e2.num_active == e2.state.capacity
+    want = _tenant_view(e_jax, jck.load_tenancy(path, e_jax))
+    got = _tenant_view(e2, tck.load_tenancy(path, e2))
+    assert got == want
+    assert got["config"] == reg.export_config()
+    _break_tenancy(path)
     with pytest.raises(tck.CheckpointError, match="tenancy"):
-        tck.load_tenancy(path, e2)
+        tck.load_tenancy(path, tck.load(path, device="cpu")[1])
     store3, engine3 = small_cluster("torch")
     tck.save(str(tmp_path / "plain"), store3, engine3)
     assert tck.load_tenancy(str(tmp_path / "plain"), engine3) is None
     assert tck.load_tenancy(str(tmp_path / "absent"), engine3) is None
     with open(os.path.join(str(tmp_path / "plain"), "manifest.json")) as f:
         assert "tenancy" not in json.load(f)
+
+
+@pytest.mark.parametrize("src,dst", DIRECTIONS)
+def test_tenancy_section_crosses_packages(tmp_path, src, dst):
+    """A registry with a block, a quota-only tenant on a second
+    namespace and admitted meters, saved by one package: the section
+    (and the blocks' unused rows appended to the saved free list) equal
+    in both packages' manifests, and the other package's load_tenancy
+    rebuilds what the writer's own load_tenancy rebuilds."""
+    ten = {"jax": "kubedtn_tpu.tenancy", "torch": "kubedtn_tpu_torch.tenancy"}
+    import importlib
+
+    views, manifests = {}, {}
+    for pkg in ("jax", "torch"):
+        store, engine = small_cluster(pkg)
+        reg = importlib.import_module(ten[pkg]).TenantRegistry(engine)
+        reg.create("t1", block_edges=6, namespaces=["default"],
+                   qos="silver", byte_budget_per_s=5e4)
+        reg.create("t2", namespaces=["other"], frame_budget_per_s=300.0)
+        reg.get("t1").admitted_bytes = 1234
+        path = str(tmp_path / pkg)
+        CK[pkg].save(path, store, engine)
+        with open(os.path.join(path, "manifest.json")) as f:
+            m = json.load(f)
+        manifests[pkg] = (m["tenancy"], m["engine"]["free"])
+    assert manifests["torch"] == manifests["jax"]
+    path = str(tmp_path / src)
+    for pkg in (src, dst):
+        _s, e = CK[pkg].load(path, **LOAD_KW[pkg])
+        views[pkg] = _tenant_view(e, CK[pkg].load_tenancy(path, e))
+    assert views[dst] == views[src]
+    assert views[dst]["blocks"]["t1"][2] == 6
+
+
+
+def test_restore_daemon_restores_the_registry(tmp_path):
+    """entry.restore_daemon brings the checkpoint's registry back,
+    attached to the engine, the daemon and the plane (Health counts its
+    tenants, the drain enforces it); a malformed tenancy section makes
+    the restore raise rather than drop it; a checkpoint without a
+    section restores no registry."""
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+    sc = tp.build("torch", tp.DET_PROPS)
+    reg = TenantRegistry(sc.engine)
+    sc.plane.attach_tenancy(reg)
+    reg.create("default", qos="bronze", frame_budget_per_s=500.0)
+    reg.create("spare", block_edges=5, namespaces=["spare"])
+    rng = np.random.default_rng(3)
+    for t in range(2):
+        feed(sc, t, rng)
+        sc.plane.tick(now_s=(t + 1) * tp.DT)
+    path = str(tmp_path / "ckpt")
+    tck.save_live(path, sc.store, sc.engine, sc.plane)
+    want = _tenant_view(sc.engine, reg)
+    r = entry.restore_daemon(path, device="cpu", capacity=64,
+                             now_s=2 * tp.DT)
+    got = r["tenancy"]
+    assert got is not None and r["engine"].tenancy is got
+    assert r["daemon"].tenancy is got and r["plane"].tenancy is got
+    view = _tenant_view(r["engine"], got)
+    assert view["config"] == want["config"]
+    assert view["rows_of"] == want["rows_of"]
+    assert view["blocks"]["spare"][2] == 5
+    assert r["daemon"].health_snapshot()["tenants"] == 2
+    assert got.get("default").admitted_frames > 0
+    _break_tenancy(path)
+    with pytest.raises(tck.CheckpointError, match="tenancy"):
+        entry.restore_daemon(path, device="cpu", capacity=64)
+    plain = str(tmp_path / "plain")
+    sc2 = tp.build("torch", tp.DET_PROPS[:1])
+    tck.save(plain, sc2.store, sc2.engine)
+    r3 = entry.restore_daemon(plain, device="cpu", capacity=64)
+    assert r3["tenancy"] is None and r3["plane"].tenancy is None
+    assert r3["engine"].tenancy is None
 
 
 # -- the delay line ---------------------------------------------------------

@@ -1001,3 +1001,80 @@ def test_kdt_ext_on_the_card_machine(dev):
     lens = np.array([5, 0, 200, 24], np.uint64)
     assert mod.slice_frames(blob, offs, lens, 0, 4) == [
         blob[o:o + n] for o, n in zip(offs.tolist(), lens.tolist())]
+
+
+# -- tenancy on the card ----------------------------------------------------
+
+TENANT_PROPS = {
+    "t0": dict(latency="2ms", jitter="1ms", loss="10"),
+    "t1": dict(rate="2Mbit"),
+    "t2": dict(latency="1ms", loss="10", loss_corr="25"),
+}
+
+
+@pytest.mark.parametrize("depth,shards", [(1, None), (2, 2)])
+def test_cohabited_plane_on_card_equals_solo(dev, depth, shards):
+    """Three tenants cohabiting one plane on the card (t1 in a reserved
+    block; at depth 2 on 2 virtual shards, whose ring steps are K4):
+    each tenant's bytes, telemetry totals and counters == its solo
+    plane's on the card at depth 1, bit for bit."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    from _torch_tenant_harness import mods, run_schedule
+
+    m = mods("torch")
+    names = sorted(TENANT_PROPS)
+    pex.reset_launches()
+    shard = (None if shards is None
+             else lambda p: p.enable_sharding(n_devices=shards))
+    co = run_schedule(m, names, TENANT_PROPS, depth=depth, device=dev,
+                      shard=shard, registry_kw={"t1": {"block_edges": 6}})
+    if shards:
+        assert pex.LAUNCHES["ring_step"] > 0
+    for ns in names:
+        so = run_schedule(m, [ns], TENANT_PROPS, depth=1, device=dev)
+        assert co[0][ns] == so[0][ns], ns
+        np.testing.assert_array_equal(co[1][ns], so[1][ns])
+        assert co[2][ns] == so[2][ns]
+
+
+def test_tenant_scoped_sweep_k1_equals_plain_on_card(dev):
+    """A 3-lane sweep of t1's scoped fork of a live plane on the card:
+    one K1 launch per slot and step, the final state == the same sweep
+    over the plain step, bit for bit; rows outside t1 carry nothing."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.api.types import LinkProperties as LP
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.twin import Perturbation, Scenario, run_sweep
+    from kubedtn_tpu_torch.twin.query import build_cbr_spec
+
+    from _torch_tenant_harness import mods, tenant_plane
+
+    plane, reg, _w = tenant_plane(mods("torch"), sorted(TENANT_PROPS),
+                                  TENANT_PROPS, device=dev)
+    snap = reg.tenant_snapshot(plane, "t1")
+    rows = reg.rows_of("t1")
+    assert int(snap.sim.edges.active.sum()) == rows.size
+    scen = [Scenario("baseline"),
+            Scenario("slow", (Perturbation("degrade", uid=3,
+                                           props=LP(rate="1Mbit")),)),
+            Scenario("half", (Perturbation("scale", factor=0.5),))]
+    spec = build_cbr_spec(snap.sim.edges, rate_bps=4e6, pkt_bytes=300.0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = sim.as_dt(1000.0, dev)
+    draws = [sim.StepDraws(traffic=traffic.draw(spec, dt, 4, g),
+                           shape_u=queues.draw_shape_uniforms(
+                               snap.sim.edges, 4, g))
+             for _ in range(10)]
+    kw = dict(steps=10, dt_us=1000.0, spec=spec, k_slots=4,
+              keep_final=True, draws=draws)
+    before = shaping.LAUNCHES["shape_step_rows"]
+    card = run_sweep(snap, scen, **kw)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + 10 * 4
+    plain = run_sweep(snap, scen, shape_fn=queues.shape_packets_plain, **kw)
+    _assert_trees_bitwise(card.final, plain.final)
+    tx = card.final.counters.tx_packets.cpu().numpy().reshape(3, -1)
+    outside = np.setdiff1d(np.arange(tx.shape[1]), rows)
+    assert not tx[:, outside].any() and tx[0, rows].sum() > 0
+    plane.stop()

@@ -70,6 +70,11 @@ LIVE_PLANE_MODULES = (
     # checkpoint and restart, and the daemon's Prometheus exporter
     "kubedtn_tpu_torch.checkpoint", "kubedtn_tpu_torch.metrics",
     "kubedtn_tpu_torch.metrics.metrics",
+    # tenancy and the shared-memory ingest plane
+    "kubedtn_tpu_torch.tenancy", "kubedtn_tpu_torch.tenancy.admission",
+    "kubedtn_tpu_torch.tenancy.registry", "kubedtn_tpu_torch.shm",
+    "kubedtn_tpu_torch.shm.ring", "kubedtn_tpu_torch.shm.ingest",
+    "kubedtn_tpu_torch.shm.sender", "kubedtn_tpu_torch.shm.producer",
 )
 
 

@@ -11,8 +11,9 @@ whose families must still be the same. Also here: the request
 histogram's name and buckets, the node aggregates and the per-interface
 series cap, deleted links left out of the totals, the dataplane, pause
 and link-telemetry series, the HTTP server (404, concurrent scrapes, a
-collector raising mid-scrape) and make_registry refusing the collectors
-that are not ported yet.
+collector raising mid-scrape), make_registry refusing the collectors
+that are not ported yet, and the shared-memory ingest series after the
+same ring traffic (the tenant series are held in test_torch_tenancy.py).
 """
 
 import threading
@@ -215,13 +216,77 @@ def test_whatif_and_update_series_equal_jax():
 
 
 @pytest.mark.parametrize("arg,collector", [
-    ("tenancy", "TenantStatsCollector"),
     ("migration_stats", "MigrationStatsCollector"),
     ("fleet", "FleetStatsCollector"), ("slo", "SloStatsCollector"),
-    ("shm", "ShmStatsCollector"), ("autopilot", "AutopilotStatsCollector")])
+    ("autopilot", "AutopilotStatsCollector")])
 def test_make_registry_refuses_unported_collectors(arg, collector):
     with pytest.raises(ValueError, match=collector):
         tm.make_registry(**{arg: object()})
+
+
+def _shm_feed(pkg, sc, tmp_path):
+    """One package's ShmIngest over a ring fed 5 frames for no wire,
+    then 300 for the cluster's first ingress wire; drained at 100 frames
+    a wire, throttled once, drained again."""
+    if pkg == "jax":
+        from _torch_native_guard import ensure_jax_native
+
+        ensure_jax_native()
+        from kubedtn_tpu import shm
+    else:
+        from kubedtn_tpu_torch import shm
+    d = tmp_path / pkg
+    d.mkdir()
+    sender = shm.ShmSender(str(d / "p.ring"), slots=1024, namespace="ns1")
+    ingest = shm.ShmIngest(str(d))
+    ingest.attach_ring(shm.ShmRing.attach(sender.ring.path))
+    sender.send(0x5FFFFF, [b"nowhere"] * 5)
+    sender.send(sc.win[0].wire_id, [bytes([i % 251]) * 80
+                                    for i in range(300)])
+    sc.daemon.shm = ingest
+    sc.daemon.drain_ingress(max_per_wire=100)
+    sc.daemon.drain_ingress(max_per_wire=100, admit=lambda w: 0)
+    sc.daemon.drain_ingress(max_per_wire=100)
+    return sender, ingest
+
+
+def test_shm_exposition_equals_jax(tmp_path):
+    """The kubedtn_shm_* series of the two packages' ingest planes after
+    the same ring traffic and drains: the same sorted lines, and the
+    values are ShmIngest.stats(); make_registry(shm=, tenancy=) installs
+    the shm and tenant collectors."""
+    from prometheus_client import CollectorRegistry
+
+    from kubedtn_tpu_torch import native as tnative
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+    try:
+        tnative._load()
+    except tnative.NativeUnavailable as e:
+        pytest.skip(f"the port's native library does not build here: {e}")
+    out, keep = {}, {}
+    for pkg in ("jax", "torch"):
+        sc = tp.build(pkg, tp.DET_PROPS[:1])
+        sender, ingest = _shm_feed(pkg, sc, tmp_path)
+        reg = CollectorRegistry()
+        reg.register(MET[pkg].ShmStatsCollector(ingest))
+        out[pkg] = sorted(generate_latest(reg).decode().splitlines())
+        keep[pkg] = (sc, sender, ingest)
+    assert out["torch"] == out["jax"]
+    sc, sender, ingest = keep["torch"]
+    stats = ingest.stats()
+    assert stats["frames_in"] == 200 and stats["unresolved_frames"] == 5
+    assert stats["throttled_events"] == 1 and stats["pending"] == 105
+    assert samples(out["torch"], "kubedtn_shm_frames_total")[""] == 200.0
+    assert samples(out["torch"], "kubedtn_shm_pending_frames")[""] == 105.0
+    reg, _h = tm.make_registry(shm=ingest,
+                               tenancy=TenantRegistry(sc.engine))
+    text = generate_latest(reg).decode()
+    assert "kubedtn_shm_batches_total" in text
+    assert "kubedtn_tenant_series_truncated 0.0" in text
+    for _sc, s, i in keep.values():
+        s.close()
+        i.close()
 
 
 class _Raises:

@@ -317,7 +317,6 @@ def test_rpc_observers_and_health(served, client):
     ("AutopilotCtl", "AutopilotCtlRequest"),
     ("ObserveSLO", "ObserveSLORequest"),
     ("MigrationStatus", "MigrationStatusRequest"),
-    ("TenantList", "TenantQuery"),
     ("MigrateTenant", "MigrateRequest"),
     ("FleetStatus", "FleetStatusRequest"),
     ("AutopilotStatus", "AutopilotStatusRequest")])
@@ -325,6 +324,32 @@ def test_rpc_not_ported_answer_unimplemented(served, client, method, req):
     with pytest.raises(grpc.RpcError) as e:
         getattr(client.c, method)(getattr(client.pb, req)())
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+
+
+def test_tenant_rpcs_over_grpc(served, client):
+    """Tenant* over the server: without a registry they answer
+    ok=False "tenancy not enabled"; with one attached they create,
+    list and delete, and Health counts the tenants."""
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+    pb, c = client.pb, client.c
+    r = c.TenantList(pb.TenantQuery())
+    assert not r.ok and "not enabled" in r.error
+    daemon = served.daemon
+    daemon.tenancy = TenantRegistry(daemon.engine)
+    try:
+        made = c.TenantCreate(pb.TenantSpec(name="acme", qos="silver",
+                                            namespaces=["default"]))
+        assert made.ok and made.tenant.qos == "silver"
+        assert made.tenant.links == 2 and made.tenant.block_lo == -1
+        assert [t.name for t in c.TenantList(pb.TenantQuery()).tenants] \
+            == ["acme"]
+        assert c.Health(pb.HealthRequest()).tenants == 1
+        assert c.TenantDelete(pb.TenantQuery(name="acme")).ok
+        assert c.Health(pb.HealthRequest()).tenants == 0
+    finally:
+        daemon.tenancy = None
+        daemon.engine.tenancy = None
 
 
 def test_grpc_health_service(served):
