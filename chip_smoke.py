@@ -80,13 +80,13 @@ Phases, each fatal on failure:
      columns == two CPU nodes' from the same CRs; (b) the first 3 x
      4,096 cross-node links re-shaped into phase 12's three classes, B's
      wire ends by AddGRPCWireRemote, A's ends pointing at them; phase
-     12's feed for 4 ticks at depth 1 through A's plane, whose released
+     12's feed for 3 ticks at depth 1 through A's plane, whose released
      frames stage in the 4 MiB remote ring and cross to B over
      SendToBulk: the books close (per edge; released == staged +
      ring-dropped, charged per row; staged == sent + queue-dropped +
      forwarding errors; sent == arrived at B's pod side), the ring-drop
      share, wall ms per tick and frames/s arrived at B reported; (c) 1
-     frame per wire and tick for 20 ticks (fits the ring: 0 ring and
+     frame per wire and tick for 16 ticks (fits the ring: 0 ring and
      queue drops): B's pod-side egress per wire is the same at depth 1,
      at depth 2 with telemetry and at depth 2 under a 50 ms / 50 % flap
      of B (breaker opened, retried, no forwarding error); on 4 ticks of
@@ -167,7 +167,32 @@ Phases, each fatal on failure:
      admission parks over-budget frames in a ring, none dropped; (g) a
      scrape of /metrics: kubedtn_tenant_* == registry.stats,
      kubedtn_shm_* == ShmIngest.stats(); (h) the depth-1 drain share with
-     tenancy against 12(b)'s without.
+     tenancy against 12(b)'s without;
+ 17. the SLO plane and the autopilot, K1's launches counted from 0 around
+     the phase: phase 16's t1 and t2 fabrics as bronze backfill tenants
+     and g0, a gold tenant of 4 pod pairs at 2 ms (burn_recovery's
+     shape), 132,808 rows in one daemon of 2^18, telemetry windows of
+     0.5 s, an explicit clock of 0.05 s a tick, g0's wires fed 40
+     frames of 200 B and 512 spine links of t1 and t2 1-8 frames of
+     64-256 B per wire and tick; the evaluator and the autopilot driven
+     from the phase's loop: (a) reconcile-to-steady, 12 fed ticks, a
+     pass with no page, g0's objectives met, the tenants' slow-window
+     tx / delivered == a direct sum over the active rows, evaluate()
+     timed at 2^18 rows; (b) 25 % loss on g0's a-side links through
+     the store and the reconciler: g0 pages within 30 polls of 5 fed
+     ticks, t1 and t2 never; (e) a one-topology shape candidate through
+     guardrails that reject it, and (f) the same in dry run: the SoA
+     columns and the engine's registries unchanged; (c) one
+     Autopilot.poll (seed 0, width 2, 200 steps, the gate cut to 200
+     ticks): ONE sweep, K1 launches == steps x slots, each over (1 +
+     candidates) x 2^18 rows; the same snapshot, seed and verdict rank
+     the same; 2 steps of the grid's rows through K1 == the plain
+     version; (d) one gate per touched topology, then the stage: rows
+     outside g0 byte-identical, green within 40 polls, 40 idle, 20 fed
+     and 40 idle ticks lose no frame; (g) ObserveSLO, AutopilotCtl and
+     AutopilotStatus over gRPC == the in-process state, a scrape's
+     kubedtn_slo_* / kubedtn_autopilot_* == the verdicts and the stats,
+     the sidecars over 4 s of the real-time plane.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -1761,19 +1786,21 @@ def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 13: two daemons, cross-node egress --------------------------------
 
 XN_B_LEAVES = 62            # leaves 0..61 on node B: 100 x 62 x 2 links
-XN_TICKS = 4                # full-feed ticks (phase 12's feed; 16 there:
+XN_TICKS = 3                # full-feed ticks (phase 12's feed; 10 there:
 #                             a tick here takes 4.0-5.2 s on an NVIDIA
 #                             H100 80GB HBM3 at 700.00 W, PERF.md; 8
 #                             until phase 14 joined, 6 until phase 15
-#                             did: 4 keep the script in its time budget)
-XN_EQ_TICKS = 20            # equality-feed ticks, 1 frame per wire: each
+#                             did, 4 until phase 17 did: 3 keep the
+#                             script in its time budget)
+XN_EQ_TICKS = 16            # equality-feed ticks, 1 frame per wire: each
 #                             first failure under the flap opens the
 #                             breaker with probability ~1/4 (two more
 #                             attempts land in a down half); 16 ticks
 #                             gave one open on the card, 24 gave 12
 #                             (PERF.md); cut from 32 to keep the script,
-#                             phase 14 included, near 600 s, and from 24
-#                             when phase 15 joined
+#                             phase 14 included, near 600 s, from 24
+#                             when phase 15 joined, from 20 when phase 17
+#                             did (12 opens in 20 ticks, PERF.md)
 XN_REF_TICKS = 4            # the reference-peer round's ticks: the
 #                             per-frame stream moved ~2,000 frames/s
 #                             with both daemons in one interpreter (NVIDIA
@@ -4005,6 +4032,630 @@ def ten_scrape(co, card) -> dict:
     return {"scrape_ms": ms, "bytes": len(body)}
 
 
+# -- phase 17: the SLO plane and the autopilot -------------------------------
+
+AP_BG = ("t1", "t2")        # phase 16's fabrics, bronze backfill here
+AP_GOLD = "g0"
+AP_GOLD_PAIRS = 4           # burn_recovery's shape, 4 pod pairs at 2 ms
+AP_GOLD_LATENCY = "2ms"
+AP_FEED = 40                # frames of AP_FRAME_BYTES per g0 wire and tick
+AP_FRAME_BYTES = 200
+AP_BG_LINKS = 512           # fed spine links per background tenant
+AP_BG_MAX_FRAMES = 8        # 1..8 frames of 64-256 B per wire and tick
+AP_TICK_S = 0.05            # explicit clock per tick
+AP_WINDOW_S = 0.5           # telemetry windows
+AP_DT_US = 1000.0
+AP_WARM_TICKS = 12          # fed ticks before the baseline verdicts: the
+                            # first window closes on the 11th
+AP_POLL_TICKS = 5           # fed ticks per poll
+AP_PAGE_POLLS = 30          # bound on (b)'s polls to the page
+AP_GREEN_POLLS = 40         # bound on (d)'s polls to green
+AP_LOSS = "25"
+AP_SEED = 0
+AP_STEPS = 200
+AP_GATE_TICKS = 200         # the gate's horizon, cut from 400
+AP_CHECK_STEPS = 2          # (c): K1 vs the plain version
+AP_EVAL_REPS = 3            # (a): timed evaluate() passes
+AP_SIDECAR_S = 4.0          # (g): seconds of the real-time plane
+
+
+def ap_gold_crs(prefix: str, ns: str, pairs: int, uid_base: int,
+                node_ip: str = "10.0.0.1"):
+    """burn_recovery's tenant as CRs: `pairs` pod pairs, one 2 ms link
+    each, pods placed on `node_ip` (the CNI ran, no link realized)."""
+    from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
+                                             Topology, TopologySpec)
+
+    props = LinkProperties(latency=AP_GOLD_LATENCY)
+    out = []
+    for i in range(pairs):
+        a, b = f"{prefix}-{ns}-a{i}", f"{prefix}-{ns}-b{i}"
+        for x, y in ((a, b), (b, a)):
+            t = Topology(name=x, namespace=ns, spec=TopologySpec(links=[
+                Link(local_intf="eth1", peer_intf="eth1", peer_pod=y,
+                     uid=uid_base + i + 1, properties=props)]))
+            t.status.src_ip, t.status.net_ns = node_ip, f"/run/netns/{x}"
+            t.status.links = []
+            out.append(t)
+    return out
+
+
+def ap_columns(engine) -> dict:
+    """The engine's configuration columns, copied to the host."""
+    return {n: getattr(engine.state, n).cpu().numpy().copy()
+            for n in ("uid", "src", "dst", "active", "props")}
+
+
+def ap_registries(engine) -> tuple:
+    return (dict(engine._rows), dict(engine._peer),
+            dict(engine._row_owner), set(engine._shaped_rows))
+
+
+def ap_same_columns(a: dict, b: dict, name: str, rows=None) -> None:
+    for k in a:
+        x, y = (a[k], b[k]) if rows is None else (a[k][rows], b[k][rows])
+        check(np.array_equal(x, y), f"{name}: column {k} moved")
+
+
+class ApLoop:
+    """Phase 17's explicit-clock driver: every tick feeds g0's ingress
+    wires AP_FEED frames and, with `bg`, the background tenants' wires
+    1..8 frames, then drains every egress wire, counting g0's. Fed and
+    idle ticks' wall seconds are kept apart."""
+
+    def __init__(self, plane, gold, bg, seed: int):
+        self.plane = plane
+        self.win, self.wout = gold
+        self.bg = bg
+        self.rng = np.random.default_rng(seed)
+        self.frame = b"\xab" * AP_FRAME_BYTES
+        # the explicit clock starts at the monotonic clock's reading: at
+        # start() the plane rebases its own clock onto the monotonic one
+        # but not the telemetry window clock, so an explicit clock AHEAD
+        # of the monotonic one holds every window open after it, in the
+        # JAX package too (ROADMAP §3); (g) runs the real-time plane
+        self.clock = time.monotonic()
+        self.fed = 0
+        self.delivered = 0
+        self.walls = {True: [], False: []}
+
+    def ticks(self, n: int, feed: bool = True) -> None:
+        for _ in range(n):
+            if feed:
+                for w in self.win:
+                    w.ingress.extend([self.frame] * AP_FEED)
+                self.fed += AP_FEED * len(self.win)
+                for win, _wout in self.bg:
+                    apply_feed(win, make_feed(len(win), 0, self.rng,
+                                              AP_BG_MAX_FRAMES))
+            self.clock += AP_TICK_S
+            t0 = time.perf_counter()
+            self.plane.tick(now_s=self.clock)
+            self.walls[feed].append(time.perf_counter() - t0)
+            for w in self.wout:
+                self.delivered += len(w.egress)
+                w.egress.clear()
+            for _win, wout in self.bg:
+                for w in wout:
+                    w.egress.clear()
+
+
+def run_autopilot_phase(dev, card, n_spine=None, n_leaf=None,
+                        n_bg_links: int = AP_BG_LINKS,
+                        capacity: int = 1 << 18, steps: int = AP_STEPS,
+                        gate_ticks: int = AP_GATE_TICKS,
+                        sidecar_s: float = AP_SIDECAR_S) -> tuple:
+    """Phase 17: a gold tenant's burn page remediated at full width
+    beside two bronze backfill fabrics. Returns (metrics, K1 launches
+    of the phase's path)."""
+    import dataclasses as dc
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.autopilot import (Autopilot, AutopilotConfig,
+                                             Candidate, actuate)
+    from kubedtn_tpu_torch.autopilot import actuator as ap_actuator
+    from kubedtn_tpu_torch.autopilot import controller as ap_controller
+    from kubedtn_tpu_torch.autopilot.candidates import _scaled_props
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.scenarios import wire_def
+    from kubedtn_tpu_torch.slo import SloEvaluator
+    from kubedtn_tpu_torch.telemetry import T_DELIVERED, T_TX
+    from kubedtn_tpu_torch.updates import Guardrails
+
+    t_phase = time.perf_counter()
+    n_spine = n_spine or TEN_SPINE
+    n_leaf = n_leaf or TEN_LEAF
+    shaping.reset_launches()
+    cmp = 0                     # K1 launches made only to compare
+    m = {"capacity": capacity}
+
+    # (a) build: t1 and t2 as phase 16 builds them, bronze; g0 gold
+    crs = ten_crs(AP_BG, n_spine, n_leaf, TEN_LPP)
+    n_ten = n_spine * n_leaf * TEN_LPP
+    gold_crs = ap_gold_crs("ap", AP_GOLD, AP_GOLD_PAIRS, len(TEN_NAMES)
+                           * n_ten)
+    co = entry.build_daemon(
+        dev, capacity=capacity,
+        crs=[c for t in AP_BG for c in crs[t]] + gold_crs,
+        tenancy={"t1": {"qos": "bronze"}, "t2": {"qos": "bronze"},
+                 AP_GOLD: {"qos": "gold"}})
+    daemon, reg, engine = co["daemon"], co["tenancy"], co["engine"]
+    store, rec = co["store"], co["reconciler"]
+    rows_g0 = reg.rows_of(AP_GOLD)
+    check(engine.num_active == 2 * (2 * n_ten + AP_GOLD_PAIRS)
+          and rows_g0.size == 2 * AP_GOLD_PAIRS,
+          f"17(a): {engine.num_active} rows realized")
+    plane = entry.build_plane(daemon, dt_us=AP_DT_US, seed=AP_SEED)
+    plane.pipeline_explicit_clock = True
+    plane.enable_telemetry(window_s=AP_WINDOW_S, sample_period=256)
+    gold = ([], [])
+    for i in range(AP_GOLD_PAIRS):
+        uid = len(TEN_NAMES) * n_ten + i + 1
+        for side, lst in (("a", gold[0]), ("b", gold[1])):
+            lst.append(daemon._add_wire(wire_def(
+                f"ap-{AP_GOLD}-{side}{i}", AP_GOLD, uid)))
+    bg = [ten_wires(daemon, crs[t], n_bg_links)[:2] for t in AP_BG]
+    loop = ApLoop(plane, gold, bg, TEN_SEED)
+    ev = SloEvaluator(reg, plane).attach(daemon)
+    cfg = AutopilotConfig(seed=AP_SEED, width=2, steps=steps,
+                          dt_us=AP_DT_US, page_polls=1, cooldown_s=5.0,
+                          verify_polls=20,
+                          guardrail_overrides=(("ticks", gate_ticks),))
+    ap = Autopilot(reg, plane, ev, config=cfg,
+                   tick_driver=lambda n: loop.ticks(n, feed=False)
+                   ).attach(daemon)
+    ap.enable()
+
+    loop.ticks(AP_WARM_TICKS)
+    fresh = ev.maybe_evaluate()
+    tel = plane.telemetry
+    check(fresh is not None and tel.windows_closed >= 1
+          and ev.stats.snapshot()["evaluations"] >= 1,
+          f"17(a): no evaluation ({tel.windows_closed} windows closed)")
+    vs = ev.verdicts()
+    check(sorted(vs) == sorted(AP_BG + (AP_GOLD,)), f"17(a): {sorted(vs)}")
+    check(all(v.severity != "page" for v in vs.values()),
+          f"17(a): a tenant pages: "
+          f"{ {n: v.severity for n, v in vs.items()} }")
+    g = vs[AP_GOLD]
+    check(g.attainment_ok and g.latency_ok and g.tx > 0,
+          f"17(a): g0's baseline verdict {g.to_dict()}")
+    total, _secs = tel.window_sum(last=12, include_open=False)
+    act = np.flatnonzero(engine.state.active.cpu().numpy())
+    direct = total[act].sum(axis=0)
+    check(sum(v.tx for v in vs.values()) == float(direct[T_TX])
+          and sum(v.delivered for v in vs.values())
+          == float(direct[T_DELIVERED]),
+          "17(a): the tenants' slow-window tx / delivered != a direct "
+          "sum over all active rows")
+    walls = []
+    for _ in range(AP_EVAL_REPS):
+        t0 = time.perf_counter()
+        ev.evaluate()
+        walls.append(time.perf_counter() - t0)
+    m["a"] = {"reconcile_s": co["reconcile_s"], "rows": engine.num_active,
+              "evaluate_s": statistics.median(walls),
+              "evaluate_s_samples": walls,
+              "windows_closed": tel.windows_closed,
+              "baseline": {n: {"severity": v.severity, "tx": v.tx,
+                               "slow_burn": v.slow_burn}
+                           for n, v in vs.items()}}
+    log(f"17(a) {len(crs['t1']) + len(crs['t2']) + len(gold_crs)} CRs "
+        f"(t1, t2 bronze; g0 gold, {AP_GOLD_PAIRS} pairs): "
+        f"{engine.num_active} rows in capacity {engine.state.capacity}, "
+        f"reconcile-to-steady {co['reconcile_s']:.3f} s; "
+        f"{AP_WARM_TICKS} fed ticks: {tel.windows_closed} window(s) "
+        f"closed, no page, g0 attainment and latency ok; the tenants' "
+        f"slow-window tx / delivered == a direct sum over the active "
+        f"rows; evaluate() {m['a']['evaluate_s']:.3f} s a pass at "
+        f"{engine.state.capacity} rows ({card})")
+
+    # (b) the page: 25 % loss on g0's a-side links, the canonical path
+    for topo in store.list(AP_GOLD):
+        if f"-{AP_GOLD}-a" not in topo.name:
+            continue
+        fresh_t = store.get(topo.namespace, topo.name)
+        fresh_t.spec.links = [
+            l.with_properties(dc.replace(l.properties, loss=AP_LOSS))
+            for l in fresh_t.spec.links]
+        store.update(fresh_t)
+    rec.drain()
+    paged = None
+    polls = 0
+    for polls in range(1, AP_PAGE_POLLS + 1):
+        loop.ticks(AP_POLL_TICKS)
+        ev.maybe_evaluate()
+        vs = ev.verdicts()
+        check(all(vs[t].severity != "page" for t in AP_BG),
+              f"17(b): a background tenant pages: "
+              f"{ {t: vs[t].severity for t in AP_BG} }")
+        if vs[AP_GOLD].severity == "page":
+            paged = vs[AP_GOLD]
+            break
+    check(paged is not None, f"17(b): g0 did not page in {polls} polls")
+    m["b"] = {"polls_to_page": polls, "fast_burn": paged.fast_burn,
+              "slow_burn": paged.slow_burn,
+              "bg_severity": {t: vs[t].severity for t in AP_BG}}
+    log(f"17(b) {AP_LOSS} % loss on g0's a-side links (spec -> "
+        f"store.update -> reconciler): g0 pages after {polls} polls of "
+        f"{AP_POLL_TICKS} fed ticks (fast burn {paged.fast_burn:.2f}, "
+        f"slow {paged.slow_burn:.2f}); t1 / t2 never page "
+        f"({m['b']['bg_severity']})")
+
+    # (e) a gate-rejected one-topology candidate leaves the plane as it
+    # was; (f) the same candidate in dry run: gated, not staged
+    snap = reg.tenant_snapshot(plane, AP_GOLD)
+    props = ap._edge_props(snap, AP_GOLD)
+    uid0 = min(props)
+    one = Candidate(name="shape:one-topology", kind="shape", cost=1,
+                    props_by_uid=((uid0, _scaled_props(
+                        props[uid0], 1.0, 1.0, clear_loss=True)),))
+    del snap
+    before = (ap_columns(engine), ap_registries(engine))
+    l0 = shaping.LAUNCHES["shape_step_rows"]
+    out_e = actuate(plane, reg, AP_GOLD, one, paged,
+                    guardrails=Guardrails(max_delivery_drop=-1.0,
+                                          ticks=gate_ticks,
+                                          dt_us=AP_DT_US),
+                    tick_driver=lambda n: loop.ticks(n, feed=False))
+    check(out_e.rejected and not out_e.staged and not out_e.ok
+          and len(out_e.plans) == 1 and "delivery" in out_e.reason,
+          f"17(e): {out_e}")
+    ap_same_columns(before[0], ap_columns(engine), "17(e)")
+    check(ap_registries(engine) == before[1], "17(e): registries moved")
+    ap.set_dry_run(True)
+    out_f = actuate(plane, reg, AP_GOLD, one, paged,
+                    overrides=cfg.guardrail_overrides,
+                    dry_run=ap.dry_run,
+                    tick_driver=lambda n: loop.ticks(n, feed=False))
+    ap.set_dry_run(False)
+    check(out_f.dry_run and out_f.ok and not out_f.staged
+          and len(out_f.plans) == 1 and out_f.plans[0].gate_ok
+          and "dry-run" in out_f.plans[0].reason, f"17(f): {out_f}")
+    ap_same_columns(before[0], ap_columns(engine), "17(f)")
+    check(ap_registries(engine) == before[1], "17(f): registries moved")
+    m["e"] = {"gate_s": out_e.gate_s, "reason": out_e.reason}
+    m["f"] = {"gate_s": out_f.gate_s,
+              "k1_launches_e_f": shaping.LAUNCHES["shape_step_rows"] - l0}
+    log(f"17(e) a one-topology shape candidate (loss cleared on uid "
+        f"{uid0}) through guardrails that reject it: rejected in "
+        f"{out_e.gate_s:.3f} s ({out_e.reason}); SoA columns and the "
+        f"engine's row / peer / owner / shaped registries unchanged; "
+        f"17(f) the same in dry run: gated ok in {out_f.gate_s:.3f} s, "
+        f"not staged, the plane unchanged ({card})")
+
+    # (c) the search and (d) the gates and the stage, in one poll
+    seen = {"search": [], "gates": []}
+    real_score = ap_controller.score_candidates
+    real_gate = ap_actuator.verify_plan_live
+    real_k1 = shaping.shape_step_flags
+
+    def score(snap, *a, **kw):
+        rows = []
+
+        def k1(state, *ka, **kk):
+            if state.tokens.is_cuda:
+                rows.append(state.capacity)
+            return real_k1(state, *ka, **kk)
+
+        l0 = shaping.LAUNCHES["shape_step_rows"]
+        shaping.shape_step_flags = k1
+        try:
+            sr = real_score(snap, *a, **kw)
+        finally:
+            shaping.shape_step_flags = real_k1
+        _sync(dev)
+        seen["search"].append(dict(
+            snap=snap, args=a, kw=kw, result=sr, rows=rows,
+            launches=shaping.LAUNCHES["shape_step_rows"] - l0))
+        return sr
+
+    def gate(plane_, plan, **kw):
+        l0 = shaping.LAUNCHES["shape_step_rows"]
+        gv = real_gate(plane_, plan, **kw)
+        seen["gates"].append(dict(
+            key=plan.key, ok=gv.ok, gate_s=gv.gate_s, ticks=gv.ticks,
+            replicas=gv.replicas,
+            launches=shaping.LAUNCHES["shape_step_rows"] - l0))
+        return gv
+
+    cols0 = ap_columns(engine)
+    ap_controller.score_candidates = score
+    ap_actuator.verify_plan_live = gate
+    t0 = time.perf_counter()
+    try:
+        acts = ap.poll()
+    finally:
+        ap_controller.score_candidates = real_score
+        ap_actuator.verify_plan_live = real_gate
+    poll_s = time.perf_counter() - t0
+    check(len(seen["search"]) == 1,
+          f"17(c): {len(seen['search'])} searches in the poll")
+    s = seen["search"][0]
+    sr = s["result"]
+    E = s["snap"].sim.edges.capacity
+    check(E == capacity and sr.replicas == sr.candidates + 1,
+          f"17(c): {sr.replicas} replicas of {E} rows")
+    if dev.type == "cuda":
+        check(s["launches"] == steps * cfg.k_slots
+              and s["rows"] == [sr.replicas * E] * len(s["rows"])
+              and len(s["rows"]) == s["launches"],
+              f"17(c): {s['launches']} K1 launches for {steps} steps x "
+              f"{cfg.k_slots} slots (rows {sorted(set(s['rows']))})")
+    check(sr.winner is not None and acts and acts[0]["verdict"]
+          == "staged", f"17(c)/(d): {acts} {sr.winner}")
+    l0 = shaping.LAUNCHES["shape_step_rows"]
+    again = real_score(s["snap"], *s["args"], **s["kw"])
+    _sync(dev)
+    cmp += shaping.LAUNCHES["shape_step_rows"] - l0
+    check([x.candidate.name for x in again.ranked]
+          == [x.candidate.name for x in sr.ranked]
+          and [x.projected_burn for x in again.ranked]
+          == [x.projected_burn for x in sr.ranked]
+          and again.winner.name == sr.winner.name
+          and again.baseline_burn == sr.baseline_burn,
+          "17(c): the same snapshot, seed and verdict ranked differently")
+    cmp += ap_k1_vs_plain(s, dev)
+    m["c"] = {"candidates": sr.candidates, "replicas": sr.replicas,
+              "rows": sr.replicas * E, "steps": steps,
+              "k1_launches": s["launches"], "search_run_s": sr.run_s,
+              "search_compile_s": sr.compile_s,
+              "ms_per_step": sr.run_s * 1e3 / steps,
+              "baseline_burn": sr.baseline_burn,
+              "ranked": [[x.candidate.name, x.projected_burn]
+                         for x in sr.ranked],
+              "winner": sr.winner.name, "poll_s": poll_s}
+    log(f"17(c) one search: {sr.candidates} candidates + the baseline = "
+        f"{sr.replicas} replicas x {E} rows, {steps} steps: ONE sweep, "
+        f"{s['launches']} K1 launches (steps x slots) each over "
+        f"{sr.replicas * E} rows; {sr.run_s:.3f} s "
+        f"({m['c']['ms_per_step']:.3f} ms/step); winner {sr.winner.name} "
+        f"(projected burn {sr.ranked[0].projected_burn:.4f} < baseline "
+        f"{sr.baseline_burn:.4f}); the same snapshot, seed and verdict "
+        f"rank the same, burns bit for bit; {AP_CHECK_STEPS} steps of the "
+        f"grid's rows through K1 == the plain version, bit for bit "
+        f"({card})")
+
+    # (d) the gates, the stage, the verify
+    a0 = acts[0]
+    plans = a0["plans"]
+    check(len(seen["gates"]) == plans and all(x["ok"]
+                                              for x in seen["gates"])
+          and len({x["key"] for x in seen["gates"]}) == plans,
+          f"17(d): {seen['gates']} for {plans} plans")
+    rows_g0_after = reg.rows_of(AP_GOLD)
+    check(np.array_equal(rows_g0_after, rows_g0), "17(d): g0's rows moved")
+    outside = np.setdiff1d(np.arange(capacity), rows_g0)
+    cols1 = ap_columns(engine)
+    ap_same_columns(cols0, cols1, "17(d) rows outside g0", rows=outside)
+    check(not np.array_equal(cols0["props"][rows_g0],
+                             cols1["props"][rows_g0]),
+          "17(d): the staged delta did not reach g0's rows")
+    green = -1
+    for i in range(1, AP_GREEN_POLLS + 1):
+        loop.ticks(AP_POLL_TICKS)
+        ev.maybe_evaluate()
+        ap.poll()
+        vs = ev.verdicts()
+        check(all(vs[t].severity != "page" for t in AP_BG),
+              "17(d): a background tenant pages")
+        if vs[AP_GOLD].severity != "page":
+            green = i
+            break
+    check(green > 0, f"17(d): g0 still pages after {AP_GREEN_POLLS} polls")
+    la = ap.last_action(AP_GOLD) or {}
+    loop.ticks(40, feed=False)
+    c0 = reg.tenant_counters(plane, AP_GOLD)
+    fed0, del0 = loop.fed, loop.delivered
+    loop.ticks(20)
+    loop.ticks(40, feed=False)
+    c1 = reg.tenant_counters(plane, AP_GOLD)
+    post_fed, post_del = loop.fed - fed0, loop.delivered - del0
+    post_lost = sum(c1[k] - c0[k] for k in ("dropped_loss",
+                                            "dropped_queue",
+                                            "dropped_ring"))
+    check(post_fed > 0 and post_lost == 0 and post_del == post_fed
+          and plane.tick_errors == 0,
+          f"17(d): post-cutover fed {post_fed}, delivered {post_del}, "
+          f"lost {post_lost}, tick errors {plane.tick_errors}")
+    gate_s = [x["gate_s"] for x in seen["gates"]]
+    m["d"] = {"plans": plans, "gate_s_per_plan": statistics.median(gate_s),
+              "gate_s": gate_s, "gate_ticks": gate_ticks,
+              "gate_k1_launches": [x["launches"] for x in seen["gates"]],
+              "stage_s": a0["stage_s"], "candidate": a0["candidate"],
+              "kind": a0["kind"], "polls_to_green": green,
+              "time_to_green_s": float(la.get("time_to_green_s", 0.0)),
+              "post_frames_fed": post_fed,
+              "post_frames_delivered": post_del,
+              "post_frames_lost": post_lost,
+              "wall_ms_per_fed_tick": 1e3 * statistics.median(
+                  loop.walls[True]),
+              "wall_ms_per_idle_tick": 1e3 * statistics.median(
+                  loop.walls[False]),
+              "fed_ticks": len(loop.walls[True]),
+              "idle_ticks": len(loop.walls[False])}
+    log(f"17(d) {a0['candidate']} ({a0['kind']}): {plans} plans, each "
+        f"gated first ({m['d']['gate_s_per_plan']:.3f} s a gate of 2 "
+        f"lanes x {gate_ticks} ticks at {capacity} rows), then staged "
+        f"({a0['stage_s']:.3f} s); rows outside g0 byte-identical "
+        f"(uid, src, dst, active, props); green after {green} polls "
+        f"({m['d']['time_to_green_s']:.3f} s from the page); post-cutover "
+        f"{post_fed} fed == {post_del} delivered, lost {post_lost}, tick "
+        f"errors 0; the loop's fed tick "
+        f"{m['d']['wall_ms_per_fed_tick']:.3f} ms (median of "
+        f"{m['d']['fed_ticks']}), idle tick "
+        f"{m['d']['wall_ms_per_idle_tick']:.3f} ms ({card})")
+
+    # (g) the surfaces: RPCs over gRPC, the scrape, the sidecars
+    m["g"] = ap_surfaces(co, plane, ev, ap, card, sidecar_s)
+    plane.stop()
+    k1 = shaping.LAUNCHES["shape_step_rows"] - cmp
+    check(k1 > 0 or dev.type != "cuda", "17: K1 never launched")
+    m["phase_s"] = time.perf_counter() - t_phase
+    return m, k1
+
+
+def ap_k1_vs_plain(s: dict, dev) -> int:
+    """17(c): AP_CHECK_STEPS steps of the search's grid (baseline + every
+    candidate, the same snapshot and seed) through K1 and through the
+    plain version, bit for bit. Returns the K1 launches made."""
+    from kubedtn_tpu_torch.autopilot.search import BASELINE
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.twin import Scenario, run_sweep
+
+    grid = s["args"][3]
+    kw = s["kw"]
+    scen = [Scenario(BASELINE, ())] + [c.scenario() for c in grid]
+    two = dict(steps=AP_CHECK_STEPS, dt_us=kw["dt_us"],
+               k_slots=kw["k_slots"], seed=kw["seed"], keep_final=True)
+    l0 = shaping.LAUNCHES["shape_step_rows"]
+    k = run_sweep(s["snap"], scen, shape_fn=queues.shape_packets, **two)
+    p = run_sweep(s["snap"], scen, shape_fn=queues.shape_packets_plain,
+                  **two)
+    same(k.final, p.final, "17(c) K1 vs the plain version on the "
+                           "search's replica rows")
+    check(k.metrics == p.metrics, "17(c): metrics differ")
+    return shaping.LAUNCHES["shape_step_rows"] - l0
+
+
+def ap_surfaces(co, plane, ev, ap, card, sidecar_s: float) -> dict:
+    """17(g): ObserveSLO / AutopilotCtl / AutopilotStatus over gRPC ==
+    the in-process state; one scrape's kubedtn_slo_* and
+    kubedtn_autopilot_* == the verdicts and AutopilotStats; the
+    sidecars on the real-time plane."""
+    import urllib.request
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.slo.spec import SEVERITY_LEVELS
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    daemon = co["daemon"]
+    out = {}
+    server, port = make_server(daemon, port=0, host="127.0.0.1",
+                               log_rpcs=False)
+    server.start()
+    c = DaemonClient(f"127.0.0.1:{port}")
+    try:
+        for tenant in ("", AP_GOLD, "nope"):
+            payloads = ev.verdict_payloads(tenant=tenant)
+            resp = c.ObserveSLO(pb.ObserveSLORequest(tenant=tenant),
+                                timeout=120)
+            want = [Daemon._slo_tenant_msg(v) for v in payloads]
+            check(resp.ok and len(resp.tenants) == len(want) and all(
+                x.SerializeToString(deterministic=True)
+                == y.SerializeToString(deterministic=True)
+                for x, y in zip(resp.tenants, want))
+                and resp.evaluations == ev.stats.snapshot()["evaluations"]
+                and resp.windows_closed == plane.telemetry.windows_closed,
+                f"17(g): ObserveSLO(tenant={tenant!r}) != "
+                f"verdict_payloads()")
+        for action, en, dry in (("disable", False, False),
+                                ("dry-run-on", False, True),
+                                ("dry-run-off", False, False),
+                                ("enable", True, False)):
+            r = c.AutopilotCtl(pb.AutopilotCtlRequest(action=action),
+                               timeout=60)
+            check(r.ok and (r.enabled, r.dry_run) == (en, dry)
+                  and (ap.enabled, ap.dry_run) == (en, dry),
+                  f"17(g): AutopilotCtl {action}")
+        resp = c.AutopilotStatus(pb.AutopilotStatusRequest(history=10),
+                                 timeout=60)
+        st, hist = ap.status(), ap.history(limit=10)
+        want = [Daemon._autopilot_action_msg(r) for r in hist]
+        check(resp.ok and len(resp.actions) == len(want) >= 1 and all(
+            x.SerializeToString(deterministic=True)
+            == y.SerializeToString(deterministic=True)
+            for x, y in zip(resp.actions, want)),
+            "17(g): AutopilotStatus actions != history()")
+        snap = st["stats"]
+        check((resp.enabled, resp.dry_run, resp.running, resp.pages_seen,
+               resp.searches_run, resp.deltas_staged,
+               resp.deltas_rejected, resp.deltas_rolled_back,
+               resp.escalations)
+              == (st["enabled"], st["dry_run"], st["running"],
+                  snap["pages_seen"], snap["searches_run"],
+                  snap["deltas_staged"], snap["deltas_rejected"],
+                  snap["deltas_rolled_back"], snap["escalations"]),
+              "17(g): AutopilotStatus != status()")
+        check([(s.tenant, s.state, s.pages, s.fails) for s in resp.states]
+              == [(n, x["state"], x["pages"], x["fails"])
+                  for n, x in st["tenants"].items()],
+              "17(g): AutopilotStatus states != status()")
+    finally:
+        c.close()
+        server.stop(0)
+    srv = entry.serve_metrics(daemon, plane, port=0, host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv['port']}/metrics", timeout=300
+        ).read().decode()
+        out["scrape_ms"] = 1e3 * (time.perf_counter() - t0)
+    finally:
+        srv["server"].stop()
+    vs = ev.verdicts()
+    for n, v in vs.items():
+        for fam, val in (("slow_burn", v.slow_burn),
+                         ("fast_burn", v.fast_burn),
+                         ("budget_remaining", v.budget_remaining),
+                         ("severity", SEVERITY_LEVELS[v.severity]),
+                         ("target", v.spec.delivery_ratio_floor)):
+            got = _scrape_values(body, f'kubedtn_slo_{fam}'
+                                       f'{{tenant="{n}"}}')
+            check(got == [float(val)],
+                  f"17(g): kubedtn_slo_{fam}{{{n}}} {got} != {val}")
+    for key, val in ev.stats.snapshot().items():
+        check(_scrape_values(body, f"kubedtn_slo_{key}_total")
+              == [float(val)], f"17(g): kubedtn_slo_{key}_total")
+    for key, val in ap.stats.snapshot().items():
+        check(_scrape_values(body, f"kubedtn_autopilot_{key}_total")
+              == [float(val)], f"17(g): kubedtn_autopilot_{key}_total")
+    check(_scrape_values(body, "kubedtn_autopilot_enabled") == [1.0]
+          and _scrape_values(body, "kubedtn_slo_series_truncated")
+          == [0.0], "17(g): kubedtn_autopilot_enabled / truncation")
+    # the sidecars beside the real-time runner
+    recs = _Records()
+    recs.setLevel(logging.ERROR)
+    logging.getLogger("kubedtn").addHandler(recs)
+    ev0 = ev.stats.snapshot()["evaluations"]
+    w0 = plane.telemetry.windows_closed
+    errs0 = ap.stats.snapshot()["errors"]
+    plane.start()
+    ev.start()
+    ap.start(poll_s=0.25)
+    try:
+        time.sleep(sidecar_s)
+    finally:
+        ap.stop()
+        ev.stop()
+        plane.stop()
+        logging.getLogger("kubedtn").removeHandler(recs)
+    out["sidecar"] = {
+        "seconds": sidecar_s,
+        "evaluations": ev.stats.snapshot()["evaluations"] - ev0,
+        "windows_closed": plane.telemetry.windows_closed - w0,
+        "autopilot_errors": ap.stats.snapshot()["errors"] - errs0,
+        "error_records": recs.lines[:5]}
+    sc = out["sidecar"]
+    check(sc["windows_closed"] >= 1 and sc["evaluations"] >= 1
+          and not recs.lines and sc["autopilot_errors"] == 0
+          and not ev._thread and not ap._thread,
+          f"17(g): the sidecars {sc}")
+    log(f"17(g) ObserveSLO (all, g0, unknown), AutopilotCtl (disable, "
+        f"dry-run on / off, enable) and AutopilotStatus (history 10) over "
+        f"gRPC == verdict_payloads() / status() / history(); one scrape "
+        f"({out['scrape_ms']:.1f} ms, {len(body)} bytes): kubedtn_slo_* "
+        f"== the verdicts and SloStats, kubedtn_autopilot_* == "
+        f"AutopilotStats; the sidecars over {sidecar_s:g} s of the "
+        f"real-time plane: {sc['evaluations']} evaluations on "
+        f"{sc['windows_closed']} window rollovers, no error logged, both "
+        f"threads stopped ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4099,13 +4750,18 @@ def main() -> int:
         log(f"16(f) shm ring to egress {ten_m['f']['frames_per_s']:.1f} "
             f"frames/s against 12(e)'s gRPC "
             f"{plane_m['grpc']['frames_per_s']:.1f} frames/s ({card})")
+    ap_m, ap_k1 = run_autopilot_phase(dev, card)
+    log(f"17: phase {ap_m['phase_s']:.1f} s; autopilot path launches: K1 "
+        f"{ap_k1}")
+    check(ap_k1 > 0, "K1 never launched on the autopilot path")
     release = plane_m["plane"]["stage_depth1"]["share"]["release"]
     log(f"12(b) depth-1 release share {release} with kdt_ext "
         f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
     k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
                 "routed": routed_launches, "plane": plane_k1,
                 "cross_node": xn_k1, "twin": sum(twin_k1.values()),
-                "checkpoint": ckpt_k1, "tenancy": ten_k1}
+                "checkpoint": ckpt_k1, "tenancy": ten_k1,
+                "autopilot": ap_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -4137,7 +4793,7 @@ def main() -> int:
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
               "cross_node": xn_m, "twin": twin_m, "checkpoint": ckpt_m,
-              "tenancy": ten_m,
+              "tenancy": ten_m, "autopilot": ap_m,
               "twin_k1_launches": twin_k1,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))

@@ -22,9 +22,12 @@ With `metrics_port`, either serves the daemon's Prometheus exporter
 tenancy=True)` attaches a tenancy.TenantRegistry before the reconcile
 (every namespace becomes a tenant), `shm_dir` a shm.ShmIngest on that
 directory; `build_plane` wires both into the plane, and
-`restore_daemon` restores a checkpoint's registry. The JAX CLI's daemon
-always attaches a registry; here the default stays without one until
-the port has that CLI.
+`restore_daemon` restores a checkpoint's registry. `build_daemon(...,
+slo=True)` adds the SLO evaluator and the autopilot (disabled unless
+`autopilot=True` or "dry-run") with their sidecars, on a plane with
+telemetry. The JAX CLI's daemon always attaches a registry, and with
+telemetry on the evaluator and the autopilot; here the defaults stay
+without them until the port has that CLI.
 """
 
 from __future__ import annotations
@@ -247,7 +250,8 @@ def serve_metrics(daemon, plane, port: int = 0,
     tenancy registry and shm ingest where attached; the request
     histogram observing every engine op (`engine.stats.observer`) and
     set on the daemon; a MetricsServer started on `port` (0 = pick one).
-    Returns {"server", "registry", "hist", "port"}."""
+    The daemon's SLO evaluator and autopilot, where attached, get their
+    collectors too. Returns {"server", "registry", "hist", "port"}."""
     from kubedtn_tpu_torch.metrics.metrics import (MetricsServer,
                                                    make_registry)
     from kubedtn_tpu_torch.twin.query import stats_for
@@ -259,7 +263,9 @@ def serve_metrics(daemon, plane, port: int = 0,
                                    dataplane=plane,
                                    whatif_stats=stats_for(daemon),
                                    update_stats=ustats_for(daemon),
-                                   tenancy=daemon.tenancy, shm=daemon.shm)
+                                   tenancy=daemon.tenancy, shm=daemon.shm,
+                                   slo=daemon.slo,
+                                   autopilot=daemon.autopilot)
     engine.stats.observer = hist
     daemon.hist = hist
     server = MetricsServer(registry, port=port, host=host)
@@ -273,7 +279,8 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
                  capacity: int = 1 << 18, props=None,
                  node_ip: str = "10.0.0.1", metrics_port: int | None = None,
                  plane_kwargs: dict | None = None, tenancy=False,
-                 shm_dir: str | None = None, crs=None) -> dict:
+                 shm_dir: str | None = None, crs=None, slo: bool = False,
+                 autopilot=False) -> dict:
     """The Clos through the control plane on `device` (None = the CUDA
     card): `clos_crs` into a TopologyStore, one reconciler drain into a
     SimEngine of `capacity` rows, the engine flushed, a Daemon in front.
@@ -294,7 +301,18 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
     `crs` replaces the Clos's CRs (several tenant fabrics of
     `clos_crs(namespace=, uid_base=)`); the realized row count is then
     checked against their links. The dict then also holds "tenancy" and
-    "shm"."""
+    "shm".
+
+    With `slo` (which needs `tenancy`), the SLO plane is wired as
+    cmd_daemon wires it with telemetry on: the plane is built before the
+    drain as for `metrics_port`, its telemetry enabled with cmd_daemon's
+    defaults (1 s windows, every 256th frame sampled), an
+    slo.SloEvaluator and an autopilot.Autopilot over it are attached to
+    the daemon, and after the drain both sidecars start. The autopilot
+    observes but stays disabled unless `autopilot` asks: True enables
+    it, "dry-run" enables it in dry run (either implies `slo`). The dict
+    then also holds "slo" and "autopilot"; the caller stops their
+    sidecars (`stop()`)."""
     from kubedtn_tpu_torch.topology.engine import SimEngine
     from kubedtn_tpu_torch.topology.reconciler import Reconciler
     from kubedtn_tpu_torch.topology.store import TopologyStore
@@ -302,6 +320,10 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
 
     import time
 
+    want_slo = bool(slo or autopilot)
+    if want_slo and not tenancy:
+        raise ValueError("slo= and autopilot= need tenancy=: the "
+                         "evaluator slices the telemetry ring by tenant")
     dev = resolve_device(device)
     store = TopologyStore()
     engine = SimEngine(store, capacity=capacity, node_ip=node_ip,
@@ -312,7 +334,7 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
         store.create(t)
     engine.warm_kernels()
     daemon = Daemon(engine)
-    out = {"tenancy": None, "shm": None}
+    out = {"tenancy": None, "shm": None, "slo": None, "autopilot": None}
     if tenancy:
         from kubedtn_tpu_torch.tenancy import TenantRegistry
 
@@ -327,8 +349,12 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
 
         os.makedirs(shm_dir, exist_ok=True)
         out["shm"] = daemon.shm = ShmIngest(shm_dir)
-    if metrics_port is not None:
+    if metrics_port is not None or want_slo:
         out["plane"] = build_plane(daemon, **(plane_kwargs or {}))
+    if want_slo:
+        out["plane"].enable_telemetry(window_s=1.0, sample_period=256)
+        _attach_slo(daemon, out, autopilot)
+    if metrics_port is not None:
         out["metrics"] = serve_metrics(daemon, out["plane"], metrics_port)
     rec = Reconciler(store, engine)
     t0 = time.perf_counter()
@@ -343,7 +369,30 @@ def build_daemon(device=None, n_spine: int = N_SPINE, n_leaf: int = N_LEAF,
                              f"expected {2 * n_links}")
     out.update(store=store, engine=engine, reconciler=rec, daemon=daemon,
                crs=crs, reconcile_s=reconcile_s)
+    if out["slo"] is not None:
+        out["slo"].start()
+    if out["autopilot"] is not None:
+        out["autopilot"].start()
     return out
+
+
+def _attach_slo(daemon, out: dict, autopilot) -> None:
+    """The SLO evaluator over the daemon's registry and plane and the
+    autopilot over it, attached to the daemon and set in `out`: the
+    autopilot enabled for `autopilot` True or "dry-run", in dry run for
+    the latter."""
+    from kubedtn_tpu_torch.autopilot import Autopilot
+    from kubedtn_tpu_torch.slo import SloEvaluator
+
+    plane = out["plane"]
+    out["slo"] = SloEvaluator(daemon.tenancy, plane).attach(daemon)
+    ap = Autopilot(daemon.tenancy, plane, out["slo"],
+                   fleet=daemon.fleet).attach(daemon)
+    if autopilot:
+        ap.enable()
+    if autopilot == "dry-run":
+        ap.set_dry_run(True)
+    out["autopilot"] = ap
 
 
 def build_plane(daemon, **kwargs):

@@ -20,12 +20,15 @@ labels and buckets the JAX package's daemon serves on :51112/metrics.
   `kubedtn_tick_latency_seconds{cause}`: the live plane's own series.
 - `kubedtn_tenant_*` per tenant of the tenancy registry and
   `kubedtn_shm_*` from the shared-memory ingest plane.
+- `kubedtn_slo_*` per tenant of the SLO evaluator and
+  `kubedtn_autopilot_*` from the SLO autopilot, each with its per-tenant
+  series cap.
 
 Mapping from simulation taxa to interface counters:
 - tx_dropped  ← netem loss + TBF queue + delay-ring drops (egress side)
 - rx_errors   ← corrupt-flagged deliveries
 
-Not ported yet: the SLO, autopilot, migration and fleet collectors;
+Not ported yet: the migration and fleet collectors (the federation);
 `make_registry` refuses their arguments with a ValueError naming the
 collector. `prometheus_client` is imported by this
 module only.
@@ -763,6 +766,195 @@ class ShmStatsCollector:
         return out
 
 
+class SloStatsCollector:
+    """kubedtn_slo_* series from the SLO evaluator (kubedtn_tpu_torch.slo) —
+    the observability plane's scrape face: per-tenant attainment vs
+    target, estimated latency tails (past the bucket ladder via the
+    censored-tail fit; the companion `censored` gauge says when even
+    the fit had to clamp), multi-window burn rates, remaining error
+    budget and severity, plus evaluator volume counters.
+
+    Cardinality guard (the InterfaceStatsCollector truncation-guard
+    pattern): per-tenant series for at most `max_tenants` tenants
+    (name-sorted, stable across scrapes), the tail counted by
+    `kubedtn_slo_series_truncated`. Scrapes read the LATEST verdicts;
+    the evaluator re-evaluates first only when a telemetry window
+    rolled over since (one counter read otherwise)."""
+
+    GAUGE_KEYS = (
+        ("attainment", "Delivery ratio over the slow burn window "
+                       "(-1 = no traffic observed)"),
+        ("target", "The tenant's SLO delivery-ratio floor"),
+        ("p99_us", "Estimated p99 shaping latency (µs; censored-tail "
+                   "fit past the bucket ladder)"),
+        ("p999_us", "Estimated p99.9 shaping latency (µs)"),
+        ("p99_censored", "1 = the p99 is clamped at the ladder's open "
+                         "top bucket (real value >= reported)"),
+        ("fast_burn", "Error-budget burn rate over the fast window"),
+        ("slow_burn", "Error-budget burn rate over the slow window"),
+        ("budget_remaining", "Fraction of the slow-window error "
+                             "budget left (0 = exhausted)"),
+        ("throttle_backlog", "Average frames parked behind the "
+                             "tenant's admission throttle"),
+        ("severity", "Verdict severity (0=ok, 1=warn, 2=page)"),
+    )
+    COUNTER_SNAP = (
+        ("evaluations", "SLO evaluation passes run"),
+        ("windows_evaluated", "Telemetry window rollovers evaluated"),
+        ("pages", "Page-severity verdicts emitted"),
+        ("warns", "Warn-severity verdicts emitted"),
+        ("tail_fits", "Verdicts whose p99.9 came from the "
+                      "censored-tail fit (estimated past the ladder)"),
+        ("censored_clamps", "Verdicts whose p99.9 fell back to the "
+                            "censored clamp (tail fit refused)"),
+    )
+
+    def __init__(self, evaluator, max_tenants: int = 256) -> None:
+        self._ev = evaluator
+        self._max_tenants = max_tenants
+
+    def collect(self):
+        from kubedtn_tpu_torch.slo.spec import SEVERITY_LEVELS
+
+        out = []
+        verdicts = self._ev.verdicts()
+        names = sorted(verdicts)
+        truncated = max(0, len(names) - self._max_tenants)
+        fams = {}
+        for key, doc in self.GAUGE_KEYS:
+            fams[key] = GaugeMetricFamily(f"kubedtn_slo_{key}", doc,
+                                          labels=["tenant"])
+        for name in names[:self._max_tenants]:
+            v = verdicts[name]
+            lab = [name]
+            vals = {
+                "attainment": (-1.0 if v.delivery_ratio is None
+                               else v.delivery_ratio),
+                "target": v.spec.delivery_ratio_floor,
+                "p99_us": -1.0 if v.p99_us is None else v.p99_us,
+                "p999_us": -1.0 if v.p999_us is None else v.p999_us,
+                "p99_censored": 1.0 if v.p99_censored else 0.0,
+                "fast_burn": v.fast_burn,
+                "slow_burn": v.slow_burn,
+                "budget_remaining": v.budget_remaining,
+                "throttle_backlog": v.throttle_backlog,
+                "severity": SEVERITY_LEVELS.get(v.severity, -1),
+            }
+            for key, fam in fams.items():
+                fam.add_metric(lab, float(vals[key]))
+        out.extend(fams.values())
+        snap = self._ev.stats.snapshot()
+        for key, doc in self.COUNTER_SNAP:
+            c = CounterMetricFamily(f"kubedtn_slo_{key}", doc)
+            c.add_metric([], float(snap[key]))
+            out.append(c)
+        trunc = GaugeMetricFamily(
+            "kubedtn_slo_series_truncated",
+            "Tenants beyond the per-tenant SLO series cap "
+            "(0 = full coverage)")
+        trunc.add_metric([], float(truncated))
+        out.append(trunc)
+        return out
+
+
+class AutopilotStatsCollector:
+    """kubedtn_autopilot_* series from the SLO autopilot
+    (kubedtn_tpu_torch.autopilot) — the remediation loop's scrape face: the
+    loop switches (enabled / dry-run / sidecar running), each tenant's
+    state-machine position and hysteresis counters, and the cumulative
+    action ledger (pages seen, searches run, deltas staged / rejected
+    / rolled back, escalations) plus where the wall time went (sweep
+    compile vs run, time-to-green).
+
+    Cardinality guard (the SloStatsCollector truncation-guard
+    pattern): per-tenant series for at most `max_tenants` tenants,
+    name-sorted so the kept set is stable across scrapes, the tail
+    counted by `kubedtn_autopilot_series_truncated`."""
+
+    GAUGE_KEYS = (
+        ("state", "Autopilot state machine position (0=observe, "
+                  "1=search, 2=stage, 3=verify, 4=hold)"),
+        ("pages", "Consecutive paging polls observed (hysteresis "
+                  "counter; resets on remediation or recovery)"),
+        ("fails", "Consecutive failed remediations (feeds fleet "
+                  "escalation)"),
+        ("hold_remaining_s", "Seconds of cooldown left before the "
+                             "tenant can page again (0 = armed)"),
+    )
+    COUNTER_SNAP = (
+        ("pages_seen", "Page-severity verdicts that entered the loop"),
+        ("searches_run", "Candidate sweeps run (one batched twin "
+                         "sweep each)"),
+        ("candidates_evaluated", "Candidate replicas scored across "
+                                 "all sweeps"),
+        ("deltas_staged", "Winning deltas staged onto the live plane"),
+        ("deltas_rolled_back", "Staged deltas the watch rolled back"),
+        ("deltas_rejected", "Winning deltas the twin gate rejected"),
+        ("quota_actions", "Admission-plane actions (quota trim / "
+                          "drain boost)"),
+        ("escalations", "Fleet rebalance escalations triggered"),
+        ("no_candidate", "Searches where nothing beat the baseline"),
+        ("dry_runs", "Actions evaluated but not staged (dry-run)"),
+        ("greens", "Remediations verified back below page severity"),
+        ("stales", "Remediations that never went green in the verify "
+                   "window"),
+        ("errors", "Remediation attempts that raised"),
+        ("time_to_green_s", "Wall seconds from page to verified "
+                            "green, summed"),
+        ("sweep_compile_s", "Wall seconds compiling candidate sweeps"),
+        ("sweep_run_s", "Wall seconds executing candidate sweeps"),
+    )
+
+    def __init__(self, autopilot, max_tenants: int = 256) -> None:
+        self._ap = autopilot
+        self._max_tenants = max_tenants
+
+    def collect(self):
+        from kubedtn_tpu_torch.autopilot.controller import STATE_LEVELS
+
+        st = self._ap.status()
+        out = []
+        for key, doc in (("enabled", "1 = the autopilot acts on pages"),
+                         ("dry_run", "1 = evaluate and gate only, "
+                                     "stage nothing"),
+                         ("running", "1 = the sidecar poll thread is "
+                                     "alive")):
+            g = GaugeMetricFamily(f"kubedtn_autopilot_{key}", doc)
+            g.add_metric([], 1.0 if st[key] else 0.0)
+            out.append(g)
+        tenants = st["tenants"]
+        names = sorted(tenants)
+        truncated = max(0, len(names) - self._max_tenants)
+        fams = {}
+        for key, doc in self.GAUGE_KEYS:
+            fams[key] = GaugeMetricFamily(f"kubedtn_autopilot_{key}",
+                                          doc, labels=["tenant"])
+        for name in names[:self._max_tenants]:
+            t = tenants[name]
+            lab = [name]
+            vals = {
+                "state": STATE_LEVELS.get(t["state"], -1),
+                "pages": t["pages"],
+                "fails": t["fails"],
+                "hold_remaining_s": t["hold_remaining_s"],
+            }
+            for key, fam in fams.items():
+                fam.add_metric(lab, float(vals[key]))
+        out.extend(fams.values())
+        snap = st["stats"]
+        for key, doc in self.COUNTER_SNAP:
+            c = CounterMetricFamily(f"kubedtn_autopilot_{key}", doc)
+            c.add_metric([], float(snap[key]))
+            out.append(c)
+        trunc = GaugeMetricFamily(
+            "kubedtn_autopilot_series_truncated",
+            "Tenants beyond the per-tenant autopilot series cap "
+            "(0 = full coverage)")
+        trunc.add_metric([], float(truncated))
+        out.append(trunc)
+        return out
+
+
 class MetricsServer:
     """Serves the registry on an HTTP port — the daemon's :51112/metrics
     endpoint (reference daemon/main.go:57-66)."""
@@ -820,9 +1012,7 @@ class MetricsServer:
 
 # make_registry's arguments whose collectors are not ported yet
 _NOT_PORTED = {"migration_stats": "MigrationStatsCollector",
-               "fleet": "FleetStatsCollector",
-               "slo": "SloStatsCollector",
-               "autopilot": "AutopilotStatsCollector"}
+               "fleet": "FleetStatsCollector"}
 
 
 def make_registry(engine=None, sim_counters_fn=None,
@@ -833,8 +1023,7 @@ def make_registry(engine=None, sim_counters_fn=None,
     """Registry with the parity collectors installed, and the request
     histogram (the JAX package's signature). Passing an argument whose
     collector is not ported yet raises ValueError naming it."""
-    given = {"migration_stats": migration_stats, "fleet": fleet,
-             "slo": slo, "autopilot": autopilot}
+    given = {"migration_stats": migration_stats, "fleet": fleet}
     for arg, value in given.items():
         if value is not None:
             raise ValueError(
@@ -858,6 +1047,12 @@ def make_registry(engine=None, sim_counters_fn=None,
     if tenancy is not None:
         registry.register(TenantStatsCollector(
             tenancy, dataplane, max_tenants=max_tenants))
+    if slo is not None:
+        registry.register(SloStatsCollector(slo,
+                                            max_tenants=max_tenants))
     if shm is not None:
         registry.register(ShmStatsCollector(shm))
+    if autopilot is not None:
+        registry.register(AutopilotStatsCollector(
+            autopilot, max_tenants=max_tenants))
     return registry, hist

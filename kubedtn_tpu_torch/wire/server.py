@@ -43,9 +43,16 @@ shared-memory rings' committed frames into the same batches and backlog.
 (`slice_frames` of native/kdt_ext.c, built by kubedtn_tpu_torch.native)
 and keeps the pure-Python path where the Python headers do not resolve.
 
-Not ported yet (the RPCs answer UNIMPLEMENTED): ObserveSLO,
-AutopilotCtl/Status, MigrateTenant / MigrationStatus and FleetStatus /
-FleetUpgrade.
+ObserveSLO serves the SLO evaluator (kubedtn_tpu_torch.slo) that its
+`attach` installs as `slo`, created on first use where the daemon has a
+tenancy registry and a plane with telemetry; AutopilotCtl and
+AutopilotStatus serve the autopilot (kubedtn_tpu_torch.autopilot)
+installed as `autopilot`. `fleet` and `federation` stay None until the
+federation is ported, and ObserveSLO's fleet and frozen-window branches
+with them.
+
+Not ported yet (the RPCs answer UNIMPLEMENTED): MigrateTenant /
+MigrationStatus and FleetStatus / FleetUpgrade.
 """
 
 from __future__ import annotations
@@ -483,6 +490,19 @@ class Daemon:
         # Local.Tenant* RPCs answer from it (without one they answer
         # ok=False "tenancy not enabled")
         self.tenancy = None
+        # the federation's controller and fleet supervisor: ObserveSLO's
+        # plane name, frozen windows and fleet merge read them. The port
+        # has no federation yet, so both stay None.
+        self.federation = None
+        self.fleet = None
+        # slo.SloEvaluator installed by its attach(): the
+        # Local.ObserveSLO surface (absent = the RPC answers ok=False
+        # "slo evaluation not enabled")
+        self.slo = None
+        # autopilot.Autopilot installed by its attach(): the
+        # Local.AutopilotCtl / Local.AutopilotStatus surface (absent =
+        # the RPCs answer ok=False "autopilot not attached")
+        self.autopilot = None
         # optional shm.ShmIngest — the shared-memory ingest plane:
         # drain_ingress folds its rings' committed frames into each
         # drain (None = gRPC ingress only)
@@ -935,13 +955,225 @@ class Daemon:
         return pb.TenantResponse(ok=True, tenant=pb.TenantInfo(
             name=t.name, qos=t.qos, namespaces=sorted(t.namespaces)))
 
+    # -- the SLO plane and the autopilot --------------------------------
+
+    @staticmethod
+    def _slo_tenant_msg(v: dict, plane: str = ""):
+        """One verdict dict (SloVerdict.to_dict / a fleet-merged row /
+        a frozen journal slice) as the wire row."""
+        pb = _pb()
+        nn = lambda x: -1.0 if x is None else float(x)  # noqa: E731
+        spec = v.get("spec") or {}
+        return pb.SloTenant(
+            tenant=v.get("tenant", ""), qos=v.get("qos") or "",
+            delivery_ratio_floor=float(
+                spec.get("delivery_ratio_floor", 0.0)),
+            p99_bound_us=float(spec.get("p99_bound_us", 0.0)),
+            p999_bound_us=float(spec.get("p999_bound_us", 0.0)),
+            fast_windows=int(spec.get("fast_windows", 0)),
+            slow_windows=int(spec.get("slow_windows", 0)),
+            warn_burn=float(spec.get("warn_burn", 0.0)),
+            page_burn=float(spec.get("page_burn", 0.0)),
+            window_seconds=float(v.get("window_seconds", 0.0)),
+            tx=float(v.get("tx", 0.0)),
+            delivered=float(v.get("delivered", 0.0)),
+            delivery_ratio=nn(v.get("delivery_ratio")),
+            p50_us=nn(v.get("p50_us")), p99_us=nn(v.get("p99_us")),
+            p99_censored=bool(v.get("p99_censored", False)),
+            p999_us=nn(v.get("p999_us")),
+            tail_method=v.get("tail_method", ""),
+            fast_burn=float(v.get("fast_burn", 0.0)),
+            slow_burn=float(v.get("slow_burn", 0.0)),
+            budget_remaining=float(v.get("budget_remaining", 0.0)),
+            throttle_backlog=float(v.get("throttle_backlog", 0.0)),
+            attainment_ok=bool(v.get("attainment_ok", False)),
+            latency_ok=bool(v.get("latency_ok", False)),
+            severity=v.get("severity", ""),
+            hist=[float(x) for x in v.get("hist") or ()],
+            frozen=bool(v.get("frozen", False)),
+            plane=v.get("plane", plane),
+            planes=list(v.get("planes") or ()),
+            frozen_planes=list(v.get("frozen_planes") or ()),
+            frozen_tx=float(v.get("frozen_tx", 0.0)),
+            frozen_delivered=float(v.get("frozen_delivered", 0.0)))
+
+    def ObserveSLO(self, request, context):
+        """Framework extension: the SLO observability plane
+        (kubedtn_tpu_torch.slo) — per-tenant attainment, censored-tail
+        estimates, burn rates and error budgets from the continuously-
+        evaluated verdicts. With `fleet=true` and a fleet supervisor
+        attached, serves the supervisor's cross-plane merge instead.
+
+        A plane that MIGRATED a tenant away also answers with the
+        journal's RECONCILE-frozen window slice for it (`frozen=true`
+        rows). Both branches read the federation, which the port does
+        not have yet: they stay dormant while `fleet` and `federation`
+        are None."""
+        pb = _pb()
+        ev = self.slo
+        if ev is None:
+            from kubedtn_tpu_torch.slo import evaluator_for
+
+            ev = evaluator_for(self)
+        if ev is None:
+            return pb.ObserveSLOResponse(
+                ok=False, error="slo evaluation not enabled on this "
+                                "daemon (needs tenancy + telemetry)")
+        plane_name = ""
+        if self.federation is not None:
+            try:
+                plane_name = self.federation.plane_name_of(self)
+            except Exception:
+                plane_name = ""
+        try:
+            if request.fleet and self.fleet is not None:
+                # serve the supervision sweep's cached merge; recompute
+                # only before the first sweep lands
+                merged = self.fleet.last_fleet_slo()
+                if merged:
+                    if request.tenant:
+                        merged = {k: v for k, v in merged.items()
+                                  if k == request.tenant}
+                else:
+                    merged = self.fleet.fleet_slo(
+                        tenant=request.tenant)
+                snap = ev.stats.snapshot()
+                tel = getattr(self.dataplane, "telemetry", None)
+                return pb.ObserveSLOResponse(
+                    ok=True, fleet=True, plane=plane_name,
+                    evaluations=snap["evaluations"],
+                    windows_closed=tel.windows_closed if tel else 0,
+                    tenants=[self._slo_tenant_msg(v)
+                             for _t, v in sorted(merged.items())])
+            payloads = ev.verdict_payloads(tenant=request.tenant)
+            rows = [self._slo_tenant_msg(v, plane=plane_name)
+                    for v in payloads]
+            if self.federation is not None and plane_name:
+                # frozen slices for tenants this plane migrated away
+                from kubedtn_tpu_torch.slo.fleet import from_frozen_window
+
+                served = {p["tenant"] for p in payloads}
+                for src, ten, win, qos in self.federation \
+                        .frozen_windows(tenant=request.tenant,
+                                        src=plane_name):
+                    if ten in served:
+                        continue
+                    c = from_frozen_window(src, win, qos=qos)
+                    if c is not None:
+                        c["tenant"] = ten
+                        rows.append(self._slo_tenant_msg(c, plane=src))
+        except Exception as e:  # a query must never kill the daemon
+            return pb.ObserveSLOResponse(
+                ok=False, error=f"{type(e).__name__}: {e}")
+        tel = getattr(self.dataplane, "telemetry", None)
+        snap = ev.stats.snapshot()
+        return pb.ObserveSLOResponse(
+            ok=True, plane=plane_name, tenants=rows,
+            windows_closed=tel.windows_closed if tel else 0,
+            evaluations=snap["evaluations"])
+
+    @staticmethod
+    def _autopilot_action_msg(rec: dict):
+        return _pb().AutopilotAction(
+            id=int(rec.get("id", 0)), t=float(rec.get("t", 0.0)),
+            tenant=rec.get("tenant", ""), kind=rec.get("kind", ""),
+            candidate=rec.get("candidate", ""),
+            verdict=rec.get("verdict", ""),
+            reason=rec.get("reason", ""),
+            staged=bool(rec.get("staged", False)),
+            rejected=bool(rec.get("rejected", False)),
+            rolled_back=bool(rec.get("rolled_back", False)),
+            dry_run=bool(rec.get("dry_run", False)),
+            candidates=int(rec.get("candidates", 0)),
+            plans=int(rec.get("plans", 0)),
+            baseline_burn=float(rec.get("baseline_burn", 0.0)),
+            projected_burn=float(rec.get("projected_burn", 0.0)),
+            compile_s=float(rec.get("compile_s", 0.0)),
+            run_s=float(rec.get("run_s", 0.0)),
+            gate_s=float(rec.get("gate_s", 0.0)),
+            stage_s=float(rec.get("stage_s", 0.0)),
+            time_to_green_s=float(rec.get("time_to_green_s", 0.0)))
+
+    def AutopilotCtl(self, request, context):
+        """Framework extension: the autopilot's switches —
+        enable/disable the loop, toggle dry-run (gate-and-record
+        without staging). kubedtn_tpu_torch.autopilot."""
+        pb = _pb()
+        ap = self.autopilot
+        if ap is None:
+            return pb.AutopilotCtlResponse(
+                ok=False, error="autopilot not attached to this daemon")
+        try:
+            action = request.action or "status"
+            if action == "enable":
+                ap.enable()
+            elif action == "disable":
+                ap.disable()
+            elif action == "dry-run-on":
+                ap.set_dry_run(True)
+            elif action == "dry-run-off":
+                ap.set_dry_run(False)
+            elif action != "status":
+                return pb.AutopilotCtlResponse(
+                    ok=False, error=f"unknown action {action!r} "
+                    f"(enable|disable|dry-run-on|dry-run-off|status)")
+            return pb.AutopilotCtlResponse(
+                ok=True, enabled=ap.enabled, dry_run=ap.dry_run)
+        except Exception as e:
+            return pb.AutopilotCtlResponse(
+                ok=False, error=f"{type(e).__name__}: {e}")
+
+    def AutopilotStatus(self, request, context):
+        """Framework extension: the autopilot's per-tenant state
+        machine positions, each tenant's last action, and (with
+        `history` > 0) the action ring — the `kdt autopilot` audit
+        surface."""
+        pb = _pb()
+        ap = self.autopilot
+        if ap is None:
+            return pb.AutopilotStatusResponse(
+                ok=False, error="autopilot not attached to this daemon")
+        try:
+            st = ap.status()
+            states = []
+            for name, s in st["tenants"].items():
+                if request.tenant and name != request.tenant:
+                    continue
+                msg = pb.AutopilotTenantState(
+                    tenant=name, state=s["state"],
+                    pages=int(s["pages"]), fails=int(s["fails"]),
+                    hold_remaining_s=float(s["hold_remaining_s"]))
+                if s.get("last_action"):
+                    msg.last_action.CopyFrom(
+                        self._autopilot_action_msg(s["last_action"]))
+                states.append(msg)
+            actions = []
+            if request.history:
+                actions = [self._autopilot_action_msg(r)
+                           for r in ap.history(
+                               tenant=request.tenant,
+                               limit=int(request.history))]
+            snap = st["stats"]
+            return pb.AutopilotStatusResponse(
+                ok=True, enabled=st["enabled"],
+                dry_run=st["dry_run"], running=st["running"],
+                states=states, actions=actions,
+                pages_seen=int(snap["pages_seen"]),
+                searches_run=int(snap["searches_run"]),
+                deltas_staged=int(snap["deltas_staged"]),
+                deltas_rejected=int(snap["deltas_rejected"]),
+                deltas_rolled_back=int(snap["deltas_rolled_back"]),
+                escalations=int(snap["escalations"]))
+        except Exception as e:
+            return pb.AutopilotStatusResponse(
+                ok=False, error=f"{type(e).__name__}: {e}")
+
     # -- surfaces not ported yet --------------------------------------
 
     def _unimplemented(self, request, context):
         _abort(context, "UNIMPLEMENTED",
                "not implemented by this daemon yet")
 
-    ObserveSLO = AutopilotCtl = AutopilotStatus = _unimplemented
     MigrateTenant = MigrationStatus = _unimplemented
     FleetStatus = FleetUpgrade = _unimplemented
 

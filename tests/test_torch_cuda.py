@@ -1078,3 +1078,59 @@ def test_tenant_scoped_sweep_k1_equals_plain_on_card(dev):
     outside = np.setdiff1d(np.arange(tx.shape[1]), rows)
     assert not tx[:, outside].any() and tx[0, rows].sum() > 0
     plane.stop()
+
+
+# -- the SLO autopilot's search on the card -----------------------------------
+
+def test_autopilot_search_k1_equals_plain_on_card(dev):
+    """A paged gold tenant's grid scored on the card: ONE sweep, one K1
+    launch per slot and step over (1 + candidates) x E rows; the same
+    seed ranks the same again, bit for bit; the grid's sweep through K1
+    == the same sweep over the plain step, bit for bit."""
+    from kubedtn_tpu_torch import sim
+    from kubedtn_tpu_torch.autopilot import (Autopilot, candidate_grid,
+                                             score_candidates)
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.slo import SloSpec, evaluate_tenant
+    from kubedtn_tpu_torch.telemetry import KCOLS, T_DELIVERED, T_TX
+    from kubedtn_tpu_torch.twin import Scenario, run_sweep
+    from kubedtn_tpu_torch.twin.query import build_cbr_spec
+
+    from _torch_tenant_harness import mods, tenant_plane
+
+    props = {"t0": dict(latency="2ms", loss="25"),
+             "t1": dict(latency="1ms", rate="2Mbit")}
+    plane, reg, _w = tenant_plane(mods("torch"), sorted(props), props,
+                                  device=dev)
+    snap = reg.tenant_snapshot(plane, "t0")
+    row = np.zeros(KCOLS)
+    row[T_TX], row[T_DELIVERED] = 1000.0, 750.0
+    v = evaluate_tenant("t0", "gold", SloSpec.for_qos("gold"), row, 5.0,
+                        row)
+    grid = candidate_grid(v, Autopilot(reg, plane, None)._edge_props(
+        snap, "t0"), seed=0, width=2)
+    steps, k = 20, 4
+    before = shaping.LAUNCHES["shape_step_rows"]
+    a = score_candidates(snap, "t0", "gold", v.spec, grid, verdict=v,
+                         steps=steps, seed=3, k_slots=k)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + steps * k
+    assert a.replicas == len(grid) + 1 and a.winner is not None
+    b = score_candidates(snap, "t0", "gold", v.spec, grid, verdict=v,
+                         steps=steps, seed=3, k_slots=k)
+    assert [(s.candidate.name, s.projected_burn) for s in a.ranked] == \
+        [(s.candidate.name, s.projected_burn) for s in b.ranked]
+    scen = [Scenario("baseline", ())] + [c.scenario() for c in grid]
+    spec = build_cbr_spec(snap.sim.edges)
+    g = torch.Generator(device=dev).manual_seed(8)
+    dt = sim.as_dt(1000.0, dev)
+    draws = [sim.StepDraws(traffic=traffic.draw(spec, dt, k, g),
+                           shape_u=queues.draw_shape_uniforms(
+                               snap.sim.edges, k, g))
+             for _ in range(4)]
+    kw = dict(steps=4, dt_us=1000.0, spec=spec, k_slots=k,
+              keep_final=True, draws=draws)
+    card = run_sweep(snap, scen, **kw)
+    plain = run_sweep(snap, scen, shape_fn=queues.shape_packets_plain, **kw)
+    _assert_trees_bitwise(card.final, plain.final)
+    plane.stop()

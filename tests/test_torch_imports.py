@@ -75,6 +75,15 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.tenancy.registry", "kubedtn_tpu_torch.shm",
     "kubedtn_tpu_torch.shm.ring", "kubedtn_tpu_torch.shm.ingest",
     "kubedtn_tpu_torch.shm.sender", "kubedtn_tpu_torch.shm.producer",
+    # the SLO plane, the autopilot and burn_recovery's scenarios module
+    "kubedtn_tpu_torch.slo", "kubedtn_tpu_torch.slo.spec",
+    "kubedtn_tpu_torch.slo.tail", "kubedtn_tpu_torch.slo.evaluator",
+    "kubedtn_tpu_torch.slo.fleet", "kubedtn_tpu_torch.autopilot",
+    "kubedtn_tpu_torch.autopilot.candidates",
+    "kubedtn_tpu_torch.autopilot.search",
+    "kubedtn_tpu_torch.autopilot.actuator",
+    "kubedtn_tpu_torch.autopilot.controller",
+    "kubedtn_tpu_torch.scenarios",
 )
 
 

@@ -12,7 +12,8 @@ histogram's name and buckets, the node aggregates and the per-interface
 series cap, deleted links left out of the totals, the dataplane, pause
 and link-telemetry series, the HTTP server (404, concurrent scrapes, a
 collector raising mid-scrape), make_registry refusing the collectors
-that are not ported yet, and the shared-memory ingest series after the
+that are not ported yet (migration, fleet) and accepting the SLO and
+autopilot ones, and the shared-memory ingest series after the
 same ring traffic (the tenant series are held in test_torch_tenancy.py).
 """
 
@@ -217,11 +218,29 @@ def test_whatif_and_update_series_equal_jax():
 
 @pytest.mark.parametrize("arg,collector", [
     ("migration_stats", "MigrationStatsCollector"),
-    ("fleet", "FleetStatsCollector"), ("slo", "SloStatsCollector"),
-    ("autopilot", "AutopilotStatsCollector")])
+    ("fleet", "FleetStatsCollector")])
 def test_make_registry_refuses_unported_collectors(arg, collector):
     with pytest.raises(ValueError, match=collector):
         tm.make_registry(**{arg: object()})
+
+
+@pytest.mark.parametrize("arg,family", [
+    ("slo", "kubedtn_slo_evaluations_total"),
+    ("autopilot", "kubedtn_autopilot_searches_run_total")])
+def test_make_registry_accepts_slo_and_autopilot(arg, family):
+    """make_registry(slo=, autopilot=) registers the SLO and autopilot
+    collectors (their series against JAX's are held in
+    test_torch_slo.py and test_torch_autopilot.py)."""
+    from prometheus_client import generate_latest
+
+    from kubedtn_tpu_torch.autopilot import Autopilot
+    from kubedtn_tpu_torch.slo import SloStats
+
+    ev = types.SimpleNamespace(verdicts=dict, stats=SloStats())
+    obj = ev if arg == "slo" else Autopilot(None, None, ev)
+    reg, _h = tm.make_registry(**{arg: obj})
+    text = generate_latest(reg).decode()
+    assert f"{family} 0.0" in text
 
 
 def _shm_feed(pkg, sc, tmp_path):

@@ -314,16 +314,38 @@ def test_rpc_observers_and_health(served, client):
 
 
 @pytest.mark.parametrize("method,req", [
-    ("AutopilotCtl", "AutopilotCtlRequest"),
-    ("ObserveSLO", "ObserveSLORequest"),
     ("MigrationStatus", "MigrationStatusRequest"),
     ("MigrateTenant", "MigrateRequest"),
     ("FleetStatus", "FleetStatusRequest"),
-    ("AutopilotStatus", "AutopilotStatusRequest")])
+    ("FleetUpgrade", "FleetUpgradeRequest")])
 def test_rpc_not_ported_answer_unimplemented(served, client, method, req):
+    """Only the four federation RPCs are still not ported."""
     with pytest.raises(grpc.RpcError) as e:
         getattr(client.c, method)(getattr(client.pb, req)())
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+
+
+@pytest.mark.parametrize("method,req", [
+    ("ObserveSLO", "ObserveSLORequest"),
+    ("AutopilotCtl", "AutopilotCtlRequest"),
+    ("AutopilotStatus", "AutopilotStatusRequest")])
+def test_rpc_slo_and_autopilot_refuse_like_jax(client, method, req):
+    """On a daemon without a tenancy registry and a telemetry plane
+    (ObserveSLO) or without an autopilot (AutopilotCtl/Status), the
+    port answers the JAX daemon's refusal, field by field."""
+    got = {}
+    for pkg in ("port", "jax"):
+        _daemon, server, port = _serve_fresh(pkg)
+        mod = tclient if client.pb is tpb else jclient
+        c = mod.DaemonClient(f"127.0.0.1:{port}")
+        try:
+            got[pkg] = getattr(c, method)(getattr(client.pb, req)())
+        finally:
+            c.close()
+            server.stop(0)
+    assert not got["port"].ok and got["port"].error
+    assert got["port"].SerializeToString(deterministic=True) == \
+        got["jax"].SerializeToString(deterministic=True)
 
 
 def test_tenant_rpcs_over_grpc(served, client):
