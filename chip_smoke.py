@@ -192,7 +192,34 @@ Phases, each fatal on failure:
      and 40 idle ticks lose no frame; (g) ObserveSLO, AutopilotCtl and
      AutopilotStatus over gRPC == the in-process state, a scrape's
      kubedtn_slo_* / kubedtn_autopilot_* == the verdicts and the stats,
-     the sidecars over 4 s of the real-time plane.
+     the sidecars over 4 s of the real-time plane;
+ 18. live tenant migration, K1's and K4's launches counted from 0 around
+     the phase: plane A holds phase 16's t0, t1, t2 (199,200 rows in
+     2^18, t1 in its 70,000-row block) at depth 2 on 2 virtual shards
+     (K4 on every dispatch), with telemetry; plane B holds b0 (4 pod
+     pairs at 2 ms, phase 17's g0 shape) in 2^18 rows at depth 2; A'
+     and B' are the same planes never migrated (A' unsharded); one
+     seed, lockstep explicit-clock ticks of 10 ms; 2,048 spine links a
+     tenant fed 1-16 frames of 64-256 B per wire and tick, b0's wires
+     8 frames of 200 B, for 18 ticks; the planes registered with
+     entry.build_federation over a temporary journal; each migration
+     lands in a 2-tick feed gap of its tenant: (a) reconcile-to-steady
+     of the four; (b) t0 (jitter + 10 % loss) A -> B: done, every step,
+     A's registry without t0 and its 66,400 rows freed, B serving them,
+     ObserveSLO on A serving t0's frozen slice; (c) t1 A -> B with a
+     fault in RESTORE, then rollback(): rolled back, B without a trace
+     of t1 (rows, block, wires, store records), resume() refused;
+     (d) t2 A -> B with a fault after CUTOVER's side effects, then a
+     NEW controller over the journal resumes it to done; after the feed
+     and the drain, per wire t0's and t2's egress (A's, the egress
+     handed off at RELEASE, then B's) and t1's == those of A', b0's ==
+     those of B', bit for bit, check_accounting's mismatch 0 for t0 and
+     t2 and the gauge 0; (e) MigrationStatus and MigrateTenant(resume)
+     over gRPC on B's server == controller.status(), one scrape's
+     kubedtn_migration_* == MigrationStats; K4 == plain on one ring
+     step of A's mailbox. Per step: seconds, the barriers' tick-lock
+     pauses, journal bytes and seconds per commit, frames transferred
+     at cutover, egress handed off, settle ticks.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}. It
@@ -4656,6 +4683,512 @@ def ap_surfaces(co, plane, ev, ap, card, sidecar_s: float) -> dict:
     return out
 
 
+MIG_LINKS = 2048            # fed spine links per tenant
+MIG_MAX_FRAMES = 16         # 1..16 frames of 64-256 B per wire and tick
+MIG_TICKS = 18              # fed ticks; each migration in a 2-tick gap
+MIG_GAPS = {"t0": 4, "t1": 9, "t2": 14}   # first tick of each gap
+MIG_GAP = 2
+MIG_SEED = 18
+MIG_B0 = "b0"               # B's own tenant: phase 17's g0 shape
+MIG_B0_FEED = 8             # frames of AP_FRAME_BYTES per b0 wire, tick
+MIG_TIMEOUT_S = 120.0       # bound on every RECONCILE wait
+# the barriers of a migration: FORK, RESTORE (with restore_tenant_slice's
+# own round inside it), CUTOVER; RELEASE's round and the undo's are
+# staged_update rounds
+MIG_PAUSES = ("migration_fork", "migration_restore", "migration_cutover",
+              "staged_update")
+
+
+def mig_keys(crs, n_links: int) -> tuple:
+    """The link identities of a tenant's first n_links spine links:
+    ([(spine pod key, uid)], [(leaf pod key, uid)]) — the ingress and
+    egress ends, looked up on whichever plane serves the tenant."""
+    ins, outs = [], []
+    for t in crs:
+        if not t.name.startswith("spine") or len(ins) >= n_links:
+            continue
+        for link in t.spec.links[:n_links - len(ins)]:
+            ins.append((t.key, link.uid))
+            outs.append((f"{t.namespace}/{link.peer_pod}", link.uid))
+    return ins, outs
+
+
+class MigRun:
+    """One side of phase 18 (the federation A + B, or the references
+    A' + B'): where each tenant is served, its fed ticks' frames queued
+    on the serving plane's wires, every egress wire drained into
+    per-wire digests in identity order (A's wire first, then B's: the
+    egress a RELEASE hands off lands at the head of B's wire)."""
+
+    def __init__(self, a, b, keys, dev):
+        import hashlib
+
+        self.a, self.b, self.keys, self.dev = a, b, keys, dev
+        self.serve = {t: a for t in keys if t != MIG_B0}
+        self.serve[MIG_B0] = b
+        self.dig = {t: [hashlib.blake2b(digest_size=16)
+                        for _ in keys[t][1]] for t in keys}
+        self.counts = {t: [0] * len(keys[t][1]) for t in keys}
+        self.fed = {t: 0 for t in keys}
+        self.hold_egress = set()   # (plane id, tenant) left undrained
+        self.walls = {"a": [], "b": []}
+
+    def feed(self, t: str, feed) -> None:
+        d = self.serve[t]["daemon"]
+        win = [d.wires.get_by_key(*k) for k in self.keys[t][0]]
+        self.fed[t] += apply_feed(win, feed)
+
+    def collect(self) -> None:
+        for t, (_ins, outs) in self.keys.items():
+            for side in (self.a, self.b):
+                if (id(side), t) in self.hold_egress:
+                    continue
+                wires = side["daemon"].wires
+                for i, k in enumerate(outs):
+                    w = wires.get_by_key(*k)
+                    if w is not None and w.egress:
+                        self.dig[t][i].update(b"".join(w.egress))
+                        self.counts[t][i] += len(w.egress)
+                        w.egress.clear()
+
+    def tick(self, now_s: float) -> None:
+        for name, side in (("a", self.a), ("b", self.b)):
+            t0 = time.perf_counter()
+            side["plane"].tick(now_s=now_s)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+            self.walls[name].append(time.perf_counter() - t0)
+        self.collect()
+
+    def idle(self) -> bool:
+        for side in (self.a, self.b):
+            p = side["plane"]
+            if (p._inflight or p._holdback or len(p._wheel)
+                    or p._pending):
+                return False
+        return True
+
+    def digests(self, t: str) -> list:
+        return [d.hexdigest() for d in self.dig[t]]
+
+
+def _mig_side(dev, crs, capacity, tenancy, node_ip, mesh=None,
+              telemetry=False) -> dict:
+    from kubedtn_tpu_torch import entry
+
+    side = entry.build_daemon(dev, capacity=capacity, crs=crs,
+                              tenancy=tenancy, node_ip=node_ip)
+    plane = entry.build_plane(side["daemon"], dt_us=PLANE_DT_S * 1e6,
+                              seed=MIG_SEED, pipeline_depth=2)
+    plane.pipeline_explicit_clock = True
+    if telemetry:
+        plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+    if mesh is not None:
+        plane.enable_sharding(mesh)
+    side["plane"] = plane
+    return side
+
+
+def _journal_probe(journal):
+    """Wrap journal.save_record: seconds and file bytes per commit."""
+    import os
+
+    real = journal.save_record
+    log_ = []
+
+    def save_record(root, mid, record, arrays=None):
+        t0 = time.perf_counter()
+        real(root, mid, record, arrays=arrays)
+        d = journal.record_dir(root, mid)
+        log_.append({"id": mid, "s": time.perf_counter() - t0,
+                     "step": (record.get("steps_done") or ["-"])[-1],
+                     "manifest": os.path.getsize(
+                         os.path.join(d, "manifest.json")),
+                     "fork": (os.path.getsize(os.path.join(d, "fork.npz"))
+                              if os.path.exists(os.path.join(d, "fork.npz"))
+                              else 0)})
+
+    journal.save_record = save_record
+    return real, log_
+
+
+def run_migration_phase(dev, card, n_spine=None, n_leaf=None,
+                        n_links: int = MIG_LINKS, block: int = TEN_BLOCK,
+                        capacity: int = 1 << 18) -> tuple:
+    """Phase 18: live tenant migration between two 2^18-row planes.
+    Returns (metrics, K1 launches, K4 launches) of the phase's path."""
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.chaos import ChaosError, ChaosInjector
+    from kubedtn_tpu_torch.federation import (STEPS, FederationController,
+                                              MigrationError, PlaneHandle)
+    from kubedtn_tpu_torch.federation import journal
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+    from kubedtn_tpu_torch.scenarios import wire_def
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    t_phase = time.perf_counter()
+    n_spine = n_spine or TEN_SPINE
+    n_leaf = n_leaf or TEN_LEAF
+    n_ten = n_spine * n_leaf * TEN_LPP
+    shaping.reset_launches()
+    pex.reset_launches()
+    m = {"links_per_tenant": n_links, "capacity": capacity}
+
+    # (a) A and A' from phase 16's CRs, B and B' with b0
+    crs = ten_crs(TEN_NAMES, n_spine, n_leaf, TEN_LPP)
+    all_crs = [c for t in TEN_NAMES for c in crs[t]]
+    b0_crs = ap_gold_crs("mig", MIG_B0, AP_GOLD_PAIRS,
+                         len(TEN_NAMES) * n_ten, node_ip="10.0.0.2")
+    ten_kw = {"t1": {"block_edges": block}}
+    A = _mig_side(dev, all_crs, capacity, ten_kw, "10.0.0.1",
+                  mesh=make_mesh([dev] * 2), telemetry=True)
+    A_ref = _mig_side(dev, all_crs, capacity, dict(ten_kw), "10.0.0.1")
+    B = _mig_side(dev, b0_crs, capacity, True, "10.0.0.2")
+    B_ref = _mig_side(dev, b0_crs, capacity, True, "10.0.0.2")
+    m["reconcile_s"] = {"A": A["reconcile_s"], "A_ref": A_ref["reconcile_s"],
+                        "B": B["reconcile_s"], "B_ref": B_ref["reconcile_s"]}
+    for side in (A, A_ref):
+        check(side["engine"].num_active == 3 * 2 * n_ten,
+              f"18(a): {side['engine'].num_active} rows on A")
+    keys = {t: mig_keys(crs[t], n_links) for t in TEN_NAMES}
+    keys[MIG_B0] = ([(f"{MIG_B0}/mig-{MIG_B0}-a{i}",
+                      len(TEN_NAMES) * n_ten + i + 1)
+                     for i in range(AP_GOLD_PAIRS)],
+                    [(f"{MIG_B0}/mig-{MIG_B0}-b{i}",
+                      len(TEN_NAMES) * n_ten + i + 1)
+                     for i in range(AP_GOLD_PAIRS)])
+    for side, tens in ((A, TEN_NAMES), (A_ref, TEN_NAMES),
+                       (B, (MIG_B0,)), (B_ref, (MIG_B0,))):
+        d = side["daemon"]
+        for t in tens:
+            for pod_key, uid in keys[t][0] + keys[t][1]:
+                ns, _, pod = pod_key.partition("/")
+                d._add_wire(wire_def(pod, ns, uid))
+    log(f"18(a) A: {A['engine'].num_active} rows of t0, t1, t2 in "
+        f"capacity {A['engine'].state.capacity} at depth 2 on 2 virtual "
+        f"shards (t1 in its {block}-row block), A' the same unsharded; B "
+        f"and B' {B['engine'].num_active} rows of {MIG_B0}; "
+        f"reconcile-to-steady A {A['reconcile_s']:.3f} s, A' "
+        f"{A_ref['reconcile_s']:.3f} s, B {B['reconcile_s']:.3f} s, B' "
+        f"{B_ref['reconcile_s']:.3f} s ({card})")
+
+    mig = MigRun(A, B, keys, dev)
+    ref = MigRun(A_ref, B_ref, keys, dev)
+    rngs = {t: np.random.default_rng(MIG_SEED + j)
+            for j, t in enumerate(TEN_NAMES)}
+    b0_frame = b"\xab" * AP_FRAME_BYTES
+    clock = {"k": 0, "migrating": None, "settle": 0, "walls_during": []}
+    walls_before = []      # A's ticks before the first migration
+    gap_of = {t: range(g, g + MIG_GAP) for t, g in MIG_GAPS.items()}
+
+    # K4 against its plain version on one ring step of A's mailbox
+    captured = []
+    real_shift = pex.ring_right_shift
+
+    def capture(blocks, mesh):
+        if not captured:
+            captured.append(([b.clone() for b in blocks], tuple(mesh)))
+        return real_shift(blocks, mesh)
+
+    def lockstep():
+        clock["k"] += 1
+        k = clock["k"]
+        if k <= MIG_TICKS:
+            for t in TEN_NAMES:
+                if k in gap_of[t]:
+                    continue
+                feed = make_feed(n_links, k, rngs[t], MIG_MAX_FRAMES)
+                mig.feed(t, feed)
+                ref.feed(t, feed)
+            for run in (mig, ref):
+                d = run.serve[MIG_B0]["daemon"]
+                for pod_key, uid in keys[MIG_B0][0]:
+                    d.wires.get_by_key(pod_key, uid).ingress.extend(
+                        [b0_frame] * MIG_B0_FEED)
+                run.fed[MIG_B0] += MIG_B0_FEED * AP_GOLD_PAIRS
+        now = k * PLANE_DT_S
+        mig.tick(now)
+        ref.tick(now)
+        if clock["migrating"] is not None:
+            clock["settle"] += 1
+            clock["walls_during"].append(mig.walls["a"][-1])
+        elif k < MIG_GAPS["t0"]:
+            walls_before.append(mig.walls["a"][-1])
+
+    def settle():
+        # the next tick must still lie in the migrating tenant's gap
+        check(clock["k"] + 1 < MIG_GAPS[clock["migrating"]] + MIG_GAP,
+              f"18: the migration of {clock['migrating']} overran its "
+              f"feed gap")
+        lockstep()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-phase18-")
+    real_save, commits = _journal_probe(journal)
+    pex.ring_right_shift = capture
+    srv = None
+    try:
+        fed = entry.build_federation(
+            {"A": A, "B": B}, root, chaos=ChaosInjector(seed=MIG_SEED))
+        check(A["daemon"].federation is fed
+              and B["daemon"].federation is fed, "18: build_federation")
+        out = {}
+
+        def migrate(t, fail=None, then=None):
+            """Run up to tenant t's gap, migrate it A -> B (with a fault
+            at `fail`, then `then`), tick out the gap; the metrics."""
+            while clock["k"] < MIG_GAPS[t] - 1:
+                lockstep()
+            clock["migrating"], clock["settle"] = t, 0
+            mig.hold_egress.add((id(A), t))
+            ev0 = {n: time.monotonic() - s["plane"].pauses._t0
+                   for n, s in (("A", A), ("B", B))}
+            c0 = len(commits)
+            t0 = time.perf_counter()
+            if fail:
+                fed.chaos.fail_migration_step(fail)
+            try:
+                rec = fed.migrate(t, "A", "B", settle=settle,
+                                  reconcile_timeout_s=MIG_TIMEOUT_S)
+                check(fail is None, f"18: no fault at {fail}")
+            except ChaosError:
+                check(fail is not None, "18: an unarmed fault")
+                rec = then(fed.status(tenant=t)[-1]["migration_id"])
+            wall = time.perf_counter() - t0
+            mig.hold_egress.discard((id(A), t))
+            if rec["state"] == "done":
+                mig.serve[t] = B
+            clock["migrating"] = None
+            settle_ticks = clock["settle"]
+            while clock["k"] < MIG_GAPS[t] + MIG_GAP - 1:
+                lockstep()
+            pauses = {n: [e for e in s["plane"].pauses.events(-1)
+                          if e["t_s"] >= round(ev0[n], 3) - 1e-3
+                          and e["cause"] in MIG_PAUSES]
+                      for n, s in (("A", A), ("B", B))}
+            r = {"record": rec, "wall_s": wall,
+                 "settle_ticks": settle_ticks,
+                 "step_seconds": rec.get("step_seconds", {}),
+                 "pauses_ms": {n: [(e["cause"], 1e3 * e["dur_s"])
+                                   for e in v] for n, v in pauses.items()},
+                 "commits": commits[c0:]}
+            return r
+
+        # (b) t0: a clean migration
+        out["b"] = migrate("t0")
+        rec = out["b"]["record"]
+        check(rec["state"] == "done" and rec["steps_done"] == list(STEPS),
+              f"18(b): {rec['state']} {rec['steps_done']}")
+        check(A["tenancy"].get("t0") is None
+              and not A["tenancy"].rows_of("t0").size
+              and rec["released_rows"] == 2 * n_ten
+              and not [k for k in A["engine"]._rows
+                       if k[0].startswith("t0/")],
+              f"18(b): A still knows t0 ({rec.get('released_rows')} "
+              f"rows released)")
+        check(B["tenancy"].rows_of("t0").size == 2 * n_ten,
+              "18(b): B does not serve t0's rows")
+        slo = A["daemon"].ObserveSLO(pb.ObserveSLORequest(tenant="t0"),
+                                     None)
+        win = rec["reconcile"]["window_src"]
+        check(slo.ok and slo.plane == "A"
+              and [(x.tenant, x.frozen, x.plane) for x in slo.tenants]
+              == [("t0", True, "A")]
+              and slo.tenants[0].delivered == win["delivered"] > 0,
+              f"18(e): ObserveSLO on A: {slo}")
+        out["b"]["observe_slo"] = {"delivered": slo.tenants[0].delivered,
+                                   "tx": slo.tenants[0].tx}
+
+        # (c) t1: a fault in RESTORE, then rollback
+        reserved = B["tenancy"].reserved_free()
+
+        def rollback(mid):
+            co = fed.coordinator(mid)
+            return co.rollback()
+
+        out["c"] = migrate("t1", fail="restore", then=rollback)
+        rec = out["c"]["record"]
+        check(rec["state"] == "rolled_back", f"18(c): {rec['state']}")
+        check(B["tenancy"].get("t1") is None
+              and not B["tenancy"].rows_of("t1").size
+              and B["tenancy"].reserved_free() == reserved
+              and not [k for k in B["engine"]._rows
+                       if k[0].startswith("t1/")]
+              and not B["daemon"].wires.in_namespaces(["t1"])
+              and not B["store"].list("t1"),
+              "18(c): B keeps a trace of t1")
+        try:
+            fed.resume(rec["migration_id"])
+            check(False, "18(c): resume() after rollback did not raise")
+        except MigrationError:
+            pass
+
+        # (d) t2: a crash after CUTOVER's side effects, before its
+        # commit; a NEW controller over the same journal resumes it
+        def restart_and_resume(mid):
+            nonlocal fed
+            fed = FederationController(root, stats=fed.stats)
+            for name, side in (("A", A), ("B", B)):
+                fed.register(PlaneHandle(name, side["daemon"],
+                                         side["plane"], side["tenancy"]))
+            co = fed.coordinator(mid)
+            co.settle = settle
+            return co.resume()
+
+        out["d"] = migrate("t2", fail="cutover", then=restart_and_resume)
+        rec = out["d"]["record"]
+        check(rec["state"] == "done" and rec["resumed"] >= 1
+              and rec["steps_done"] == list(STEPS),
+              f"18(d): {rec['state']} resumed {rec['resumed']}")
+
+        # the rest of the feed, then the drain
+        while clock["k"] < MIG_TICKS:
+            lockstep()
+        for _ in range(PLANE_DRAIN_TICKS):
+            if mig.idle() and ref.idle():
+                break
+            lockstep()
+        for run in (mig, ref):
+            for side in (run.a, run.b):
+                side["plane"].flush()
+                check(side["plane"].tick_errors == 0, "18: tick errors")
+            run.collect()
+        check(mig.idle() and ref.idle(), "18: a delay line did not empty")
+        for t in TEN_NAMES + (MIG_B0,):
+            check(mig.counts[t] == ref.counts[t]
+                  and mig.digests(t) == ref.digests(t)
+                  and mig.fed[t] == ref.fed[t],
+                  f"18: tenant {t}'s per-wire egress differs from the "
+                  f"never-migrated planes'")
+        acct = {}
+        for t, part in (("t0", "b"), ("t2", "d")):
+            co = fed.coordinator(out[part]["record"]["migration_id"])
+            acct[t] = co.check_accounting(mig.fed[t])
+            check(acct[t]["mismatch"] == 0.0
+                  and fed.stats.snapshot()["accounting_mismatch"] == 0.0,
+                  f"18: {t}'s accounting {acct[t]}")
+        m["accounting"] = acct
+
+        # (e) the RPCs over gRPC on B's server; a scrape
+        from kubedtn_tpu_torch.metrics.metrics import make_registry
+        from kubedtn_tpu_torch.wire.client import DaemonClient
+        from kubedtn_tpu_torch.wire.server import make_server
+        from prometheus_client import generate_latest
+
+        srv, port = make_server(B["daemon"], port=0, host="127.0.0.1",
+                                log_rpcs=False)
+        srv.start()
+        c = DaemonClient(f"127.0.0.1:{port}")
+        try:
+            st = c.MigrationStatus(pb.MigrationStatusRequest())
+            want = [B["daemon"]._migration_info(r) for r in fed.status()]
+            check(st.ok and list(st.migrations) == want
+                  and len(want) == 3,
+                  f"18(e): MigrationStatus over gRPC {st}")
+            mid0 = out["b"]["record"]["migration_id"]
+            rr = c.MigrateTenant(pb.MigrateRequest(migration_id=mid0,
+                                                   resume=True))
+            check(rr.ok and rr.migration == want[0]
+                  and rr.migration.state == "done",
+                  f"18(e): MigrateTenant(resume) over gRPC {rr}")
+            bad = c.MigrateTenant(pb.MigrateRequest(tenant="t1", src="A",
+                                                    dst="nope"))
+            check(not bad.ok and "unknown federation plane" in bad.error,
+                  f"18(e): a refused MigrateTenant {bad}")
+        finally:
+            c.close()
+        reg, _h = make_registry(migration_stats=fed.stats)
+        body = generate_latest(reg).decode()
+        snap = fed.stats.snapshot()
+        for key in ("attempts", "completed", "rolled_back", "resumed",
+                    "bytes_reconciled"):
+            check(_scrape_values(body, f"kubedtn_migration_{key}_total")
+                  == [float(snap[key])], f"18(e): kubedtn_migration_{key}")
+        for step, s in snap["step_seconds"].items():
+            check(_scrape_values(
+                body, f'kubedtn_migration_step_seconds_total'
+                      f'{{step="{step}"}}') == [float(s)],
+                f"18(e): step_seconds {step}")
+        check(_scrape_values(body, "kubedtn_migration_accounting_mismatch")
+              == [0.0], "18(e): the mismatch gauge")
+        m["stats"] = snap
+    finally:
+        pex.ring_right_shift = real_shift
+        journal.save_record = real_save
+        if srv is not None:
+            srv.stop(0)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the path's launches, read before K4 is held against its plain
+    # version on one ring step of A's mailbox
+    k4 = pex.LAUNCHES["ring_step"]
+    k1 = shaping.LAUNCHES["shape_step_rows"]
+    check(captured, "18: A ran no ring step")
+    blocks, mesh = captured[0]
+    same(pex.ring_right_shift(blocks, mesh),
+         pex.ring_right_shift_plain(blocks), "18 K4 vs plain")
+    check(k4 > 0 or dev.type != "cuda", "18: K4 never launched")
+    check(clock["walls_during"], "18: no migration ticked its planes")
+    med = lambda w: 1e3 * statistics.median(w)  # noqa: E731
+    m.update(
+        fed=mig.fed, counts={t: sum(v) for t, v in mig.counts.items()},
+        ticks=clock["k"], k4_launches=k4, k1_launches=k1,
+        mailbox_rows=int(blocks[0].shape[0]),
+        wall_ms_a=med(mig.walls["a"]), wall_ms_a_before=med(walls_before),
+        wall_ms_a_during=med(clock["walls_during"]),
+        wall_ms_a_ref=med(ref.walls["a"]), wall_ms_b=med(mig.walls["b"]))
+    for part, t in (("b", "t0"), ("c", "t1"), ("d", "t2")):
+        r = out[part]
+        rec = r["record"]
+        m[part] = {k: v for k, v in r.items() if k != "record"}
+        m[part].update(
+            state=rec["state"], resumed=rec["resumed"],
+            transferred=(rec.get("cutover") or {}).get(
+                "transferred_frames", 0),
+            handed_off=rec.get("egress_handed_off", 0),
+            restored_rows=rec.get("restored_rows", 0))
+        steps = ", ".join(f"{s} {v:.3f}" for s, v in
+                          r["step_seconds"].items())
+        pa = "; ".join(f"{n}: " + ", ".join(f"{c} {ms:.1f}"
+                                             for c, ms in v)
+                       for n, v in r["pauses_ms"].items())
+        secs = [x["s"] for x in r["commits"]]
+        jb = (f"{len(secs)} commits, {statistics.median(secs):.3f} s "
+              f"median ({min(secs):.3f}-{max(secs):.3f}), manifest.json "
+              f"{max(x['manifest'] for x in r['commits'])} B, fork.npz "
+              f"{max(x['fork'] for x in r['commits'])} B") if secs \
+            else "no commit"
+        log(f"18({part}) {t}: {rec['state']} in {r['wall_s']:.3f} s "
+            f"(resumed {rec['resumed']}); steps s: {steps}; pauses ms: "
+            f"{pa}; journal: {jb}; transferred at cutover "
+            f"{m[part]['transferred']}, egress handed off "
+            f"{m[part]['handed_off']}, residue drained in "
+            f"{r['settle_ticks']} settle ticks ({card})")
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"18(b)-(d) per wire, t0 and t2 (A's egress, the egress handed "
+        f"off at RELEASE, then B's) and t1 == A', b0 == B', bit for bit "
+        f"({sum(m['counts'].values())} frames); accounting mismatch 0 "
+        f"({acct}); A's registry no longer knows t0, {2 * n_ten} rows "
+        f"freed; B keeps no trace of the rolled-back t1 ({card})")
+    log(f"18(e) MigrationStatus and MigrateTenant(resume) over gRPC on B "
+        f"== controller.status(); ObserveSLO on A serves t0's frozen "
+        f"slice; the scrape's kubedtn_migration_* == MigrationStats "
+        f"{m['stats']} ({card})")
+    log(f"18: wall ms per tick of A {m['wall_ms_a_before']:.1f} before the "
+        f"first migration, {m['wall_ms_a_during']:.1f} during one (its "
+        f"settle ticks), {m['wall_ms_a']:.1f} over the phase (A' "
+        f"{m['wall_ms_a_ref']:.1f}, B {m['wall_ms_b']:.1f}); K4 {k4} "
+        f"launches on "
+        f"this path, == plain on one ring step of A's mailbox "
+        f"({blocks[0].shape[0]} x {blocks[0].shape[1]} words a shard); "
+        f"phase {m['phase_s']:.1f} s ({card})")
+    return m, k1, k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4754,6 +5287,11 @@ def main() -> int:
     log(f"17: phase {ap_m['phase_s']:.1f} s; autopilot path launches: K1 "
         f"{ap_k1}")
     check(ap_k1 > 0, "K1 never launched on the autopilot path")
+    mig_m, mig_k1, mig_k4 = run_migration_phase(dev, card)
+    log(f"18: phase {mig_m['phase_s']:.1f} s; migration path launches: "
+        f"K1 {mig_k1} (warm_kernels), K4 {mig_k4}")
+    check(mig_k1 > 0 and mig_k4 > 0,
+          "K1 or K4 never launched on the migration path")
     release = plane_m["plane"]["stage_depth1"]["share"]["release"]
     log(f"12(b) depth-1 release share {release} with kdt_ext "
         f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
@@ -4761,7 +5299,7 @@ def main() -> int:
                 "routed": routed_launches, "plane": plane_k1,
                 "cross_node": xn_k1, "twin": sum(twin_k1.values()),
                 "checkpoint": ckpt_k1, "tenancy": ten_k1,
-                "autopilot": ap_k1}
+                "autopilot": ap_k1, "migration": mig_k1}
     log(f"K1 launches by path {k1_paths}")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
@@ -4782,9 +5320,9 @@ def main() -> int:
     kernels.append({
         "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
         "replaces": K4_REPLACES,
-        "launches": k4_launches + plane_k4 + ten_k4,
+        "launches": k4_launches + plane_k4 + ten_k4 + mig_k4,
         "launches_by_path": {"live_tick": k4_launches, "plane": plane_k4,
-                             "tenancy": ten_k4},
+                             "tenancy": ten_k4, "migration": mig_k4},
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -4793,7 +5331,7 @@ def main() -> int:
               "entry_delivered": entry_delivered, "live_tick": live_m,
               "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
               "cross_node": xn_m, "twin": twin_m, "checkpoint": ckpt_m,
-              "tenancy": ten_m, "autopilot": ap_m,
+              "tenancy": ten_m, "autopilot": ap_m, "migration": mig_m,
               "twin_k1_launches": twin_k1,
               "kernels": {k: results[k] for k in results}}
     log("detail " + json.dumps(detail))

@@ -27,7 +27,10 @@ slo=True)` adds the SLO evaluator and the autopilot (disabled unless
 `autopilot=True` or "dry-run") with their sidecars, on a plane with
 telemetry. The JAX CLI's daemon always attaches a registry, and with
 telemetry on the evaluator and the autopilot; here the defaults stay
-without them until the port has that CLI.
+without them until the port has that CLI. `build_federation` registers
+several such daemons' planes with one federation controller, as the JAX
+CLI's daemon registers its own, so MigrateTenant / MigrationStatus move
+tenants between them (kubedtn_tpu_torch.federation).
 """
 
 from __future__ import annotations
@@ -251,7 +254,9 @@ def serve_metrics(daemon, plane, port: int = 0,
     histogram observing every engine op (`engine.stats.observer`) and
     set on the daemon; a MetricsServer started on `port` (0 = pick one).
     The daemon's SLO evaluator and autopilot, where attached, get their
-    collectors too. Returns {"server", "registry", "hist", "port"}."""
+    collectors too, and so does its federation controller's
+    MigrationStats (`build_federation`). Returns {"server", "registry",
+    "hist", "port"}."""
     from kubedtn_tpu_torch.metrics.metrics import (MetricsServer,
                                                    make_registry)
     from kubedtn_tpu_torch.twin.query import stats_for
@@ -265,7 +270,11 @@ def serve_metrics(daemon, plane, port: int = 0,
                                    update_stats=ustats_for(daemon),
                                    tenancy=daemon.tenancy, shm=daemon.shm,
                                    slo=daemon.slo,
-                                   autopilot=daemon.autopilot)
+                                   autopilot=daemon.autopilot,
+                                   migration_stats=(
+                                       daemon.federation.stats
+                                       if daemon.federation is not None
+                                       else None))
     engine.stats.observer = hist
     daemon.hist = hist
     server = MetricsServer(registry, port=port, host=host)
@@ -494,3 +503,34 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
     if metrics_port is not None:
         out["metrics"] = serve_metrics(daemon, plane, metrics_port)
     return out
+
+
+def build_federation(members: dict, journal_root: str, chaos=None):
+    """One federation.FederationController over `journal_root` with the
+    planes of `members` registered, as the JAX CLI's daemon registers
+    its own plane: {plane name: a federation.PlaneHandle, or a
+    `build_daemon` dict}. A dict's daemon needs a tenancy registry
+    (`build_daemon(..., tenancy=...)`); its "plane" is built with
+    `build_plane(daemon)` where the dict has none, and set in it. The
+    planes run where their daemons were built, the CUDA card by
+    default (`build_daemon(device=None)`). Every daemon gets
+    `federation` set to the controller (register() does it), so its
+    MigrateTenant / MigrationStatus answer, ObserveSLO names the plane
+    and `serve_metrics` exports the controller's MigrationStats.
+    `chaos` (a chaos.ChaosInjector) arms migration-step faults.
+    Returns the controller."""
+    from kubedtn_tpu_torch.federation import (FederationController,
+                                              PlaneHandle)
+
+    fed = FederationController(journal_root, chaos=chaos)
+    for name, m in members.items():
+        if not isinstance(m, PlaneHandle):
+            daemon = m["daemon"]
+            if daemon.tenancy is None:
+                raise ValueError(f"plane {name!r} has no tenancy "
+                                 f"registry: migration moves tenants")
+            if m.get("plane") is None:
+                m["plane"] = build_plane(daemon)
+            m = PlaneHandle(name, daemon, m["plane"], daemon.tenancy)
+        fed.register(m)
+    return fed

@@ -23,13 +23,15 @@ labels and buckets the JAX package's daemon serves on :51112/metrics.
 - `kubedtn_slo_*` per tenant of the SLO evaluator and
   `kubedtn_autopilot_*` from the SLO autopilot, each with its per-tenant
   series cap.
+- `kubedtn_migration_*` from the federation's live tenant migrations,
+  with the alert-worthy `kubedtn_migration_accounting_mismatch` gauge.
 
 Mapping from simulation taxa to interface counters:
 - tx_dropped  ← netem loss + TBF queue + delay-ring drops (egress side)
 - rx_errors   ← corrupt-flagged deliveries
 
-Not ported yet: the migration and fleet collectors (the federation);
-`make_registry` refuses their arguments with a ValueError naming the
+Not ported yet: the fleet collector (the fleet supervisor);
+`make_registry` refuses its argument with a ValueError naming the
 collector. `prometheus_client` is imported by this
 module only.
 """
@@ -1010,9 +1012,54 @@ class MetricsServer:
         self._srv.server_close()  # release the listening socket
 
 
+class MigrationStatsCollector:
+    """kubedtn_migration_* series — observability for the federation
+    layer's live tenant migrations (kubedtn_tpu_torch.federation): volume
+    and outcomes (attempts / completed / rolled_back / resumed), wall
+    seconds per state-machine step, bytes whose delivery accounting
+    reconciled across the move, and the alert-worthy gauge
+    `kubedtn_migration_accounting_mismatch` — |fed − (delivered_src +
+    delivered_dst)| of the latest reconciliation check, which must
+    stay 0 in every scenario."""
+
+    COUNTERS = (
+        ("attempts", "Live tenant migrations attempted"),
+        ("completed", "Migrations that reached RELEASE"),
+        ("rolled_back", "Migrations rolled back to src"),
+        ("resumed", "Migrations resumed from their journal"),
+        ("bytes_reconciled",
+         "Delivered bytes covered by a byte-exact src+dst "
+         "reconciliation"),
+    )
+
+    def __init__(self, stats) -> None:
+        self._stats = stats
+
+    def collect(self):
+        snap = self._stats.snapshot()
+        out = []
+        for name, doc in self.COUNTERS:
+            c = CounterMetricFamily(f"kubedtn_migration_{name}", doc)
+            c.add_metric([], float(snap[name]))
+            out.append(c)
+        steps = CounterMetricFamily(
+            "kubedtn_migration_step_seconds",
+            "Wall seconds spent per migration state-machine step",
+            labels=["step"])
+        for step, s in sorted(snap["step_seconds"].items()):
+            steps.add_metric([step], float(s))
+        out.append(steps)
+        g = GaugeMetricFamily(
+            "kubedtn_migration_accounting_mismatch",
+            "|fed - (delivered_src + delivered_dst)| of the latest "
+            "accounting reconciliation (alert when nonzero)")
+        g.add_metric([], float(snap["accounting_mismatch"]))
+        out.append(g)
+        return out
+
+
 # make_registry's arguments whose collectors are not ported yet
-_NOT_PORTED = {"migration_stats": "MigrationStatsCollector",
-               "fleet": "FleetStatsCollector"}
+_NOT_PORTED = {"fleet": "FleetStatsCollector"}
 
 
 def make_registry(engine=None, sim_counters_fn=None,
@@ -1023,7 +1070,7 @@ def make_registry(engine=None, sim_counters_fn=None,
     """Registry with the parity collectors installed, and the request
     histogram (the JAX package's signature). Passing an argument whose
     collector is not ported yet raises ValueError naming it."""
-    given = {"migration_stats": migration_stats, "fleet": fleet}
+    given = {"fleet": fleet}
     for arg, value in given.items():
         if value is not None:
             raise ValueError(
@@ -1047,6 +1094,8 @@ def make_registry(engine=None, sim_counters_fn=None,
     if tenancy is not None:
         registry.register(TenantStatsCollector(
             tenancy, dataplane, max_tenants=max_tenants))
+    if migration_stats is not None:
+        registry.register(MigrationStatsCollector(migration_stats))
     if slo is not None:
         registry.register(SloStatsCollector(slo,
                                             max_tenants=max_tenants))

@@ -1,10 +1,12 @@
 """Scenarios of the port, runnable functions returning a result dict.
 
 Port of kubedtn_tpu/scenarios.py, in part: `_tenant_plane_setup` (the
-multi-tenant plane harness) and `burn_recovery` (the SLO autopilot's
-closed loop on one live plane). Both take a `device`, None meaning the
-CUDA card. The rest of the JAX module (the BASELINE ladder, the soaks,
-noisy_neighbor, whatif_sweep, ...) is ported with the CLI.
+multi-tenant plane harness), `burn_recovery` (the SLO autopilot's
+closed loop on one live plane) and `migration_under_flap` (a live tenant
+migration between two gRPC daemons under a flapping peer). Each takes a
+`device`, None meaning the CUDA card. The rest of the JAX module (the
+BASELINE ladder, the soaks, noisy_neighbor, whatif_sweep, the fleet
+scenarios, ...) is ported with the CLI and the fleet supervisor.
 """
 
 from __future__ import annotations
@@ -257,3 +259,284 @@ def burn_recovery(pairs: int = 2, loss_pct: float = 25.0,
     ev.stop()
     plane.stop()
     return out
+
+
+# non-IP ethertype: never eligible for the TCP bypass, so every frame
+# crosses the shaping plane and the loss accounting is exact
+_FAULT_FRAME = b"\x02" * 12 + b"\x07\x77" + b"\x00" * 50
+
+
+def _drain_wires(wires_out) -> int:
+    """Pop everything delivered so far; returns the count."""
+    c = 0
+    for w in wires_out:
+        dq = w.egress
+        while True:
+            try:
+                dq.popleft()
+            except IndexError:
+                break
+            c += 1
+    return c
+
+
+def _paced_feeder(wires_in, offered_frames_per_s: int, stop, fed,
+                  frame: bytes = _FAULT_FRAME, pace_s: float = 0.02):
+    """Fixed chunk per wire every pace_s keeps the offered load below
+    plane capacity, so loss accounting is exact (every fed frame must
+    eventually arrive). Run as a thread body; `fed` is a 1-list."""
+    per_wire = max(1, int(offered_frames_per_s * pace_s
+                          / max(len(wires_in), 1)))
+    chunk = [frame] * per_wire
+    while not stop.is_set():
+        for w in wires_in:
+            w.ingress.extend(chunk)
+        fed[0] += per_wire * len(wires_in)
+        stop.wait(pace_s)
+
+
+def _warm_live_load(wires_in, drain, fed, per_wire: int, label: str,
+                    frame: bytes = _FAULT_FRAME,
+                    timeout_s: float = 120.0) -> int:
+    """Chaos-free warm phase: one chunk end-to-end builds the kernels
+    and settles the stream, so the measured windows see the plane.
+    Returns frames delivered (== fed)."""
+    for w in wires_in:
+        w.ingress.extend([frame] * per_wire)
+    fed[0] += per_wire * len(wires_in)
+    delivered = 0
+    deadline = time.monotonic() + timeout_s
+    while delivered < fed[0] and time.monotonic() < deadline:
+        time.sleep(0.02)
+        delivered += drain()
+    if delivered < fed[0]:
+        raise RuntimeError(f"{label} warm-up never delivered "
+                           f"({delivered}/{fed[0]})")
+    return delivered
+
+
+def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
+                         migrate_after_s: float = 1.5,
+                         flap_period_s: float = 1.0,
+                         duty_down: float = 0.4,
+                         offered_frames_per_s: int = 4_000,
+                         latency: str = "2ms", dt_us: float = 2_000.0,
+                         seed: int = 11,
+                         reconcile_timeout_s: float = 30.0,
+                         drain_timeout_s: float = 60.0, device=None):
+    """Live tenant migration LANDING MID-FLAP, end to end: two real
+    gRPC daemons each running a plane on `device` (None = the CUDA
+    card) — A (src) shapes the tenant's cross-node links and forwards to
+    B (dst) through a per-peer sender whose breaker the chaos injector
+    keeps cycling — and the federation state machine moves the tenant
+    A→B while the paced load keeps flowing. The migration must COMPLETE
+    (or roll back cleanly) with:
+
+    - frames_lost == 0 — every fed frame arrives exactly once, whether
+      it was shaped on A (riding the flapping peer's outage buffer to
+      B) or transferred at cutover and shaped on B directly;
+    - byte-exact accounting — fed == delivered_src + delivered_dst
+      (the links are lossless), with the telemetry window-ring totals
+      agreeing with the counter slices on both planes and
+      `kubedtn_migration_accounting_mismatch` == 0;
+    - RECONCILE breaker-aware — an open A→B breaker parks the outage
+      buffer mid-migration; the drain must wait it out, never fail the
+      migration or drop the buffer.
+
+    Self-verdicting (`in_guardrails`)."""
+    import tempfile
+    import threading as _threading
+
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.chaos import ChaosInjector
+    from kubedtn_tpu_torch.federation import (FederationController,
+                                              MigrationError,
+                                              MigrationStats, PlaneHandle)
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+
+    def make_node():
+        store = TopologyStore()
+        engine = SimEngine(store, capacity=4 * pairs + 8, device=dev)
+        daemon = Daemon(engine)
+        server, port = make_server(daemon, port=0, host="127.0.0.1",
+                                   log_rpcs=False)
+        server.start()
+        addr = f"127.0.0.1:{port}"
+        engine.node_ip = addr
+        registry = TenantRegistry(engine)
+        plane = WireDataPlane(daemon, dt_us=dt_us)
+        plane.attach_tenancy(registry)
+        # ring sized to cover the whole run, so the window-ring totals
+        # reconcile against the cumulative counters byte-exactly
+        plane.enable_telemetry(window_s=0.5, windows=256,
+                               sample_period=64, node=addr)
+        return store, engine, daemon, server, addr, registry, plane
+
+    (store_a, engine_a, daemon_a, server_a, addr_a, reg_a,
+     plane_a) = make_node()
+    (store_b, engine_b, daemon_b, server_b, addr_b, reg_b,
+     plane_b) = make_node()
+    props = LinkProperties(latency=latency)
+    for store in (store_a, store_b):
+        for i in range(pairs):
+            ta = Topology(name=f"ma{i}", spec=TopologySpec(links=[
+                Link(local_intf="eth1", peer_intf="eth1",
+                     peer_pod=f"mb{i}", uid=i + 1, properties=props)]))
+            tb = Topology(name=f"mb{i}", spec=TopologySpec(links=[
+                Link(local_intf="eth1", peer_intf="eth1",
+                     peer_pod=f"ma{i}", uid=i + 1, properties=props)]))
+            ta.status.src_ip, ta.status.net_ns = addr_a, "/ns/a"
+            tb.status.src_ip, tb.status.net_ns = addr_b, "/ns/b"
+            store.create(ta)
+            store.create(tb)
+    for i in range(pairs):
+        t = store_a.get("default", f"ma{i}")
+        if not engine_a.add_links(t, t.spec.links):
+            raise RuntimeError("cross-node realize failed")
+    reg_a.create("mig", namespaces=["default"])
+    wires_in, wires_out = [], []
+    for i in range(pairs):
+        wb = daemon_b._add_wire(types.SimpleNamespace(
+            **{**vars(wire_def(f"mb{i}", "default", i + 1)),
+               "peer_ip": addr_a}))
+        wa = daemon_a._add_wire(types.SimpleNamespace(
+            **{**vars(wire_def(f"ma{i}", "default", i + 1)),
+               "peer_ip": addr_b, "peer_intf_id": wb.wire_id}))
+        wires_in.append(wa)
+        wires_out.append(wb)
+
+    stats = MigrationStats()
+    chaos = ChaosInjector(seed=seed)
+    fed = FederationController(tempfile.mkdtemp(prefix="kdt-mig-"),
+                               stats=stats)
+    fed.register(PlaneHandle("A", daemon_a, plane_a, reg_a))
+    fed.register(PlaneHandle("B", daemon_b, plane_b, reg_b))
+    plane_a.attach_chaos(chaos)
+    plane_a.start()
+    plane_b.start()
+
+    fed_count = [0]
+    stop_feed = _threading.Event()
+
+    def drain_delivered() -> int:
+        # pre-cutover path lands on B's mb wires (forwarded by A);
+        # post-cutover the ma rows shape ON B and deliver to B's
+        # (now-local) ma wires — count both
+        got = _drain_wires(wires_out)
+        for i in range(pairs):
+            w = daemon_b.wires.get_by_key(f"default/ma{i}", i + 1)
+            if w is not None and w.egress:
+                got += _drain_wires([w])
+        return got
+
+    delivered = 0
+    outcome = "completed"
+    rec = None
+    acct = None
+    try:
+        delivered = _warm_live_load(
+            wires_in, drain_delivered, fed_count,
+            max(1, int(offered_frames_per_s * 0.02 / pairs)),
+            "migration_under_flap")
+        feed = _threading.Thread(
+            target=_paced_feeder,
+            args=(wires_in, offered_frames_per_s, stop_feed, fed_count),
+            daemon=True)
+        feed.start()
+        chaos.flap_peer(addr_b, flap_period_s, duty_down)
+        time.sleep(migrate_after_s)
+        try:
+            rec = fed.migrate("mig", "A", "B",
+                              reconcile_timeout_s=reconcile_timeout_s)
+        except MigrationError:
+            co = fed.coordinator(fed.status(tenant="mig")[-1]
+                                 ["migration_id"])
+            if "cutover" in co.record()["steps_done"]:
+                rec = co.resume()
+            else:
+                rec = co.rollback()
+                outcome = "rolled_back"
+        t_end = time.monotonic() + max(0.0, seconds - migrate_after_s)
+        while time.monotonic() < t_end:
+            time.sleep(0.1)
+            delivered += drain_delivered()
+        stop_feed.set()
+        feed.join(timeout=5)
+        chaos.heal_peer(addr_b)
+        deadline = time.monotonic() + drain_timeout_s
+        while delivered < fed_count[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            delivered += drain_delivered()
+        plane_a.flush_peers(timeout_s=10.0)
+        plane_b.flush_peers(timeout_s=10.0)
+        delivered += drain_delivered()
+        if outcome == "completed" and rec is not None:
+            acct = fed.coordinator(
+                rec["migration_id"]).check_accounting(fed_count[0])
+    finally:
+        stop_feed.set()
+        pstats = plane_a.peer_fault_stats().get(addr_b, {})
+        plane_a.stop()
+        plane_b.stop()
+        server_a.stop(0)
+        server_b.stop(0)
+    # window-ring totals must agree with the counter slices: src side
+    # frozen in the reconcile record, dst side live at the end
+    ring_ok = True
+    if outcome == "completed" and rec is not None:
+        rc = rec if "reconcile" in rec else fed.coordinator(
+            rec["migration_id"]).record()
+        rcn = rc.get("reconcile", {})
+        win_src = rcn.get("window_src") or {}
+        ring_ok = (abs(win_src.get("delivered", 0.0)
+                       - rcn.get("counters_src", {})
+                       .get("delivered_packets", 0.0)) < 0.5)
+        win_dst = reg_b.tenant_window(plane_b, "mig")
+        cnt_dst = reg_b.tenant_counters(plane_b, "mig")
+        ring_ok = ring_ok and (abs(
+            win_dst.get("delivered", 0.0)
+            - cnt_dst["delivered_packets"]) < 0.5)
+    frames_lost = fed_count[0] - delivered
+    mismatch = (acct or {}).get(
+        "mismatch", 0.0 if outcome == "rolled_back" else None)
+    snap = stats.snapshot()
+    in_guardrails = (frames_lost == 0 and ring_ok
+                     and (mismatch == 0.0 or mismatch is None)
+                     and plane_a.tick_errors == 0
+                     and plane_b.tick_errors == 0
+                     and snap["accounting_mismatch"] == 0.0)
+    return {
+        "scenario": "migration_under_flap",
+        "device": str(dev),
+        "pairs": pairs,
+        "seconds": seconds,
+        "flap_hz": round(1.0 / flap_period_s, 3),
+        "duty_down": duty_down,
+        "offered_frames_per_s": offered_frames_per_s,
+        "outcome": outcome,
+        "steps_done": list((rec or {}).get("steps_done", ())),
+        "resumed": int((rec or {}).get("resumed", 0)),
+        "frames_fed": fed_count[0],
+        "frames_delivered": delivered,
+        "frames_lost": frames_lost,
+        "transferred_frames": int(((rec or {}).get("cutover") or {})
+                                  .get("transferred_frames", 0)),
+        "accounting": acct,
+        "accounting_mismatch_gauge": snap["accounting_mismatch"],
+        "ring_totals_agree": ring_ok,
+        "step_seconds": {k: round(v, 4) for k, v in
+                         snap["step_seconds"].items()},
+        "breaker": pstats,
+        "breaker_cycles": int(pstats.get("cycles", 0)),
+        "injected_faults": dict(chaos.injected),
+        "tick_errors": plane_a.tick_errors + plane_b.tick_errors,
+        "in_guardrails": in_guardrails,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }

@@ -44,8 +44,11 @@ Allocation honours tenant blocks as in the JAX package: with a
 tenancy.TenantRegistry attached (`engine.tenancy`, set by the registry)
 a tenant's rows come from its reserved block first and return to it on
 free, and the registry's ownership masks follow every bind, free, growth
-and compact. Not ported yet: the federation's `adopt_rows` /
-`abandon_rows`.
+and compact. `adopt_rows` / `abandon_rows` bind and free rows by link
+identity for the federation's live tenant migration
+(kubedtn_tpu_torch.federation.migrate): rows arriving from another plane
+land through the same tenant-block allocation, and freed ones return to
+their tenant through `_free_row`.
 """
 
 from __future__ import annotations
@@ -853,6 +856,71 @@ class SimEngine:
             self._bind_row(k2, uid, r2)
             return r1, r2
         return self._alloc(k1, uid), self._alloc(k2, uid)
+
+    @_locked
+    def adopt_rows(self, entries, peers=None) -> list[int]:
+        """Bind + realize rows arriving from ANOTHER plane (live tenant
+        migration, federation.migrate): `entries` are (pod_key, uid,
+        src_name, dst_name, props_row, shaped) with node NAMES instead
+        of ids — ids are a per-engine numbering, names are the portable
+        identity. Idempotent per (pod_key, uid) like `_alloc` (a resumed
+        RESTORE re-adopts only what is missing). `peers` lists
+        ((pod_key, uid), (peer_key, peer_uid)) pairs to re-establish in
+        the peer registry. Props land bit-exact (the captured f32 row,
+        never re-parsed); the caller scatters the dynamic shaping
+        columns separately, after flushing the init this enqueues.
+        Returns the bound row per entry, in order. Allocation honors
+        tenant blocks: with a tenancy registry attached, adopted rows
+        carve into the owning tenant's contiguous reservation exactly
+        like native allocations."""
+        self._ensure_capacity(len(entries))
+        rows: list[int] = []
+        apply_entries = []
+        for pod_key, uid, src_name, dst_name, props, shaped in entries:
+            k = (pod_key, int(uid))
+            row = self._rows.get(k)
+            if row is None:
+                row = self._alloc(pod_key, int(uid))
+                apply_entries.append((
+                    row, int(uid), self._pod_id(src_name),
+                    self._pod_id(dst_name),
+                    np.asarray(props, np.float32), bool(shaped)))
+            rows.append(row)
+        for k, pk in (peers or ()):
+            k = (k[0], int(k[1]))
+            pk = (pk[0], int(pk[1]))
+            self._peer[k] = pk
+            self._peer[pk] = k
+        self._enqueue_apply(apply_entries)
+        self.stats.adds += len(apply_entries)
+        if apply_entries:
+            self.log.info("adopt_rows %s", _fields(
+                action="adopt", rows=len(apply_entries),
+                total=len(entries)))
+        return rows
+
+    @_locked
+    def abandon_rows(self, keys) -> int:
+        """Release rows by (pod_key, uid) identity without a Topology
+        object — the migration RELEASE/rollback path (the rows' links
+        live on in another plane's state; this end just frees the
+        realization). Freed block rows return to their tenant pool via
+        `_free_row` as usual. Idempotent; returns rows freed."""
+        rows: list[int] = []
+        for k in keys:
+            k = (k[0], int(k[1]))
+            row = self._rows.pop(k, None)
+            self._peer.pop(k, None)
+            if row is not None:
+                rows.append(row)
+                self._free_row(row)
+                self._row_owner.pop(row, None)
+        self._enqueue_delete(rows)
+        self.stats.dels += len(rows)
+        if rows:
+            self.log.info("abandon_rows %s", _fields(
+                action="abandon", rows=len(rows)))
+        return len(rows)
 
     def on_rows_remapped(self, cb) -> None:
         """Register cb(old_rows_np, n_active): called after compact()

@@ -47,12 +47,15 @@ ObserveSLO serves the SLO evaluator (kubedtn_tpu_torch.slo) that its
 `attach` installs as `slo`, created on first use where the daemon has a
 tenancy registry and a plane with telemetry; AutopilotCtl and
 AutopilotStatus serve the autopilot (kubedtn_tpu_torch.autopilot)
-installed as `autopilot`. `fleet` and `federation` stay None until the
-federation is ported, and ObserveSLO's fleet and frozen-window branches
-with them.
+installed as `autopilot`. MigrateTenant and MigrationStatus serve the
+federation's migration controller (kubedtn_tpu_torch.federation) that
+its `register` installs as `federation`; ObserveSLO then names the
+plane and appends the frozen slices of tenants this plane migrated
+away. `fleet` stays None until the fleet supervisor is ported, and
+ObserveSLO's fleet branch with it.
 
-Not ported yet (the RPCs answer UNIMPLEMENTED): MigrateTenant /
-MigrationStatus and FleetStatus / FleetUpgrade.
+Not ported yet (the RPCs answer UNIMPLEMENTED): FleetStatus /
+FleetUpgrade.
 """
 
 from __future__ import annotations
@@ -490,9 +493,10 @@ class Daemon:
         # Local.Tenant* RPCs answer from it (without one they answer
         # ok=False "tenancy not enabled")
         self.tenancy = None
-        # the federation's controller and fleet supervisor: ObserveSLO's
-        # plane name, frozen windows and fleet merge read them. The port
-        # has no federation yet, so both stay None.
+        # the federation's controller (set by its register()) and fleet
+        # supervisor: MigrateTenant / MigrationStatus and ObserveSLO's
+        # plane name and frozen windows read the controller, its fleet
+        # merge the supervisor, which is not ported yet (stays None)
         self.federation = None
         self.fleet = None
         # slo.SloEvaluator installed by its attach(): the
@@ -1006,9 +1010,11 @@ class Daemon:
 
         A plane that MIGRATED a tenant away also answers with the
         journal's RECONCILE-frozen window slice for it (`frozen=true`
-        rows). Both branches read the federation, which the port does
-        not have yet: they stay dormant while `fleet` and `federation`
-        are None."""
+        rows): `kdt slo --fleet` merging several daemons' answers
+        stitches pre-move and post-move windows into one continuous
+        view without any daemon seeing the other's ring. The fleet
+        branch stays dormant while `fleet` is None (the supervisor is
+        not ported yet)."""
         pb = _pb()
         ev = self.slo
         if ev is None:
@@ -1168,13 +1174,77 @@ class Daemon:
             return pb.AutopilotStatusResponse(
                 ok=False, error=f"{type(e).__name__}: {e}")
 
+    # -- federation (kubedtn_tpu_torch.federation) ---------------------
+
+    @staticmethod
+    def _migration_info(rec: dict):
+        rc = rec.get("reconcile") or {}
+        return _pb().MigrationInfo(
+            migration_id=rec.get("migration_id", ""),
+            tenant=rec.get("tenant", ""),
+            src=rec.get("src", ""), dst=rec.get("dst", ""),
+            state=rec.get("state", ""),
+            steps_done=list(rec.get("steps_done", ())),
+            resumed=int(rec.get("resumed", 0)),
+            rollbacks=int(rec.get("rollbacks", 0)),
+            transferred_frames=int(
+                (rec.get("cutover") or {}).get("transferred_frames",
+                                               0)),
+            delivered_src_frames=float(
+                rc.get("delivered_src_frames", 0.0)),
+            delivered_src_bytes=float(
+                rc.get("delivered_src_bytes", 0.0)))
+
+    def MigrateTenant(self, request, context):
+        """Run (or resume) a live tenant migration between two planes
+        registered with this daemon's federation controller. The RPC
+        is synchronous — migrations are barrier-scale except for the
+        RECONCILE drain, which the request's timeout bounds."""
+        pb = _pb()
+        fed = self.federation
+        if fed is None:
+            return pb.MigrateResponse(
+                ok=False, error="federation not enabled on this daemon")
+        from kubedtn_tpu_torch.chaos import ChaosError
+        from kubedtn_tpu_torch.federation import MigrationError
+        from kubedtn_tpu_torch.federation.journal import JournalError
+
+        try:
+            if request.resume:
+                rec = fed.resume(request.migration_id)
+            else:
+                # empty src defaults to the plane this daemon serves
+                src = request.src or fed.plane_name_of(self)
+                rec = fed.migrate(
+                    request.tenant, src, request.dst,
+                    migration_id=request.migration_id or None,
+                    reconcile_timeout_s=float(
+                        request.reconcile_timeout_s) or 30.0)
+        except (MigrationError, JournalError, ChaosError, KeyError,
+                ValueError) as e:
+            return pb.MigrateResponse(
+                ok=False, error=f"{type(e).__name__}: {e}")
+        return pb.MigrateResponse(ok=True,
+                                  migration=self._migration_info(rec))
+
+    def MigrationStatus(self, request, context):
+        pb = _pb()
+        fed = self.federation
+        if fed is None:
+            return pb.MigrationStatusResponse(
+                ok=False, error="federation not enabled on this daemon")
+        recs = fed.status(migration_id=request.migration_id,
+                          tenant=request.tenant)
+        return pb.MigrationStatusResponse(
+            ok=True,
+            migrations=[self._migration_info(r) for r in recs])
+
     # -- surfaces not ported yet --------------------------------------
 
     def _unimplemented(self, request, context):
         _abort(context, "UNIMPLEMENTED",
                "not implemented by this daemon yet")
 
-    MigrateTenant = MigrationStatus = _unimplemented
     FleetStatus = FleetUpgrade = _unimplemented
 
     # -- Remote --------------------------------------------------------

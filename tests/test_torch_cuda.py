@@ -1134,3 +1134,56 @@ def test_autopilot_search_k1_equals_plain_on_card(dev):
     plain = run_sweep(snap, scen, shape_fn=queues.shape_packets_plain, **kw)
     _assert_trees_bitwise(card.final, plain.final)
     plane.stop()
+
+
+def _migrated_record(dev, depth, props, frame_bytes, shards=None):
+    """A 2^16-row federation (each plane's engine at capacity 2^16) on
+    `dev`: the TBF tenant moves A -> B in its feed gap, A optionally on
+    virtual shards. Returns (per-wire deliveries, delivery ticks, the
+    accounting, the journal record without its wall-clock fields)."""
+    from _torch_federation_harness import fmods, run_migrated
+
+    m = fmods("torch")
+    rec, h, acct, _stats, fed = run_migrated(
+        m, depth=depth, props=props, frame_bytes=frame_bytes,
+        device=dev, capacity=1 << 16, shards=shards)
+    assert rec["state"] == "done" and acct["mismatch"] == 0.0
+    assert fed.handle("B").engine.state.capacity == 1 << 16
+    record = {k: v for k, v in fed.coordinator(rec["migration_id"])
+              .record().items()
+              if k not in ("started_s", "finished_s", "step_seconds")}
+    return h.deliv, h.ticks, acct, record
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_migration_on_card_equals_the_cpu(dev, depth):
+    """Live tenant migration between two 2^16-row planes on the card
+    (deterministic links; the source at depth 2 on 2 virtual shards, so
+    K4 runs on its dispatches) delivers what the same migration on the
+    CPU delivers, on the same ticks, with the same record."""
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    from _torch_federation_harness import DET_PROPS
+
+    shards = 2 if depth == 2 else None
+    pex.reset_launches()
+    card = _migrated_record(dev, depth, DET_PROPS, 1500, shards)
+    if shards:
+        assert pex.LAUNCHES["ring_step"] > 0
+    cpu = _migrated_record(torch.device("cpu"), depth, DET_PROPS, 1500,
+                           shards)
+    assert card[0] == cpu[0] and card[1] == cpu[1]
+    assert card[2] == cpu[2]
+    assert card[3] == cpu[3]
+
+
+def test_migration_on_card_equals_never_migrated(dev):
+    """On the card, the drawing tenant (jitter + 10 % loss) migrated
+    mid-run delivers the never-migrated stream on the same ticks."""
+    from _torch_federation_harness import fmods, reference, run_migrated
+
+    m = fmods("torch")
+    ref = reference(m, 1, device=dev)
+    rec, h, acct, _stats, _fed = run_migrated(m, depth=1, device=dev)
+    assert rec["state"] == "done" and acct["mismatch"] == 0.0
+    assert h.deliv == ref[0] and h.ticks == ref[3]

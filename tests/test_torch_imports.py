@@ -84,6 +84,9 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.autopilot.actuator",
     "kubedtn_tpu_torch.autopilot.controller",
     "kubedtn_tpu_torch.scenarios",
+    # live tenant migration
+    "kubedtn_tpu_torch.federation", "kubedtn_tpu_torch.federation.journal",
+    "kubedtn_tpu_torch.federation.migrate",
 )
 
 
