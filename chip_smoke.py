@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 1-4,19  # some phases (1 always runs;
+                                           # 3 and 4, 10, 11 and 14 bring
+                                           # 2 and 3; 6, 7 and 8 go
+                                           # together)
 
 Drives kubedtn_tpu_torch's main path at the BASELINE size — the
 100k-link Clos (200,000 directed rows in capacity 2^18), churned by
@@ -61,7 +65,9 @@ Phases, each fatal on failure:
      engine's again); (d) ping on a 10 ms link (K1): one-way == 10 ms and
      == the plain step; (b) 3 x 4,096 links re-shaped into the three
      kernel classes by UpdateLinks, wires on both ends, 1-64 tagged
-     frames per ingress wire and tick for 10 ticks of 10 ms, drained:
+     frames per ingress wire and tick for 6 ticks of 10 ms (16 until
+     phase 16, then 10; 6 since a whole run with phase 19 took 948.8 s
+     against the script's 898 s bound, PERF.md §4), drained:
      depth 1 (telemetry off) == depth 2 (telemetry on), byte for byte
      per wire (digests),
      the books close per edge, the window totals == the counters, the
@@ -97,7 +103,8 @@ Phases, each fatal on failure:
      Clos through the control plane (200,000 rows in 2^18, Q = 32) and
      15 scenarios (degrades, failures, a spine and a leaf blackholed by
      name, offered load x 1.5 and x 0.5) swept as 15 x 262,144 replica
-     rows for 200 steps of 1 ms (cut from the WhatIf default of 1,000),
+     rows for 100 steps of 1 ms (cut from the WhatIf default of 1,000;
+     200 until that run went over the bound, PERF.md §4),
      each shaping slot ONE K1 launch over all rows, the uniforms shared:
      per replica and edge the books close; replica 0 == sim.run; the
      first 8 scenarios alone == their lanes; 2 steps through K1 == the
@@ -146,7 +153,8 @@ Phases, each fatal on failure:
      its block, the ownership masks == a walk of the engine's rows,
      TenantList / TenantStats / Health over the Daemon; (b) each tenant's
      first 4,096 spine links wired on both ends and fed phase 12's feed
-     for 6 ticks and the drain at depth 1: per tenant, the per-wire
+     for 5 ticks (6 until that run went over the bound, PERF.md §4)
+     and the drain at depth 1: per tenant, the per-wire
      egress bytes, the telemetry and counter rows (by link identity) and
      tenant_counters of the cohabited plane == the tenant's own plane,
      bit for bit, the tenants' counters summing to the plane's; (c) the
@@ -219,12 +227,76 @@ Phases, each fatal on failure:
      kubedtn_migration_* == MigrationStats; K4 == plain on one ring
      step of A's mailbox. Per step: seconds, the barriers' tick-lock
      pauses, journal bytes and seconds per commit, frames transferred
-     at cutover, egress handed off, settle ticks.
+     at cutover, egress handed off, settle ticks;
+ 19. the fleet supervisor, K1's and K4's launches counted from 0 around
+     the phase, phases 16 and 18's sizes: plane A holds t0, t1, t2
+     (199,200 rows in 2^18, phase 16's props: jitter and 10 % loss, a
+     2 Mbit TBF, correlated loss) at depth 2 (phase 18's never-migrated
+     A' as it stands at its end, and B' as B, where phase 18 ran in the
+     same call: that saves their builds and their feeds; else built here
+     the same way), B holds b0 (8 rows, 2 ms links) and C holds c0 (8
+     rows on 1 ms latency-only links, as fleet_rolling_upgrade's
+     tenants), C at depth 2 on 2 virtual shards, and C' a twin of C that
+     no supervisor touches; every member behind a real gRPC server on
+     127.0.0.1 with `grpc_probe` as its probe, lockstep explicit-clock
+     ticks of 10 ms, b0 and c0 fed every tick so every plane dispatches;
+     t0, t1, t2 fed as in phase 18 (2,048 spine links each, 1-16 frames
+     of 64-256 B per wire and tick); the supervisor from
+     entry.build_fleet (suspect after 2, dead after 4, healthy after 2):
+     (a) the ledger adopts every registry's tenants, FleetStatus over
+     gRPC == status(); (b) A fed 3 ticks and drained (one t0 frame a
+     tick keeps A dispatching), one save_live checkpoint (the
+     autosave's stand-in), t1's move A -> C failed by a fault at RESTORE
+     (the journal holds a running record with FORK committed), one
+     tick's feed of each tenant queued on A (the gap frames), A killed
+     (no flush, server stopped); sweeps until A turns suspect (sweep 2)
+     and dead (sweep 4) over failed dials, the evacuation runs inside
+     that sweep: t1 from the journal's fork, t0 and t2 from A's
+     checkpoint (t0's pending frames with it), each on the plane
+     choose_plane names on the healths the supervisor probed; the
+     restored rows' columns == their source and A's own rows, bit for
+     bit; every slice that landed on C restored on C' by hand from the
+     same source (the journal's fork, or the evacuation's own read of
+     A's checkpoint); whether a survivor grew is printed; 3 fed ticks
+     and the drain: every stream on C == C' per wire, bit for bit;
+     check_failover_accounting exact per tenant (reported_lost == the
+     gap frames, accounted + lost == fed, egress == delivered_src +
+     delivered_dst), the mismatch gauge 0; K4 == plain on one ring step
+     of C's mailbox; (c) B and C on their real-time runners, at depth 2,
+     two paced feeders the whole time: c0's wires (128 frames of 64 B
+     each every 20 ms) and every other tenant C serves at its own props
+     (t1's 2,048 wires, one phase-16 feed tick every 0.5 s);
+     FleetUpgrade(planes=[C]) over gRPC: C drained to B by live
+     migration, restarted by its own save_live, teardown,
+     entry.restore_daemon, a new server on the same port, warm_kernels
+     (scenarios.restart_node, the restarter of fleet_rolling_upgrade
+     too), verified, refilled: the report restarted and healthy,
+     drained == refilled; per tenant, fed == the frames out of its
+     egress wires + the drops counted by cause (netem loss, TBF queue,
+     delay ring) in the counters of the rows the frames crossed, and
+     the counters' delivered == the egress count; c0 fed == delivered;
+     each move's src counters as RECONCILE froze them still so at
+     RELEASE, RECONCILE's in-flight residue per move printed, the gauge
+     0; B's own tenants (t0, t2, b0), idle in (c), keep their counters
+     through it and their failover accounting stays exact, also where a
+     drained tenant's block grows B's engine (the JAX plane zeroes every
+     row's counters then; whether a plane grew is printed);
+     Health(plane=C) through B's daemon answers with C's new plane;
+     (d) a scrape's kubedtn_fleet_* == FleetStats.snapshot(),
+     ObserveSLO(fleet=true) on C == the sweep's merge with t1's frozen
+     slices, rebalance() takes the plan of the live healths and the next
+     call returns []. Timed: sweeps and seconds from the kill to DEAD,
+     the evacuation and each restore, fork_from_checkpoint, the failed
+     move, each step of the upgrade and each barrier's pause. Cut: the
+     two-plane `fleet_rolling_upgrade` (both planes upgraded in turn)
+     stays a CPU test (tests/test_torch_fleet.py); here one plane is
+     upgraded.
 
 The line before the last lists the kernels with their launches, errors,
-times and bounds; the last line is {"ok": true, "device": {...}}. It
-exits non-zero, printing neither, when there is no CUDA device or the
-package is missing.
+times and bounds (with --phases, the kernels whose checks ran: K1-K3
+with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
+{...}}. It exits non-zero, printing neither, when there is no CUDA
+device or the package is missing.
 """
 
 from __future__ import annotations
@@ -1264,14 +1336,15 @@ def run_routed_phase(el, fresh, dev, card):
 # -- phase 12: the host live plane -------------------------------------------
 
 PLANE_ROWS = 4096           # rows per kernel class (the live tick's width)
-PLANE_TICKS = 10            # explicit-clock ticks that feed frames (16
-#                             until phase 16 joined: 10 keep the script
-#                             near its time budget, PERF.md §4)
+PLANE_TICKS = 6             # explicit-clock ticks that feed frames (16
+#                             until phase 16 joined, then 10; 6 since a
+#                             whole run with phase 19 went over the
+#                             script's time bound, PERF.md §4)
 PLANE_DT_S = 0.01
 PLANE_MAX_FRAMES = 64       # 1..64 frames per ingress wire and tick
 PLANE_SIZES = (64, 257)     # frame bytes drawn from [64, 257)
 PLANE_DRAIN_TICKS = 40      # idle ticks at most, to empty the delay line
-PLANE_PROFILED = (6, 9)     # feed ticks [a, b) under torch.profiler
+PLANE_PROFILED = (3, 6)     # feed ticks [a, b) under torch.profiler
 UPDATE_BATCH = 1000         # links in phase 12(a)'s UpdateLinks batch
 GRPC_PAIRS = 8
 GRPC_FRAMES = 20_000        # per wire and round
@@ -2406,7 +2479,9 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 14: the what-if twin and planned updates --------------------------
 
 TWIN_SCENARIOS = 15         # MAX_REPLICA_CELLS // 2^18 lanes at full width
-TWIN_STEPS = 200            # cut from twin.query.DEFAULT_TICKS = 1,000
+TWIN_STEPS = 100            # cut from twin.query.DEFAULT_TICKS = 1,000
+#                             (200 until a whole run with phase 19 went
+#                             over the script's time bound, PERF.md §4)
 TWIN_K = 4
 TWIN_DT_US = 1000.0
 TWIN_SEED = 41
@@ -3324,7 +3399,9 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
 TEN_NAMES = ("t0", "t1", "t2")
 TEN_SPINE, TEN_LEAF, TEN_LPP = 100, 166, 2   # 33,200 links a tenant
 TEN_BLOCK = 70_000          # t1's reserved rows (66,400 used)
-TEN_TICKS = 6               # fed ticks of (b)-(d)
+TEN_TICKS = 5               # fed ticks of (b)-(d) (6 until a whole run
+#                             with phase 19 went over the script's time
+#                             bound, PERF.md §4)
 TEN_NOISY_TICKS = 4         # (d): t0 throttled on these fed ticks
 TEN_NOISY_SHARE = 0.2       # (d): t0's frame budget over its fed rate
 TEN_SEED = 16
@@ -4087,13 +4164,14 @@ AP_SIDECAR_S = 4.0          # (g): seconds of the real-time plane
 
 
 def ap_gold_crs(prefix: str, ns: str, pairs: int, uid_base: int,
-                node_ip: str = "10.0.0.1"):
+                node_ip: str = "10.0.0.1", latency: str = AP_GOLD_LATENCY):
     """burn_recovery's tenant as CRs: `pairs` pod pairs, one 2 ms link
-    each, pods placed on `node_ip` (the CNI ran, no link realized)."""
+    each (or `latency`), pods placed on `node_ip` (the CNI ran, no link
+    realized)."""
     from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
                                              Topology, TopologySpec)
 
-    props = LinkProperties(latency=AP_GOLD_LATENCY)
+    props = LinkProperties(latency=latency)
     out = []
     for i in range(pairs):
         a, b = f"{prefix}-{ns}-a{i}", f"{prefix}-{ns}-b{i}"
@@ -4814,9 +4892,12 @@ def _journal_probe(journal):
 
 def run_migration_phase(dev, card, n_spine=None, n_leaf=None,
                         n_links: int = MIG_LINKS, block: int = TEN_BLOCK,
-                        capacity: int = 1 << 18) -> tuple:
+                        capacity: int = 1 << 18, keep=None) -> tuple:
     """Phase 18: live tenant migration between two 2^18-row planes.
-    Returns (metrics, K1 launches, K4 launches) of the phase's path."""
+    Returns (metrics, K1 launches, K4 launches) of the phase's path. A
+    dict `keep` receives the never-migrated planes A' and B' as they
+    stand at the end ("A", "B"), the lockstep tick count ("k"), and per
+    tenant the frames fed and delivered on them ("fed", "out")."""
     import shutil
     import tempfile
 
@@ -5169,6 +5250,9 @@ def run_migration_phase(dev, card, n_spine=None, n_leaf=None,
             f"{m[part]['handed_off']}, residue drained in "
             f"{r['settle_ticks']} settle ticks ({card})")
     m["phase_s"] = time.perf_counter() - t_phase
+    if keep is not None:
+        keep.update(A=A_ref, B=B_ref, k=clock["k"], fed=dict(ref.fed),
+                    out={t: sum(v) for t, v in ref.counts.items()})
     log(f"18(b)-(d) per wire, t0 and t2 (A's egress, the egress handed "
         f"off at RELEASE, then B's) and t1 == A', b0 == B', bit for bit "
         f"({sum(m['counts'].values())} frames); accounting mismatch 0 "
@@ -5189,7 +5273,1032 @@ def run_migration_phase(dev, card, n_spine=None, n_leaf=None,
     return m, k1, k4
 
 
-def main() -> int:
+FL_FEED_TICKS = 3           # fed ticks before the checkpoint
+FL_POST_TICKS = 3           # fed ticks after the evacuation
+FL_C0 = "c0"                # C's own tenant: phase 17's g0 shape on
+FL_C0_LATENCY = "1ms"       # latency-only links, as fleet_rolling_upgrade's
+FL_C0_FEED = 8              # frames of AP_FRAME_BYTES per c0 wire and tick
+FL_MACHINE = dict(suspect_after=2, dead_after=4, healthy_after=2)
+FL_MAX_SWEEPS = 20
+FL_UP_FRAMES = 128          # (c): 64-byte frames per c0 wire every pace
+FL_UP_PACE_S = 0.02
+FL_UP_TEN_PACE_S = 0.5      # (c): a make_feed tick of t1 every this
+FL_UP_STEADY_S = 0.5        # (c): seconds of load before and after
+FL_OUTCOMES = ("delivered_packets", "dropped_loss", "dropped_queue",
+               "dropped_ring")   # a fed frame's terminal outcomes
+FL_TIMEOUT_S = 300.0        # bound on the upgrade RPC and every wait
+FL_COLS = ("tokens", "t_last", "corr", "pkt_count", "backlog_until",
+           "props")
+
+
+def fl_rows_of(engine, identities) -> list:
+    """The engine's rows of a slice's (pod key, uid) identities."""
+    return [engine._rows[(pk, int(uid))] for pk, uid, *_r in identities]
+
+
+def fl_offer_feed(nodes: dict, order, keys_in, feed) -> int:
+    """scenarios.gated_offer for one make_feed tick: each wire's frames
+    go to the first node of `order` whose accept gate is open and which
+    realizes the link, one gate hold per node. Returns the frames
+    accepted (a wire no open node realizes refuses its frames)."""
+    from kubedtn_tpu_torch.wire.server import FrameSeg
+
+    blob, offs, lens, counts = feed
+    bounds = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    left = range(len(keys_in))
+    n = 0
+    for name in order:
+        if not left:
+            break
+        node = nodes[name]
+        with node["gate"]:
+            if node["draining"]:
+                continue
+            wires, engine, rest = node["daemon"].wires, node["engine"], []
+            for i in left:
+                w = wires.get_by_key(*keys_in[i])
+                if w is None or engine.row_of(*keys_in[i]) is None:
+                    rest.append(i)
+                    continue
+                w.ingress.append(FrameSeg(blob, offs, lens, bounds[i],
+                                          bounds[i + 1]))
+                n += bounds[i + 1] - bounds[i]
+            left = rest
+    return n
+
+
+def fl_columns(engine, rows) -> dict:
+    """The shaping columns of `rows`, gathered on the engine's device and
+    copied to the host."""
+    st = engine.state
+    ri = torch.as_tensor(rows, dtype=torch.int64, device=st.device)
+    return {c: getattr(st, c).index_select(0, ri).cpu().numpy()
+            for c in FL_COLS}
+
+
+def fl_same_columns(a: dict, b: dict, name: str) -> None:
+    for c in FL_COLS:
+        x, y = np.asarray(a[c]), np.asarray(b[c])
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and x.tobytes() == y.tobytes(),
+              f"{name}: column {c} differs bitwise")
+
+
+class FleetRun:
+    """Phase 19's lockstep loop: the planes alive, which plane serves
+    each tenant, one make_feed draw per fed tenant and tick applied to
+    the serving plane (and to C' for every tenant C serves), egress
+    drained per tenant after every tick, per wire digests of every
+    tenant's egress on C and C'."""
+
+    def __init__(self, planes: dict, serve: dict, keys: dict, dev,
+                 n_links: int, k0: int, twin=None):
+        import hashlib
+
+        self.planes, self.serve, self.keys = planes, serve, keys
+        self.dev, self.n_links, self.k = dev, n_links, k0
+        self.twin = twin                     # (C, C') while C' lives
+        self.dead = set()
+        self.fed = {t: 0 for t in keys}
+        self.out = {t: 0 for t in keys}      # egress frames, all planes
+        self.keepalive = 0
+        self.rngs = {t: np.random.default_rng(MIG_SEED + 100 + j)
+                     for j, t in enumerate(TEN_NAMES)}
+        self.dig = {side: {t: [hashlib.blake2b(digest_size=16)
+                               for _ in keys[t][1]]
+                           for t in keys}
+                    for side in ("C", "C2")}
+        self.walls: dict = {n: [] for n in planes}
+        self.on_tick = None
+
+    def wires(self, side, t: str, end: int) -> list:
+        d = side["daemon"]
+        return [d.wires.get_by_key(*k) for k in self.keys[t][end]]
+
+    def feed(self, t: str) -> int:
+        """One make_feed tick of tenant t on its serving plane (and on C'
+        when t is served by C); returns the frames."""
+        feed = make_feed(self.n_links, self.k + 1, self.rngs[t],
+                         MIG_MAX_FRAMES)
+        n = apply_feed(self.wires(self.serve[t], t, 0), feed)
+        if self.twin is not None and self.serve[t] is self.twin[0]:
+            apply_feed(self.wires(self.twin[1], t, 0), feed)
+        self.fed[t] += n
+        return n
+
+    def collect(self) -> None:
+        for t, (_ins, outs) in self.keys.items():
+            for name, side in self.planes.items():
+                wires = side["daemon"].wires
+                for i, k in enumerate(outs):
+                    w = wires.get_by_key(*k)
+                    if w is None or not w.egress:
+                        continue
+                    if name in ("C", "C2"):
+                        self.dig[name][t][i].update(b"".join(w.egress))
+                    if name != "C2":
+                        self.out[t] += len(w.egress)
+                    w.egress.clear()
+
+    def tick(self, tenants=(), keepalive: bool = False,
+             background: bool = True) -> None:
+        """One lockstep tick of every live plane at k * PLANE_DT_S: the
+        fed tenants, with `background` b0 and c0 (B, C and C' dispatch
+        every tick), with `keepalive` one frame on t0's first wire of A
+        (A dispatches too)."""
+        for t in tenants:
+            self.feed(t)
+        if background:
+            self._background()
+        if keepalive:
+            self.wires(self.planes["A"], "t0", 0)[0].ingress.append(
+                b"\xee" * 64)
+            self.fed["t0"] += 1
+            self.keepalive += 1
+        self.k += 1
+        now = self.k * PLANE_DT_S
+        for name, side in self.planes.items():
+            if name in self.dead:
+                continue
+            t0 = time.perf_counter()
+            if self.on_tick is not None:
+                self.on_tick(name)
+            side["plane"].tick(now_s=now)
+            _sync(self.dev)
+            self.walls[name].append(time.perf_counter() - t0)
+        self.collect()
+
+    def _background(self) -> None:
+        b0 = self.planes["B"]["daemon"]
+        for k in self.keys[MIG_B0][0]:
+            b0.wires.get_by_key(*k).ingress.extend(
+                [b"\xab" * AP_FRAME_BYTES] * MIG_B0_FEED)
+        self.fed[MIG_B0] += MIG_B0_FEED * len(self.keys[MIG_B0][0])
+        for name in ("C", "C2"):
+            if name in self.planes:
+                d = self.planes[name]["daemon"]
+                for k in self.keys[FL_C0][0]:
+                    d.wires.get_by_key(*k).ingress.extend(
+                        [b"\xcd" * AP_FRAME_BYTES] * FL_C0_FEED)
+        self.fed[FL_C0] += FL_C0_FEED * len(self.keys[FL_C0][0])
+
+    def idle(self, names) -> bool:
+        for n in names:
+            p = self.planes[n]["plane"]
+            if p._inflight or p._holdback or len(p._wheel) or p._pending:
+                return False
+        return True
+
+    def digests(self, side: str, t: str) -> list:
+        return [d.hexdigest() for d in self.dig[side][t]]
+
+
+def run_fleet_phase(dev, card, n_spine=None, n_leaf=None,
+                    n_links: int = MIG_LINKS, block: int = TEN_BLOCK,
+                    capacity: int = 1 << 18, reuse=None) -> tuple:
+    """Phase 19: the fleet supervisor. Plane A (t0, t1, t2) dies
+    mid-migration and is evacuated onto B and C with no operator call;
+    C is upgraded over gRPC under load. `reuse` takes phase 18's
+    never-migrated planes A' and B' as A and B (saving their builds).
+    Returns (metrics, K1 launches, K4 launches) of the phase's path."""
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import checkpoint, entry
+    from kubedtn_tpu_torch.chaos import ChaosError, ChaosInjector
+    from kubedtn_tpu_torch.federation import (MigrationCoordinator,
+                                              PlaneHandle, choose_plane,
+                                              grpc_probe, journal,
+                                              rebalance_plan,
+                                              restore_tenant_slice)
+    from kubedtn_tpu_torch.federation import supervisor as fsup
+    from kubedtn_tpu_torch.metrics.metrics import make_registry
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+    from kubedtn_tpu_torch.scenarios import (gated_producer, restart_node,
+                                             serve_on, wire_def)
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from prometheus_client import generate_latest
+
+    t_phase = time.perf_counter()
+    n_spine = n_spine or TEN_SPINE
+    n_leaf = n_leaf or TEN_LEAF
+    n_ten = n_spine * n_leaf * TEN_LPP
+    shaping.reset_launches()
+    pex.reset_launches()
+    m = {"links_per_tenant": n_links, "capacity": capacity,
+         "reused_phase18_planes": reuse is not None}
+    crs = ten_crs(TEN_NAMES, n_spine, n_leaf, TEN_LPP)
+    keys = {t: mig_keys(crs[t], n_links) for t in TEN_NAMES}
+    b_uid = len(TEN_NAMES) * n_ten
+    c_uid = b_uid + AP_GOLD_PAIRS
+    for t, prefix, base in ((MIG_B0, "mig", b_uid), (FL_C0, "fl", c_uid)):
+        keys[t] = tuple([(f"{t}/{prefix}-{t}-{s}{i}", base + i + 1)
+                         for i in range(AP_GOLD_PAIRS)] for s in "ab")
+
+    # (a) A and B (phase 18's A' and B', or built here), C and its twin
+    # C' on 2 virtual shards
+    t0 = time.perf_counter()
+    fed0 = {t: 0 for t in keys}
+    out0 = {t: 0 for t in keys}
+    if reuse is not None:
+        A, B, k0 = reuse["A"], reuse["B"], reuse["k"]
+        for t in TEN_NAMES + (MIG_B0,):
+            fed0[t], out0[t] = reuse["fed"][t], reuse["out"][t]
+    else:
+        all_crs = [c for t in TEN_NAMES for c in crs[t]]
+        A = _mig_side(dev, all_crs, capacity, {"t1": {"block_edges": block}},
+                      "10.0.0.1")
+        B = _mig_side(dev, ap_gold_crs("mig", MIG_B0, AP_GOLD_PAIRS, b_uid,
+                                       node_ip="10.0.0.2"),
+                      capacity, True, "10.0.0.2")
+        k0 = 0
+        for side, tens in ((A, TEN_NAMES), (B, (MIG_B0,))):
+            for t in tens:
+                for pod_key, uid in keys[t][0] + keys[t][1]:
+                    ns, _, pod = pod_key.partition("/")
+                    side["daemon"]._add_wire(wire_def(pod, ns, uid))
+    B["plane"].enable_telemetry(window_s=3600.0, sample_period=1024)
+    c_crs = ap_gold_crs("fl", FL_C0, AP_GOLD_PAIRS, c_uid,
+                        node_ip="10.0.0.3", latency=FL_C0_LATENCY)
+    C = _mig_side(dev, c_crs, capacity, True, "10.0.0.3",
+                  mesh=make_mesh([dev] * 2), telemetry=True)
+    C2 = _mig_side(dev, c_crs, capacity, True, "10.0.0.3",
+                   mesh=make_mesh([dev] * 2), telemetry=True)
+    for side in (C, C2):
+        for pod_key, uid in keys[FL_C0][0] + keys[FL_C0][1]:
+            ns, _, pod = pod_key.partition("/")
+            side["daemon"]._add_wire(wire_def(pod, ns, uid))
+    m["setup_s"] = time.perf_counter() - t0
+    check(A["engine"].num_active == 3 * 2 * n_ten
+          and B["engine"].num_active == C["engine"].num_active
+          == 2 * AP_GOLD_PAIRS, "19(a): plane sizes")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-phase19-")
+    ck_a, ck_c = f"{root}/ckA", f"{root}/ckC"
+    chaos = ChaosInjector(seed=MIG_SEED)
+    run = FleetRun({"A": A, "B": B, "C": C, "C2": C2},
+                   {t: A for t in TEN_NAMES}, keys, dev, n_links, k0,
+                   twin=(C, C2))
+    run.serve.update({MIG_B0: B, FL_C0: C})
+    srv = {}
+    addr = {}
+    nodes = {}
+    clients = []
+    real_shift = pex.ring_right_shift
+    captured = []
+    capture_on = [False]
+
+    def capture(blocks, mesh):
+        if capture_on[0] and not captured:
+            captured.append(([b.clone() for b in blocks], tuple(mesh)))
+        return real_shift(blocks, mesh)
+
+    # a ring step of C's mailbox once the evacuated t1 rides on it
+    run.on_tick = lambda name: capture_on.__setitem__(
+        0, name == "C" and run.serve["t1"] is C)
+    pex.ring_right_shift = capture
+    timed_calls = {"restore": [], "fork_ckpt": [], "evacuate": [],
+                   "migrate": [], "restart": []}
+    forks = {}      # the evacuation's fork_from_checkpoint outputs
+    slices = {}     # the evacuation's restore_tenant_slice sources
+    real = {"restore": fsup.restore_tenant_slice,
+            "fork_ckpt": fsup.fork_from_checkpoint}
+
+    def timing(kind, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(dev)
+            label = a[0] if kind == "migrate" else a[1] if len(a) > 1 \
+                else ""
+            timed_calls[kind].append((label,
+                                      time.perf_counter() - t0,
+                                      time.perf_counter()))
+            if kind == "fork_ckpt":
+                forks[label] = out
+            if kind == "restore":
+                slices[label] = a[2:5]    # fork, arrays, src address
+            return out
+        return wrapped
+
+    fsup.restore_tenant_slice = timing("restore", real["restore"])
+    fsup.fork_from_checkpoint = timing("fork_ckpt", real["fork_ckpt"])
+    # each migration's src counters as RELEASE finds them: RECONCILE
+    # froze them, nothing of the tenant may shape on src after that
+    at_release = {}
+    real_release = MigrationCoordinator._step_release
+
+    def step_release(co):
+        at_release[co.migration_id] = co.src.registry.tenant_counters(
+            co.src.plane, co.tenant)
+        return real_release(co)
+
+    MigrationCoordinator._step_release = step_release
+    # per migration, RECONCILE's checks that found the tenant's frames in
+    # dispatches in flight: (such checks, most frames, frames at the last)
+    residue = {}
+    real_residue = MigrationCoordinator._src_residue
+
+    def src_residue(co, *a):
+        out = real_residue(co, *a)
+        if out["inflight"]:
+            n, most, _l = residue.get(co.migration_id, (0, 0, 0))
+            residue[co.migration_id] = (n + 1, max(most, out["inflight"]),
+                                        out["inflight"])
+        return out
+
+    MigrationCoordinator._src_residue = src_residue
+    try:
+        for name, side in (("A", A), ("B", B), ("C", C)):
+            srv[name], port = serve_on(side["daemon"])
+            addr[name] = f"127.0.0.1:{port}"
+            nodes[name] = dict(side, server=srv[name], port=port,
+                               gate=threading.Lock(), draining=False)
+
+        def restart_c():
+            """C's restarter: save_live, teardown, restore_daemon, a new
+            server on the same port, warm_kernels."""
+            t0 = time.perf_counter()
+            node = nodes["C"]
+
+            def drain(old):
+                with consumer_lock:
+                    drain_egress(old)
+
+            def configure(plane):
+                plane.enable_sharding(make_mesh([dev] * 2))
+                plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+
+            r, steps = restart_node(
+                node, ck_c, dev, node["port"], drain,
+                plane_kwargs=dict(dt_us=PLANE_DT_S * 1e6, seed=MIG_SEED,
+                                  pipeline_depth=2),
+                live_save=True, configure=configure, capacity=capacity,
+                node_ip="10.0.0.3")
+            nodes["C"] = dict(r, port=node["port"],
+                              old_pauses=node["plane"].pauses.events(-1))
+            srv["C"] = r["server"]
+            timed_calls["restart"].append(
+                ("C", time.perf_counter() - t0, time.perf_counter(), steps))
+            return PlaneHandle("C", r["daemon"], r["plane"], r["tenancy"],
+                               checkpoint_dir=ck_c,
+                               probe=grpc_probe(addr["C"]),
+                               restarter=restart_c)
+
+        handles = {
+            "A": PlaneHandle("A", A["daemon"], A["plane"], A["tenancy"],
+                             checkpoint_dir=ck_a,
+                             probe=grpc_probe(addr["A"])),
+            "B": PlaneHandle("B", B["daemon"], B["plane"], B["tenancy"],
+                             probe=grpc_probe(addr["B"])),
+            "C": PlaneHandle("C", C["daemon"], C["plane"], C["tenancy"],
+                             probe=grpc_probe(addr["C"]),
+                             restarter=restart_c)}
+        fed = entry.build_federation(handles, f"{root}/journal",
+                                     chaos=chaos)
+        sup = entry.build_fleet(fed, f"{root}/ledger", chaos=chaos,
+                                **FL_MACHINE)
+        fed.migrate = timing("migrate", fed.migrate)
+        sup.evacuate = timing("evacuate", sup.evacuate)
+        seen = []
+        real_cands = sup._live_candidates
+
+        def live_candidates(exclude):
+            out = real_cands(exclude)
+            seen.append(({n: dict(h) for n, h in out[0].items()},
+                         {p: list(ts) for p, ts in out[1].items()}))
+            return out
+
+        sup._live_candidates = live_candidates
+        # each tenant's evacuation ends with its ledger entry: the time
+        # from the previous one (or the evacuation's start) is its own
+        assigned = []
+        real_assign = sup.ledger.assign
+
+        def assign(tenant, plane, qos=None):
+            real_assign(tenant, plane, qos=qos)
+            assigned.append((tenant, time.perf_counter()))
+
+        sup.ledger.assign = assign
+        want = {"t0": "A", "t1": "A", "t2": "A", MIG_B0: "B", FL_C0: "C"}
+        check(sup.ledger.placements() == want
+              and all(d.fleet is sup for d in (A["daemon"], B["daemon"],
+                                               C["daemon"])),
+              f"19(a): ledger {sup.ledger.placements()}")
+        check(sup.sweep() == {}, "19(a): a plane left healthy")
+        cb = DaemonClient(addr["B"])
+        clients.append(cb)
+        st = cb.FleetStatus(pb.FleetStatusRequest())
+        st_in = B["daemon"].FleetStatus(pb.FleetStatusRequest(), None)
+        status = sup.status()
+        check(st.ok and st == st_in
+              and [(p.name, p.state, p.tenants_placed, p.health.node)
+                   for p in st.planes]
+              == [(p["name"], p["state"], p["tenants_placed"],
+                   p["health"]["node"]) for p in status["planes"]]
+              and {e.tenant: e.plane for e in st.placements}
+              == status["placements"] == want
+              and st.sweeps == status["sweeps"] == 1,
+              f"19(a): FleetStatus over gRPC {st}")
+        origin = "phase 18's A' and B'" if reuse else "built here"
+        log(f"19(a) A: {A['engine'].num_active} rows of t0, t1, t2 at depth "
+            f"2 ({origin}), B: {B['engine'].num_active} rows of {MIG_B0}, C and C': "
+            f"{C['engine'].num_active} rows of {FL_C0} at depth 2 on 2 "
+            f"virtual shards, all in capacity {capacity}, behind gRPC on "
+            f"{addr}; set-up {m['setup_s']:.3f} s; the ledger adopted "
+            f"{want}; FleetStatus over gRPC == status() ({card})")
+
+        # (b) the failover: feed A to idle, checkpoint, a RESTORE fault
+        # in t1's move A -> C, gap frames, the kill
+        for _ in range(FL_FEED_TICKS):
+            run.tick(TEN_NAMES)
+        drained = 0
+        for drained in range(1, PLANE_DRAIN_TICKS + 1):
+            run.tick(keepalive=True)
+            cnt = {t: A["tenancy"].tenant_counters(A["plane"], t)
+                   for t in ("t1", "t2")}
+            if all(MigrationCoordinator._accounted(cnt[t])
+                   == fed0[t] + run.fed[t]
+                   and cnt[t]["delivered_packets"]
+                   == out0[t] + run.out[t] for t in cnt):
+                break
+        check(drained < PLANE_DRAIN_TICKS, "19(b): A did not drain")
+        t0 = time.perf_counter()
+        checkpoint.save_live(ck_a, A["store"], A["engine"], A["plane"])
+        m["save_live_s"] = time.perf_counter() - t0
+        pend_ckpt = [e for e in checkpoint.read_pending_entries(ck_a)
+                     if e[0].startswith("t0/")]
+        m["checkpoint_bytes"] = sum(_file_bytes(ck_a).values())
+        truth_ids = {t: [k for k, _r in sorted(
+            ((k, r) for k, r in A["engine"]._rows.items()
+             if k[0].startswith(t + "/")), key=lambda kr: kr[1])]
+            for t in TEN_NAMES}
+        truth = {t: fl_columns(A["engine"], [A["engine"]._rows[k]
+                                             for k in truth_ids[t]])
+                 for t in TEN_NAMES}
+        chaos.fail_migration_step("restore")
+        t0 = time.perf_counter()
+        try:
+            fed.migrate("t1", "A", "C", settle=lambda: fail(
+                "19(b): a settle tick before the RESTORE fault"))
+            fail("19(b): the RESTORE fault did not fire")
+        except ChaosError:
+            pass
+        m["failed_move_s"] = time.perf_counter() - t0
+        mid = fed.status(tenant="t1")[-1]["migration_id"]
+        meta = journal.load_record_meta(f"{root}/journal", mid)
+        check(meta["state"] == "running" and "fork" in meta["steps_done"]
+              and "cutover" not in meta["steps_done"],
+              f"19(b): journal {meta['state']} {meta['steps_done']}")
+        gap = {}
+        for t in TEN_NAMES:
+            gap[t] = run.feed(t)
+        caps_kill = {n: run.planes[n]["engine"].state.capacity
+                     for n in ("B", "C")}
+        chaos.kill_plane(fed.handle("A"), server=srv["A"])
+        t_kill = time.perf_counter()
+        run.dead.add("A")
+        trans = {}
+        sweeps = 0
+        while sweeps < FL_MAX_SWEEPS:
+            sweeps += 1
+            tr = sup.sweep()
+            if "A" in tr:
+                trans[tr["A"]] = (sweeps, time.perf_counter() - t_kill)
+            if tr.get("A") == "dead":
+                break
+        # the sweep that declares A dead evacuates it before returning:
+        # DEAD is the evacuation's start
+        _l, evac_s, evac_end = timed_calls["evacuate"][-1]
+        if "dead" in trans:
+            trans["dead"] = (trans["dead"][0], evac_end - evac_s - t_kill)
+        check(list(trans) == ["suspect", "dead"]
+              and trans["suspect"][0] == FL_MACHINE["suspect_after"]
+              and trans["dead"][0] == FL_MACHINE["dead_after"],
+              f"19(b): A's transitions {trans}")
+        evac = sup.evacuations()[-1]
+        ents = evac["tenants"]
+        per_tenant, prev = {}, evac_end - evac_s
+        for t, at in assigned:
+            if t in ents and t not in per_tenant:
+                per_tenant[t] = at - prev
+                prev = at
+        check(evac["plane"] == "A" and sorted(ents) == list(TEN_NAMES)
+              and [r["action"] for r in evac["migrations_resolved"]]
+              == ["rolled back: src died pre-cutover; re-forking from "
+                  "the journal capture onto a survivor"]
+              and ents["t1"]["source"] == "journal-fork"
+              and ents["t0"]["source"] == ents["t2"]["source"]
+              == "checkpoint"
+              and all(not e.get("error") for e in ents.values()),
+              f"19(b): evacuation {evac}")
+        # each tenant landed where choose_plane puts it, replayed on the
+        # healths the supervisor probed
+        healths, placed = seen[-1]
+        for t in TEN_NAMES:
+            s = choose_plane(healths, placed, sup.ledger.qos_of,
+                             exclude={"A"})
+            check(ents[t]["survivor"] == s and sup.ledger.get(t) == s,
+                  f"19(b): {t} on {ents[t]['survivor']}, choose_plane {s}")
+            placed.setdefault(s, []).append(t)
+            run.serve[t] = B if s == "B" else C
+        check(ents["t0"]["pending_restored"] == len(pend_ckpt)
+              and sum(e["ingress_restored"] for e in ents.values()) == 0,
+              f"19(b): pending restored {ents['t0']['pending_restored']} "
+              f"of {len(pend_ckpt)}")
+        # the restored rows against their sources: the fork capture (t1)
+        # or the checkpoint slice (t0, t2), and the dead plane's own rows
+        rec_full, arrays = journal.load_record(f"{root}/journal", mid)
+        src = {"t1": (rec_full["fork"]["identities"], arrays)}
+        for t in ("t0", "t2"):
+            fork, arr, *_r = forks[t]
+            src[t] = (fork["identities"], arr)
+        m["fork_from_checkpoint_s"] = {t: s for t, s, _e in
+                                       timed_calls["fork_ckpt"]}
+        for t, (ids, arr) in src.items():
+            side = run.serve[t]
+            check([(pk, int(u)) for pk, u, *_r in ids] == truth_ids[t],
+                  f"19(b): {t}'s identities")
+            got = fl_columns(side["engine"], fl_rows_of(side["engine"],
+                                                        ids))
+            fl_same_columns(got, arr, f"19(b) {t} restored vs its source")
+            fl_same_columns(got, truth[t], f"19(b) {t} vs A's rows")
+        check(run.serve["t1"] is C, "19(b): t1 not on C")
+        # C': every slice the evacuation put on C restored by hand from
+        # the same source, no supervisor: the journal's fork, or the
+        # evacuation's own read of A's checkpoint (no second capture)
+        twin = PlaneHandle("C'", C2["daemon"], C2["plane"], C2["tenancy"])
+        t0 = time.perf_counter()
+        on_c = [t for t in TEN_NAMES if run.serve[t] is C]
+        for t in on_c:
+            fork, arr, src_addr = slices[t]
+            restore_tenant_slice(twin, t, fork, arr, src_addr, hold=False)
+            if ents[t]["source"] == "checkpoint":
+                _f, _a, _c, pending, ingress, _s = forks[t]
+                if pending:
+                    C2["plane"].restore_pending(
+                        pending, now_s=C2["plane"].last_now_s)
+                for pk, uid, frame in ingress:
+                    C2["daemon"].wires.get_by_key(pk, int(uid)) \
+                        .ingress.append(frame)
+        m["hand_restore_s"] = time.perf_counter() - t0
+        caps = {n: (caps_kill[n], run.planes[n]["engine"].state.capacity)
+                for n in ("B", "C")}
+        grew = [n for n, (a, b) in caps.items() if b != a]
+        log(f"19(b) survivors' capacity across the evacuation {caps}: "
+            + (f"{', '.join(grew)} grew (each row kept its counts: the "
+               f"port's repair of the JAX plane's counter reset)"
+               if grew else "neither survivor grew"))
+        for _ in range(FL_POST_TICKS):
+            run.tick(TEN_NAMES)
+        for _ in range(PLANE_DRAIN_TICKS):
+            if run.idle(("B", "C", "C2")):
+                break
+            run.tick(background=False)
+        for n in ("B", "C", "C2"):
+            run.planes[n]["plane"].flush()
+            check(run.planes[n]["plane"].tick_errors == 0,
+                  f"19(b): tick errors on {n}")
+        run.collect()
+        check(run.idle(("B", "C", "C2")), "19(b): a delay line did not "
+                                          "empty")
+        for t in on_c + [FL_C0]:
+            check(run.digests("C", t) == run.digests("C2", t),
+                  f"19(b): {t}'s streams on C differ from C'")
+        acct = {}
+        for t in TEN_NAMES:
+            a = sup.check_failover_accounting(t, fed0[t] + run.fed[t])
+            acct[t] = a
+            check(a["mismatch"] == 0.0 and a["reported_lost"] == gap[t]
+                  and a["fed"] == a["accounted"] + a["reported_lost"]
+                  and out0[t] + run.out[t]
+                  == a["delivered_src"] + a["delivered_dst"],
+                  f"19(b): {t}'s failover accounting {a} (gap {gap[t]}, "
+                  f"egress {out0[t] + run.out[t]})")
+        check(fed.stats.snapshot()["accounting_mismatch"] == 0.0
+              and sup.stats.snapshot()["reported_lost"]
+              == gap[TEN_NAMES[-1]], "19(b): the gauges")
+        check(captured, "19(b): C ran no ring step")
+        blocks, mesh = captured[0]
+        pex.ring_right_shift = real_shift
+        k4_b = pex.LAUNCHES["ring_step"]
+        same(pex.ring_right_shift(blocks, mesh),
+             pex.ring_right_shift_plain(blocks), "19 K4 vs plain")
+        # the comparison's launches are not the path's
+        k4_check = pex.LAUNCHES["ring_step"] - k4_b
+        check(k4_b > 0 or dev.type != "cuda",
+              "19(b): K4 never launched on C")
+        m["b"] = {
+            "sweeps": {s: v[0] for s, v in trans.items()},
+            "kill_to_s": {s: v[1] for s, v in trans.items()},
+            "evacuate_s": evac_s, "evacuate_s_per_tenant": per_tenant,
+            "restore_s": {t: s for t, s, _e in timed_calls["restore"]},
+            "survivors": {t: ents[t]["survivor"] for t in TEN_NAMES},
+            "rows": {t: ents[t]["rows"] for t in TEN_NAMES},
+            "pending_restored": ents["t0"]["pending_restored"],
+            "gap": gap, "accounting": acct, "fed": dict(run.fed),
+            "keepalive": run.keepalive, "drain_ticks": drained,
+            "k4_launches": k4_b, "mailbox_rows": int(blocks[0].shape[0])}
+        log(f"19(b) A fed {FL_FEED_TICKS} ticks then drained in {drained} "
+            f"(t0 kept A dispatching), save_live {m['save_live_s']:.3f} s "
+            f"({m['checkpoint_bytes']} B, {len(pend_ckpt)} t0 frames "
+            f"pending); t1 A -> C failed at RESTORE in "
+            f"{m['failed_move_s']:.3f} s; {sum(gap.values())} gap frames; "
+            f"A killed: suspect at sweep {trans['suspect'][0]} "
+            f"({trans['suspect'][1]:.3f} s), dead at sweep "
+            f"{trans['dead'][0]} ({trans['dead'][1]:.3f} s after the kill); "
+            f"evacuation {evac_s:.3f} s: "
+            + ", ".join(f"{t} -> {ents[t]['survivor']} from "
+                        f"{ents[t]['source']} in {per_tenant[t]:.3f} s "
+                        f"({ents[t]['rows']} rows, restore "
+                        f"{m['b']['restore_s'].get(t, 0):.3f} s)"
+                        for t in TEN_NAMES)
+            + "; fork_from_checkpoint "
+            + ", ".join(f"{t} {v:.3f} s" for t, v in
+                        m["fork_from_checkpoint_s"].items())
+            + f"; C' by hand {m['hand_restore_s']:.3f} s ({card})")
+        log(f"19(b) the restored rows == their sources and A's rows, bit "
+            f"for bit; {', '.join(on_c + [FL_C0])} on C == C' per wire, "
+            f"bit for bit; "
+            f"failover accounting exact, reported_lost == the gap "
+            f"({ {t: acct[t]['reported_lost'] for t in TEN_NAMES} }), the "
+            f"mismatch gauge 0; K4 {k4_b} launches, == plain on one ring "
+            f"step of C's mailbox ({blocks[0].shape[0]} rows) ({card})")
+
+        # (c) FleetUpgrade of C over gRPC under load: a paced feeder on
+        # c0's latency-only wires (nothing may be lost there) and one on
+        # every other tenant C serves, at its phase-16 props (t1's 2 Mbit
+        # TBF: a frame may end in a counted drop); each is drained to B
+        # and refilled
+        del run.planes["C2"]
+        run.twin = None
+        C2 = None
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        consumer_lock = threading.Lock()
+        up_tenants = sorted(t for t in keys if run.serve[t] is C)
+        C_rows = {t: C["tenancy"].rows_of(t).size for t in up_tenants}
+        fed_ten = [t for t in up_tenants if t != FL_C0]
+        up = {t: {"fed": [0], "out": 0} for t in up_tenants}
+        stop = threading.Event()
+
+        def drain_egress(node) -> None:
+            wires = node["daemon"].wires
+            for t in up_tenants:
+                for k in keys[t][1]:
+                    w = wires.get_by_key(*k)
+                    if w is None:
+                        continue
+                    n = 0
+                    while True:
+                        try:
+                            w.egress.popleft()
+                        except IndexError:
+                            break
+                        n += 1
+                    up[t]["out"] += n
+
+        def consumer():
+            while not stop.is_set():
+                with consumer_lock:
+                    for name in ("B", "C"):
+                        drain_egress(nodes[name])
+                stop.wait(FL_UP_PACE_S)
+
+        def tenant_feeder():
+            rngs = {t: np.random.default_rng(MIG_SEED + 200 + j)
+                    for j, t in enumerate(fed_ten)}
+            tick = 0
+            while not stop.is_set():
+                tick += 1
+                for t in fed_ten:
+                    feed = make_feed(n_links, tick, rngs[t],
+                                     MIG_MAX_FRAMES)
+                    up[t]["fed"][0] += fl_offer_feed(
+                        nodes, ("B", "C"), keys[t][0], feed)
+                stop.wait(FL_UP_TEN_PACE_S)
+
+        # the upgraded tenants' counters on C before the upgrade, and the
+        # migrations before it: the upgrade's records are the rest
+        base = {t: C["tenancy"].tenant_counters(C["plane"], t)
+                for t in up_tenants}
+        mids0 = {r["migration_id"] for r in fed.status()}
+        caps0 = {n: nodes[n]["engine"].state.capacity for n in ("B", "C")}
+        # B's own tenants take no traffic in (c): their counters must
+        # come through the upgrade as they are, also where the drained
+        # tenants' blocks grow B's engine (the JAX plane zeroes every
+        # row's counters when its engine grows)
+        stay_b = sorted(t for t in keys if run.serve[t] is B)
+        kept_b = {t: B["tenancy"].tenant_counters(B["plane"], t)
+                  for t in stay_b}
+        for name in ("B", "C"):
+            p = nodes[name]["plane"]
+            p.pipeline_explicit_clock = False
+            p.start()
+        ev0 = {n: time.monotonic() - nodes[n]["plane"].pauses._t0
+               for n in ("B", "C")}
+        n_mig0 = len(timed_calls["migrate"])
+        threads = [threading.Thread(
+            target=gated_producer, daemon=True,
+            args=(nodes, ("B", "C"), keys[FL_C0][0],
+                  [b"\x77" * 64] * FL_UP_FRAMES, up[FL_C0]["fed"], stop,
+                  FL_UP_PACE_S)),
+            threading.Thread(target=tenant_feeder, daemon=True),
+            threading.Thread(target=consumer, daemon=True)]
+        for th in threads:
+            th.start()
+        time.sleep(FL_UP_STEADY_S)
+        t0 = time.perf_counter()
+        resp = cb.FleetUpgrade(pb.FleetUpgradeRequest(planes=["C"],
+                                                      verify_probes=2),
+                               timeout=FL_TIMEOUT_S)
+        up_s = time.perf_counter() - t0
+        time.sleep(FL_UP_STEADY_S)
+        stop.set()
+        for th in threads:
+            th.join(timeout=10)
+        in_keys = [k for t in up_tenants for k in keys[t][0]]
+        # drain until nothing is left anywhere: no ingress on the fed
+        # wires, nothing in flight, and no new egress for 0.5 s
+        deadline = time.monotonic() + FL_TIMEOUT_S
+        quiet, last = 0, -1
+        while quiet < 10 and time.monotonic() < deadline:
+            time.sleep(0.05)
+            busy = False
+            for name in ("B", "C"):
+                drain_egress(nodes[name])
+                p = nodes[name]["plane"]
+                wires = nodes[name]["daemon"].wires
+                busy = busy or bool(
+                    p._inflight or p._holdback or len(p._wheel)
+                    or p._pending or any(
+                        w is not None and len(w.ingress)
+                        for w in (wires.get_by_key(*k) for k in in_keys)))
+            total = sum(u["out"] for u in up.values())
+            quiet = quiet + 1 if not busy and total == last else 0
+            last = total
+        recs = [r for r in fed.status() if r["migration_id"] not in mids0]
+        check(len(recs) == 2 * len(up_tenants)
+              and all(r["state"] == "done" for r in recs),
+              f"19(c): the upgrade's migrations {recs}")
+        for r in recs:
+            cs, rel = r["reconcile"]["counters_src"], at_release[
+                r["migration_id"]]
+            check(all(cs[k] == rel[k] for k in cs),
+                  f"19(c): {r['migration_id']}'s src counters moved after "
+                  f"RECONCILE froze them: {cs} -> {rel}")
+        # every frame fed reached a terminal outcome, by the counters of
+        # the rows it crossed: C's before the drain (less their state at
+        # the start), B's between the drain and the refill (zeroed when
+        # restored), the new C's since the refill
+        newc = nodes["C"]
+        term = {t: dict.fromkeys(FL_OUTCOMES, 0.0) for t in up_tenants}
+        for r in recs:
+            cs = r["reconcile"]["counters_src"]
+            for k in FL_OUTCOMES:
+                term[r["tenant"]][k] += cs[k] - (
+                    base[r["tenant"]][k] if r["src"] == "C" else 0.0)
+        for t in up_tenants:
+            live = newc["tenancy"].tenant_counters(newc["plane"], t)
+            for k in FL_OUTCOMES:
+                term[t][k] += live[k]
+        check(resp.ok and len(resp.reports) == 1
+              and resp.migrations == 2 * len(up_tenants),
+              f"19(c): FleetUpgrade {resp}")
+        rep = resp.reports[0]
+        check(rep.plane == "C" and rep.restarted and rep.healthy
+              and not rep.error
+              and list(rep.drained_tenants) == list(rep.refilled_tenants)
+              == up_tenants,
+              f"19(c): the report {rep}")
+        # per tenant: fed == delivered at the egress wires + the drops
+        # counted by cause, and the counters' delivered == the egress;
+        # c0's latency-only links drop nothing: fed == delivered
+        for t in up_tenants:
+            fed_n, out_n, tm = up[t]["fed"][0], up[t]["out"], term[t]
+            dropped = sum(tm[k] for k in FL_OUTCOMES[1:])
+            check(fed_n > 0 and fed_n == out_n + dropped
+                  and tm["delivered_packets"] == out_n,
+                  f"19(c): {t}: {fed_n} fed, {out_n} out of the egress "
+                  f"wires, the counters {tm}")
+        check(up[FL_C0]["fed"][0] == up[FL_C0]["out"],
+              f"19(c): {FL_C0} fed {up[FL_C0]['fed'][0]}, delivered "
+              f"{up[FL_C0]['out']}")
+        check(fed.stats.snapshot()["accounting_mismatch"] == 0.0,
+              "19(c): the mismatch gauge")
+        check(fed.handle("C").daemon is newc["daemon"]
+              and all(sup.ledger.get(t) == "C" for t in up_tenants)
+              and all(newc["tenancy"].rows_of(t).size
+                      == C_rows[t] for t in up_tenants),
+              "19(c): C's new daemon does not serve its tenants")
+        after_b = {t: B["tenancy"].tenant_counters(B["plane"], t)
+                   for t in stay_b}
+        check(after_b == kept_b,
+              f"19(c): B's counters of {stay_b} moved: {kept_b} -> "
+              f"{after_b}")
+        acct_c = {t: sup.check_failover_accounting(t, fed0[t] + run.fed[t])
+                  for t in stay_b if t in TEN_NAMES}
+        check(all(a["mismatch"] == 0.0 and a == acct[t]
+                  for t, a in acct_c.items()),
+              f"19(c): the failover accounting after the upgrade {acct_c}")
+        h0 = newc["daemon"].health_snapshot()
+        hr = cb.Health(pb.HealthRequest(plane="C"))
+        h1 = newc["daemon"].health_snapshot()
+        check(hr.ok and hr.node == "10.0.0.3" and hr.running
+              and hr.heartbeat_age_s >= 0
+              and h0["ticks"] <= hr.ticks <= h1["ticks"]
+              and hr.tenants == len(up_tenants),
+              f"19(c): Health(plane=C) through B {hr}")
+        migs = timed_calls["migrate"][n_mig0:]
+        restart = timed_calls["restart"][-1]
+        n_up = len(up_tenants)
+        refill_start = migs[n_up][2] - migs[n_up][1]
+        # B's and the old C's events since the upgrade began, then all
+        # of the new C's
+        evs = {n: [e for e in ev if e["t_s"] >= round(ev0[n], 3) - 1e-3]
+               for n, ev in (("B", nodes["B"]["plane"].pauses.events(-1)),
+                             ("C", newc["old_pauses"]))}
+        evs["C"] += newc["plane"].pauses.events(-1)
+        pauses = {n: [(e["cause"], 1e3 * e["dur_s"]) for e in ev
+                      if e["cause"] in MIG_PAUSES]
+                  for n, ev in evs.items()}
+        moves = {f"{r['tenant']} {r['src']}->{r['dst']}":
+                 residue.get(r["migration_id"], (0, 0, 0)) for r in recs}
+        caps1 = {"B": nodes["B"]["engine"].state.capacity,
+                 "C": newc["engine"].state.capacity}
+        m["c"] = {"rpc_s": up_s,
+                  "drain_s": [s for _t, s, _e in migs[:n_up]],
+                  "restart_s": restart[1], "restart_steps": restart[3],
+                  "verify_s": refill_start - restart[2],
+                  "refill_s": [s for _t, s, _e in migs[n_up:2 * n_up]],
+                  "pauses_ms": pauses,
+                  "fed": {t: up[t]["fed"][0] for t in up_tenants},
+                  "delivered": {t: up[t]["out"] for t in up_tenants},
+                  "counters": term, "inflight_residue": moves,
+                  "capacity": {"before": caps0, "after": caps1}}
+        log(f"19(c) FleetUpgrade(C) over gRPC in {up_s:.3f} s under "
+            f"{len(keys[FL_C0][0])} paced {FL_C0} wires ({FL_UP_FRAMES} "
+            f"frames each every {FL_UP_PACE_S} s) and "
+            + ", ".join(f"{t}'s {len(keys[t][0])} wires" for t in fed_ten)
+            + f" (one phase-16 feed tick every {FL_UP_TEN_PACE_S} s): drain "
+            + ", ".join(f"{t} {s:.3f} s" for t, s, _e in migs[:n_up])
+            + f"; restart {restart[1]:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in restart[3].items())
+            + f"); verify {m['c']['verify_s']:.3f} s; refill "
+            + ", ".join(f"{t} {s:.3f} s" for t, s, _e in
+                        migs[n_up:2 * n_up])
+            + "; barrier pauses ms: "
+            + "; ".join(f"{n}: " + ", ".join(f"{c} {ms:.1f}" for c, ms in v)
+                        for n, v in pauses.items())
+            + f"; capacity {caps0} -> {caps1} ({card})")
+        grew = [n for n in caps0 if caps1[n] != caps0[n]]
+        log(f"19(c) {', '.join(grew) or 'no plane'} grew during the "
+            f"upgrade; the counters of {', '.join(stay_b)} on B came "
+            f"through it unchanged and the failover accounting of "
+            f"{', '.join(acct_c)} is still exact (mismatch 0)"
+            + (" (each row kept its counts: the port's repair of the JAX "
+               "plane's counter reset)" if "B" in grew else "")
+            + f" ({card})")
+        log("19(c) per tenant, fed == egress + drops by cause, counters' "
+            "delivered == egress: "
+            + "; ".join(f"{t} fed {up[t]['fed'][0]}, egress {up[t]['out']}, "
+                        f"counters delivered "
+                        f"{term[t]['delivered_packets']:.0f}, netem loss "
+                        f"{term[t]['dropped_loss']:.0f}, TBF queue "
+                        f"{term[t]['dropped_queue']:.0f}, delay ring "
+                        f"{term[t]['dropped_ring']:.0f}"
+                        for t in up_tenants)
+            + f"; {FL_C0} fed == delivered; RECONCILE's in-flight residue "
+            "per move (checks that saw frames in flight, most frames, "
+            "frames at the last such check): "
+            + ", ".join(f"{k} {v}" for k, v in moves.items())
+            + f"; Health(plane=C) through B's daemon: C's new heartbeat "
+            f"({hr.ticks} ticks) ({card})")
+
+        # (d) the surfaces: the scrape, ObserveSLO's fleet branch,
+        # rebalance
+        sup.sweep()
+        snap = sup.stats.snapshot()
+        reg, _h = make_registry(fleet=sup)
+        body = generate_latest(reg).decode()
+        for key in ("probes", "probe_failures", "sweeps", "evacuations",
+                    "evacuated_tenants", "evacuated_rows",
+                    "pending_restored", "orphans_resumed", "upgrades",
+                    "upgrade_migrations"):
+            check(_scrape_values(body, f"kubedtn_fleet_{key}_total")
+                  == [float(snap[key])], f"19(d): kubedtn_fleet_{key}")
+        for state, n in snap["transitions"].items():
+            check(_scrape_values(body, f'kubedtn_fleet_transitions_total'
+                                       f'{{to_state="{state}"}}')
+                  == [float(n)], f"19(d): transitions {state}")
+        check(_scrape_values(body, 'kubedtn_fleet_planes{state="dead"}')
+              == [1.0] and _scrape_values(
+                  body, 'kubedtn_fleet_planes{state="healthy"}') == [2.0]
+              and _scrape_values(body, "kubedtn_fleet_reported_lost")
+              == [float(snap["reported_lost"])]
+              and _scrape_values(body, "kubedtn_fleet_placements")
+              == [float(len(want))], "19(d): the plane gauges")
+        cc = DaemonClient(addr["C"])
+        clients.append(cc)
+        slo = cc.ObserveSLO(pb.ObserveSLORequest(tenant="t1", fleet=True))
+        merged = sup.last_fleet_slo()
+        check(slo.ok and slo.fleet
+              and list(slo.tenants) == [newc["daemon"]._slo_tenant_msg(
+                  merged["t1"])]
+              and slo.tenants[0].frozen_planes,
+              f"19(d): ObserveSLO(fleet) {slo}")
+        healths, placed = real_cands(set())
+        plan = rebalance_plan(healths, placed, sup.ledger.qos_of,
+                              exclude=sup.ledger.cordoned())
+        t0 = time.perf_counter()
+        moves = sup.rebalance()
+        m["rebalance_s"] = time.perf_counter() - t0
+        check([(x["tenant"], x["src"], x["dst"]) for x in moves] == plan
+              and all(x["state"] == "done" for x in moves),
+              f"19(d): rebalance() {moves} vs its plan {plan}")
+        # the gain is taken: the next call, on fresh probes, has none
+        t0 = time.perf_counter()
+        again = sup.rebalance()
+        m["rebalance_again_s"] = time.perf_counter() - t0
+        check(again == [], f"19(d): rebalance() again moved {again}")
+        m["d"] = {"plan": plan, "again": again,
+                  "headroom_rows": {n: h.get("headroom_rows")
+                                    for n, h in healths.items()},
+                  "stats": snap}
+        log(f"19(d) the scrape's kubedtn_fleet_* == FleetStats.snapshot() "
+            f"{snap}; ObserveSLO(fleet) on C serves t1's merge with the "
+            f"frozen slices of {list(slo.tenants[0].frozen_planes)}; "
+            f"rebalance() on the live healths took {plan} in "
+            f"{m['rebalance_s']:.3f} s, the next call [] in "
+            f"{m['rebalance_again_s']:.3f} s ({card})")
+    finally:
+        pex.ring_right_shift = real_shift
+        MigrationCoordinator._step_release = real_release
+        MigrationCoordinator._src_residue = real_residue
+        fsup.restore_tenant_slice = real["restore"]
+        fsup.fork_from_checkpoint = real["fork_ckpt"]
+        for c in clients:
+            c.close()
+        for name, node in nodes.items():
+            try:
+                node["plane"].stop()
+            except Exception:
+                pass
+        for s in srv.values():
+            s.stop(0)
+        shutil.rmtree(root, ignore_errors=True)
+    k1 = shaping.LAUNCHES["shape_step_rows"]
+    k4 = pex.LAUNCHES["ring_step"] - k4_check
+    m["phase_s"] = time.perf_counter() - t_phase
+    m.update(k1_launches=k1, k4_launches=k4)
+    log(f"19: phase {m['phase_s']:.1f} s; K1 {k1} launches, K4 {k4} "
+        f"({card})")
+    return m, k1, k4
+
+
+ALL_PHASES = tuple(range(1, 20))
+# phases that need the Clos state phase 3's main path leaves (the churned
+# Clos and its fresh copy): selecting one runs phases 2 and 3 first
+NEEDS_MAIN_PATH = {3, 4, 10, 11, 14}
+LIVE_TICK_PHASES = {6, 7, 8}   # one run of run_live_tick
+
+
+def parse_phases(argv) -> set:
+    """The phases a call runs: every phase without arguments, else those
+    of `--phases LIST` (e.g. `--phases 1-4,19`; ranges and single
+    numbers, comma-separated), closed under what they need: phase 1
+    always, phases 2 and 3 for any phase in NEEDS_MAIN_PATH, and 6, 7
+    and 8 together."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--phases", default="",
+                    help="phases to run, e.g. 1-4,19 (default: all)")
+    spec = ap.parse_args(argv).phases
+    if not spec:
+        return set(ALL_PHASES)
+    want = {1}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        try:
+            rng = range(int(lo), int(hi or lo) + 1)
+        except ValueError:
+            ap.error(f"bad phase list {spec!r}")
+        if not rng or rng.start < 1 or rng.stop - 1 > ALL_PHASES[-1]:
+            ap.error(f"no phase {part!r}")
+        want.update(rng)
+    if want & NEEDS_MAIN_PATH:
+        want |= {2, 3}
+    if want & LIVE_TICK_PHASES:
+        want |= LIVE_TICK_PHASES
+    return want
+
+
+def main(argv=None) -> int:
+    want = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -5200,6 +6309,9 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(card)
+    if want != set(ALL_PHASES):
+        log(f"phases run: {sorted(want)} (of 1-{ALL_PHASES[-1]})")
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -5219,93 +6331,171 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s" if ext is not None
         else f"kdt_ext: not built, {native.kdt_ext_reason()}")
 
-    el, state, _ = entry.build_clos_100k()
-    check(state.capacity == 1 << 18, "Clos capacity is not 2^18")
-    check(int(state.num_active) == 200_000, "Clos is not 200,000 rows")
+    detail = {"card": card, "build_s": build_s, "phases": sorted(want)}
+    results = {}
+    k1_paths = {}
+    k4_paths = {}
+    launches = {}
+    phase_s = {}
 
-    shaping.reset_launches()
-    state, fresh, main_m = run_main_path(el, state, dev)
-    launches = dict(shaping.LAUNCHES)
-    log(f"main path launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    log(f"link-updates/s {main_m['link_updates_per_s']:.1f} contiguous, "
-        f"{main_m['link_updates_scattered_per_s']:.1f} scattered "
-        f"(100k-link Clos; {card})")
+    def clock(name, t0):
+        phase_s[name] = time.perf_counter() - t0
 
+    if 2 in want:
+        t0 = time.perf_counter()
+        el, state, _ = entry.build_clos_100k()
+        check(state.capacity == 1 << 18, "Clos capacity is not 2^18")
+        check(int(state.num_active) == 200_000, "Clos is not 200,000 rows")
+        clock("2", t0)
+    if 3 in want:
+        t0 = time.perf_counter()
+        shaping.reset_launches()
+        state, fresh, main_m = run_main_path(el, state, dev)
+        launches = dict(shaping.LAUNCHES)
+        log(f"main path launches {launches}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel of the main path never launched: {launches}")
+        log(f"link-updates/s {main_m['link_updates_per_s']:.1f} contiguous, "
+            f"{main_m['link_updates_scattered_per_s']:.1f} scattered "
+            f"(100k-link Clos; {card})")
+        k1_paths["main"] = launches["shape_step_rows"]
+        detail["main_path"] = main_m
+        clock("3", t0)
     gen = torch.Generator(device=dev).manual_seed(5)
     timer = Timer(dev)
-    results = {"K1": check_k1(state, dev, timer, gen),
-               "K2": check_k2(state, dev, timer, gen),
-               "K3": check_k3(fresh, dev, timer)}
-    k3 = results["K3"]
-    log(f"K3 {k3['ms'] * 1e3:.2f} us at S = {STEPS}, "
-        f"{k3['ms_one_step'] * 1e3:.2f} us at S = 1; bound "
-        f"{k3['bound_ms'] * 1e3:.2f} us ({k3['bound_by']}; ops "
-        f"{k3['ops_ms'] * 1e3:.2f} us) ({card})")
-    entry_delivered = check_entry(dev)
-
-    live_m, k4_launches = run_live_tick(dev, card)
-    k4 = check_k4(dev, timer)
-    sim_m, sim_launches = run_sim_phase(el, fresh, dev, card)
-    routed_m, routed_launches = run_routed_phase(el, fresh, dev, card)
-    shaping.reset_launches()
-    plane_m, plane_k4 = run_live_plane_phase(dev, card)
-    plane_k1 = shaping.LAUNCHES["shape_step_rows"]
-    log(f"live plane path launches: K1 {plane_k1}, K4 {plane_k4}")
-    check(plane_k1 > 0, "K1 never launched on the live plane's path")
-    shaping.reset_launches()
-    xn_m = run_cross_node_phase(dev, card)
-    xn_k1 = shaping.LAUNCHES["shape_step_rows"]
-    log(f"cross-node path launches: K1 {xn_k1}")
-    check(xn_k1 > 0, "K1 never launched on the cross-node path")
-    twin_m, twin_k1 = run_twin_phase(el, fresh, dev, card)
-    check(all(v > 0 for v in twin_k1.values()),
-          f"K1 never launched on a twin path: {twin_k1}")
-    t0 = time.perf_counter()
-    shaping.reset_launches()
-    ckpt_m = run_checkpoint_phase(dev, card)
-    ckpt_k1 = shaping.LAUNCHES["shape_step_rows"]
-    ckpt_m["phase_s"] = time.perf_counter() - t0
-    log(f"15: phase {ckpt_m['phase_s']:.1f} s; checkpoint path launches: "
-        f"K1 {ckpt_k1}")
-    check(ckpt_k1 > 0, "K1 never launched on the checkpoint path")
-    t0 = time.perf_counter()
-    ten_m, ten_k1, ten_k4 = run_tenancy_phase(
-        dev, card, plane_d1_drain_share=plane_m["plane"]["stage_depth1"][
-            "share"]["drain"])
-    ten_m["phase_s"] = time.perf_counter() - t0
-    log(f"16: phase {ten_m['phase_s']:.1f} s; tenancy path launches: K1 "
-        f"{ten_k1}, K4 {ten_k4}")
-    check(ten_k1 > 0 and ten_k4 > 0,
-          "K1 or K4 never launched on the tenancy path")
-    if "grpc" in plane_m:
-        log(f"16(f) shm ring to egress {ten_m['f']['frames_per_s']:.1f} "
-            f"frames/s against 12(e)'s gRPC "
-            f"{plane_m['grpc']['frames_per_s']:.1f} frames/s ({card})")
-    ap_m, ap_k1 = run_autopilot_phase(dev, card)
-    log(f"17: phase {ap_m['phase_s']:.1f} s; autopilot path launches: K1 "
-        f"{ap_k1}")
-    check(ap_k1 > 0, "K1 never launched on the autopilot path")
-    mig_m, mig_k1, mig_k4 = run_migration_phase(dev, card)
-    log(f"18: phase {mig_m['phase_s']:.1f} s; migration path launches: "
-        f"K1 {mig_k1} (warm_kernels), K4 {mig_k4}")
-    check(mig_k1 > 0 and mig_k4 > 0,
-          "K1 or K4 never launched on the migration path")
-    release = plane_m["plane"]["stage_depth1"]["share"]["release"]
-    log(f"12(b) depth-1 release share {release} with kdt_ext "
-        f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
-    k1_paths = {"main": launches["shape_step_rows"], "sim": sim_launches,
-                "routed": routed_launches, "plane": plane_k1,
-                "cross_node": xn_k1, "twin": sum(twin_k1.values()),
-                "checkpoint": ckpt_k1, "tenancy": ten_k1,
-                "autopilot": ap_k1, "migration": mig_k1}
+    if 4 in want:
+        t0 = time.perf_counter()
+        results.update(K1=check_k1(state, dev, timer, gen),
+                       K2=check_k2(state, dev, timer, gen),
+                       K3=check_k3(fresh, dev, timer))
+        k3 = results["K3"]
+        log(f"K3 {k3['ms'] * 1e3:.2f} us at S = {STEPS}, "
+            f"{k3['ms_one_step'] * 1e3:.2f} us at S = 1; bound "
+            f"{k3['bound_ms'] * 1e3:.2f} us ({k3['bound_by']}; ops "
+            f"{k3['ops_ms'] * 1e3:.2f} us) ({card})")
+        clock("4", t0)
+    if 5 in want:
+        detail["entry_delivered"] = check_entry(dev)
+    if 6 in want:
+        t0 = time.perf_counter()
+        detail["live_tick"], k4_paths["live_tick"] = run_live_tick(dev, card)
+        clock("6-8", t0)
+    if 9 in want:
+        results["K4"] = check_k4(dev, timer)
+    if 10 in want:
+        t0 = time.perf_counter()
+        detail["sim"], k1_paths["sim"] = run_sim_phase(el, fresh, dev, card)
+        clock("10", t0)
+    if 11 in want:
+        t0 = time.perf_counter()
+        detail["routed"], k1_paths["routed"] = run_routed_phase(
+            el, fresh, dev, card)
+        clock("11", t0)
+    plane_m = None
+    if 12 in want:
+        t0 = time.perf_counter()
+        shaping.reset_launches()
+        plane_m, k4_paths["plane"] = run_live_plane_phase(dev, card)
+        k1_paths["plane"] = shaping.LAUNCHES["shape_step_rows"]
+        log(f"live plane path launches: K1 {k1_paths['plane']}, K4 "
+            f"{k4_paths['plane']}")
+        check(k1_paths["plane"] > 0,
+              "K1 never launched on the live plane's path")
+        detail["live_plane"] = plane_m
+        clock("12", t0)
+    if 13 in want:
+        t0 = time.perf_counter()
+        shaping.reset_launches()
+        detail["cross_node"] = run_cross_node_phase(dev, card)
+        k1_paths["cross_node"] = shaping.LAUNCHES["shape_step_rows"]
+        log(f"cross-node path launches: K1 {k1_paths['cross_node']}")
+        check(k1_paths["cross_node"] > 0,
+              "K1 never launched on the cross-node path")
+        clock("13", t0)
+    if 14 in want:
+        t0 = time.perf_counter()
+        detail["twin"], twin_k1 = run_twin_phase(el, fresh, dev, card)
+        check(all(v > 0 for v in twin_k1.values()),
+              f"K1 never launched on a twin path: {twin_k1}")
+        k1_paths["twin"] = sum(twin_k1.values())
+        detail["twin_k1_launches"] = twin_k1
+        clock("14", t0)
+    ckpt_m = None
+    if 15 in want:
+        t0 = time.perf_counter()
+        shaping.reset_launches()
+        ckpt_m = run_checkpoint_phase(dev, card)
+        k1_paths["checkpoint"] = shaping.LAUNCHES["shape_step_rows"]
+        ckpt_m["phase_s"] = time.perf_counter() - t0
+        log(f"15: phase {ckpt_m['phase_s']:.1f} s; checkpoint path "
+            f"launches: K1 {k1_paths['checkpoint']}")
+        check(k1_paths["checkpoint"] > 0,
+              "K1 never launched on the checkpoint path")
+        detail["checkpoint"] = ckpt_m
+        clock("15", t0)
+    if 16 in want:
+        t0 = time.perf_counter()
+        ten_m, k1_paths["tenancy"], k4_paths["tenancy"] = run_tenancy_phase(
+            dev, card, plane_d1_drain_share=(
+                plane_m["plane"]["stage_depth1"]["share"]["drain"]
+                if plane_m else None))
+        ten_m["phase_s"] = time.perf_counter() - t0
+        log(f"16: phase {ten_m['phase_s']:.1f} s; tenancy path launches: "
+            f"K1 {k1_paths['tenancy']}, K4 {k4_paths['tenancy']}")
+        check(k1_paths["tenancy"] > 0 and k4_paths["tenancy"] > 0,
+              "K1 or K4 never launched on the tenancy path")
+        if plane_m is not None and "grpc" in plane_m:
+            log(f"16(f) shm ring to egress {ten_m['f']['frames_per_s']:.1f} "
+                f"frames/s against 12(e)'s gRPC "
+                f"{plane_m['grpc']['frames_per_s']:.1f} frames/s ({card})")
+        detail["tenancy"] = ten_m
+        clock("16", t0)
+    if 17 in want:
+        t0 = time.perf_counter()
+        ap_m, k1_paths["autopilot"] = run_autopilot_phase(dev, card)
+        log(f"17: phase {ap_m['phase_s']:.1f} s; autopilot path launches: "
+            f"K1 {k1_paths['autopilot']}")
+        check(k1_paths["autopilot"] > 0,
+              "K1 never launched on the autopilot path")
+        detail["autopilot"] = ap_m
+        clock("17", t0)
+    kept = {} if 19 in want else None
+    if 18 in want:
+        t0 = time.perf_counter()
+        mig_m, k1_paths["migration"], k4_paths["migration"] = \
+            run_migration_phase(dev, card, keep=kept)
+        log(f"18: phase {mig_m['phase_s']:.1f} s; migration path launches: "
+            f"K1 {k1_paths['migration']} (warm_kernels), K4 "
+            f"{k4_paths['migration']}")
+        check(k1_paths["migration"] > 0 and k4_paths["migration"] > 0,
+              "K1 or K4 never launched on the migration path")
+        detail["migration"] = mig_m
+        clock("18", t0)
+    if 19 in want:
+        t0 = time.perf_counter()
+        fl_m, k1_paths["fleet"], k4_paths["fleet"] = run_fleet_phase(
+            dev, card, reuse=kept or None)
+        kept = None
+        log(f"19: fleet path launches: K1 {k1_paths['fleet']} "
+            f"(warm_kernels, fallback rows), K4 {k4_paths['fleet']}")
+        check(k1_paths["fleet"] > 0 and k4_paths["fleet"] > 0,
+              "K1 or K4 never launched on the fleet path")
+        detail["fleet"] = fl_m
+        clock("19", t0)
+    if plane_m is not None and ckpt_m is not None:
+        release = plane_m["plane"]["stage_depth1"]["share"]["release"]
+        log(f"12(b) depth-1 release share {release} with kdt_ext "
+            f"{'loaded' if ckpt_m['kdt_ext'] else 'not loaded'} ({card})")
     log(f"K1 launches by path {k1_paths}")
+    log(f"phase seconds {phase_s}; script "
+        f"{time.perf_counter() - t_script:.1f} s ({card})")
 
     meta = {"K1": ("shape_step_rows", 220), "K2": ("shape_steps_cols", 250),
             "K3": ("shape_steps_cols_philox", 277)}
     kernels = []
     for k, (name, line) in meta.items():
+        if k not in results:
+            continue
         r = results[k]
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": SRC,
@@ -5313,27 +6503,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    # K1 carries three paths, each counted from 0: their sum, and each
-    kernels[0].update(launches=sum(k1_paths.values()),
-                      launches_by_path=k1_paths)
-    r = k4[K4_ROWS[0]]   # the live tick's mailbox shape
-    kernels.append({
-        "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
-        "replaces": K4_REPLACES,
-        "launches": k4_launches + plane_k4 + ten_k4 + mig_k4,
-        "launches_by_path": {"live_tick": k4_launches, "plane": plane_k4,
-                             "tenancy": ten_k4, "migration": mig_k4},
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    results["K4"] = k4
-    detail = {"card": card, "build_s": build_s, "main_path": main_m,
-              "entry_delivered": entry_delivered, "live_tick": live_m,
-              "sim": sim_m, "routed": routed_m, "live_plane": plane_m,
-              "cross_node": xn_m, "twin": twin_m, "checkpoint": ckpt_m,
-              "tenancy": ten_m, "autopilot": ap_m, "migration": mig_m,
-              "twin_k1_launches": twin_k1,
-              "kernels": {k: results[k] for k in results}}
+        if k == "K1":
+            # K1 carries several paths, each counted from 0: their sum,
+            # and each
+            kernels[-1].update(launches=sum(k1_paths.values()),
+                               launches_by_path=k1_paths)
+    if "K4" in results:
+        r = results["K4"][K4_ROWS[0]]   # the live tick's mailbox shape
+        kernels.append({
+            "name": "K4 ring_step", "route": "cuda", "source": K4_SRC,
+            "replaces": K4_REPLACES, "launches": sum(k4_paths.values()),
+            "launches_by_path": k4_paths,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    detail.update(phase_s=phase_s, kernels=results)
     log("detail " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -523,7 +523,11 @@ def _write_captured(path: str, cap: dict) -> None:
         manifest = dict(cap["manifest"])
         manifest["checksums"] = checksums
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
+            # the same text json.dump writes, from the C encoder: a
+            # 2^18-row plane's manifest is ~70 MB, which json.dump's
+            # chunked Python encoder writes several times slower (the
+            # federation journal's records, likewise)
+            f.write(json.dumps(manifest))
             f.flush()
             try:
                 os.fsync(f.fileno())
@@ -673,39 +677,82 @@ def _frames_to_npz(fpath: str, entries) -> None:
     )
 
 
-def _read_frames(path: str, fname: str, with_delay: bool) -> list:
-    """The entries of a pending_frames.npz / wire_ingress.npz, as
-    (pod_key, uid, frame[, remaining_us]) tuples — checksum-verified,
-    same-generation resolution as `load`. [] when the checkpoint or the
-    file is absent; corruption raises."""
+class Generation:
+    """One checkpoint generation, resolved once: its directory, its
+    parsed manifest, and readers of its files checked against that
+    manifest (same-generation resolution as `load`). A caller that
+    reads several files of one checkpoint resolves it once — the fleet
+    supervisor's evacuation slices every tenant of a dead plane out of
+    one Generation; the module-level readers open one per call. Raises
+    CheckpointMissingError when there is no checkpoint at `path`."""
+
+    def __init__(self, path: str) -> None:
+        self.dirpath, self.manifest = _resolve_dir(os.path.abspath(path))
+
+    def has(self, fname: str) -> bool:
+        return os.path.exists(os.path.join(self.dirpath, fname))
+
+    def npz(self, fname: str):
+        """A checksum-verified npz of this generation (a context
+        manager, as `_load_npz`)."""
+        return _load_npz(self.dirpath, self.manifest, fname)
+
+    def frames(self, fname: str, with_delay: bool) -> list:
+        """The entries of a pending_frames.npz / wire_ingress.npz, as
+        (pod_key, uid, frame[, remaining_us]) tuples. [] when the file
+        is absent; corruption raises."""
+        if not self.has(fname):
+            return []
+        with self.npz(fname) as z:
+            try:
+                keys = (bytes(z["pod_keys"]).decode().split("\n")
+                        if len(z["pod_keys"]) else [])
+                blob = bytes(z["blob"])
+                uids = z["uids"].tolist()
+                offs = z["offsets"].tolist()
+                lens = z["lengths"].tolist()
+                frames = [blob[o:o + n] for o, n in zip(offs, lens)]
+                if with_delay:
+                    return list(zip(keys, uids, frames,
+                                    z["remaining_us"].tolist(),
+                                    strict=True))
+                return list(zip(keys, uids, frames, strict=True))
+            except Exception as e:
+                raise CheckpointCorruptError(
+                    f"damaged {fname} in {self.dirpath}: {e}") from e
+
+    def pending_entries(self) -> list:
+        return self.frames("pending_frames.npz", with_delay=True)
+
+    def ingress_entries(self) -> list:
+        return self.frames("wire_ingress.npz", with_delay=False)
+
+    def plane_counters(self):
+        """The plane counter columns (field name → np.ndarray[E]), or
+        None when this generation has no counters file."""
+        if not self.has("plane_counters.npz"):
+            return None
+        with self.npz("plane_counters.npz") as z:
+            try:
+                return {k: np.asarray(z[k]) for k in z.files}
+            except Exception as e:
+                raise CheckpointCorruptError(
+                    f"damaged plane_counters.npz in {self.dirpath}: "
+                    f"{e}") from e
+
+
+def _generation(path: str) -> Generation | None:
     try:
-        dirpath, manifest = _resolve_dir(os.path.abspath(path))
+        return Generation(path)
     except CheckpointMissingError:
-        return []
-    if not os.path.exists(os.path.join(dirpath, fname)):
-        return []
-    with _load_npz(dirpath, manifest, fname) as z:
-        try:
-            keys = (bytes(z["pod_keys"]).decode().split("\n")
-                    if len(z["pod_keys"]) else [])
-            blob = bytes(z["blob"])
-            uids = z["uids"].tolist()
-            offs = z["offsets"].tolist()
-            lens = z["lengths"].tolist()
-            frames = [blob[o:o + n] for o, n in zip(offs, lens)]
-            if with_delay:
-                return list(zip(keys, uids, frames,
-                                z["remaining_us"].tolist(), strict=True))
-            return list(zip(keys, uids, frames, strict=True))
-        except Exception as e:
-            raise CheckpointCorruptError(
-                f"damaged {fname} in {dirpath}: {e}") from e
+        return None
 
 
 def read_ingress_entries(path: str) -> list:
     """The checkpointed queued-ingress frames as (pod_key, uid, frame)
     tuples, FIFO per wire. [] when absent; corruption raises."""
-    return _read_frames(path, "wire_ingress.npz", with_delay=False)
+    gen = _generation(path)
+    return [] if gen is None else gen.ingress_entries()
 
 
 def load_ingress(path: str, daemon) -> int:
@@ -740,7 +787,8 @@ def read_pending_entries(path: str) -> list:
     """The checkpointed in-flight entries as (pod_key, uid, frame,
     remaining_us) tuples WITHOUT a plane to restore them into. [] when
     no checkpoint / no pending file; corruption raises."""
-    return _read_frames(path, "pending_frames.npz", with_delay=True)
+    gen = _generation(path)
+    return [] if gen is None else gen.pending_entries()
 
 
 def load_pending(path: str, dataplane, now_s: float | None = None) -> int:
@@ -833,18 +881,8 @@ def load_plane_counters(path: str):
     """The checkpointed plane counter columns as host arrays (field name
     → np.ndarray[E]), checksum-verified — None when the checkpoint (or
     its counters file) doesn't exist."""
-    try:
-        dirpath, manifest = _resolve_dir(os.path.abspath(path))
-    except CheckpointMissingError:
-        return None
-    if not os.path.exists(os.path.join(dirpath, "plane_counters.npz")):
-        return None
-    with _load_npz(dirpath, manifest, "plane_counters.npz") as z:
-        try:
-            return {k: np.asarray(z[k]) for k in z.files}
-        except Exception as e:
-            raise CheckpointCorruptError(
-                f"damaged plane_counters.npz in {dirpath}: {e}") from e
+    gen = _generation(path)
+    return None if gen is None else gen.plane_counters()
 
 
 def restore_plane_counters(path: str, plane) -> bool:

@@ -30,7 +30,10 @@ telemetry on the evaluator and the autopilot; here the defaults stay
 without them until the port has that CLI. `build_federation` registers
 several such daemons' planes with one federation controller, as the JAX
 CLI's daemon registers its own, so MigrateTenant / MigrationStatus move
-tenants between them (kubedtn_tpu_torch.federation).
+tenants between them (kubedtn_tpu_torch.federation). `build_fleet` puts
+a fleet supervisor over such a controller, as the JAX CLI's daemon
+attaches one before its autopilot: FleetStatus / FleetUpgrade answer,
+Health answers for a named plane, and a dead plane is evacuated.
 """
 
 from __future__ import annotations
@@ -254,8 +257,9 @@ def serve_metrics(daemon, plane, port: int = 0,
     histogram observing every engine op (`engine.stats.observer`) and
     set on the daemon; a MetricsServer started on `port` (0 = pick one).
     The daemon's SLO evaluator and autopilot, where attached, get their
-    collectors too, and so does its federation controller's
-    MigrationStats (`build_federation`). Returns {"server", "registry",
+    collectors too, and so do its federation controller's
+    MigrationStats (`build_federation`) and its fleet supervisor
+    (`build_fleet`). Returns {"server", "registry",
     "hist", "port"}."""
     from kubedtn_tpu_torch.metrics.metrics import (MetricsServer,
                                                    make_registry)
@@ -274,7 +278,8 @@ def serve_metrics(daemon, plane, port: int = 0,
                                    migration_stats=(
                                        daemon.federation.stats
                                        if daemon.federation is not None
-                                       else None))
+                                       else None),
+                                   fleet=daemon.fleet)
     engine.stats.observer = hist
     daemon.hist = hist
     server = MetricsServer(registry, port=port, host=host)
@@ -534,3 +539,31 @@ def build_federation(members: dict, journal_root: str, chaos=None):
             m = PlaneHandle(name, daemon, m["plane"], daemon.tenancy)
         fed.register(m)
     return fed
+
+
+def build_fleet(fed, ledger_root: str, chaos=None, **machine):
+    """A federation.FleetSupervisor over the controller `fed` with its
+    placement ledger in `ledger_root`, attached as the JAX CLI's daemon
+    attaches its own: every registered plane watched and its registry's
+    tenants adopted into the ledger, the controller's `placement_hook`
+    and every daemon's `fleet` set (FleetStatus, FleetUpgrade and
+    ObserveSLO's fleet branch answer from it), journaled migrations a
+    crash left running resumed. `machine` goes to the supervisor
+    (suspect_after, dead_after, healthy_after, clock, stats); `chaos` (a
+    chaos.ChaosInjector) arms probe faults. The caller sweeps, or starts
+    the sweep loop (`start(interval_s=2.0)` is the JAX CLI's sidecar).
+
+    The JAX CLI builds the supervisor before the autopilot, which takes
+    it as `fleet` when it is built; `_attach_slo` does the same for a
+    daemon built after it. An autopilot that was built earlier kept
+    `fleet=None`: it is pointed at the supervisor here, so its
+    escalation tier reaches `rebalance()`. Returns the supervisor."""
+    from kubedtn_tpu_torch.federation import FleetSupervisor
+
+    sup = FleetSupervisor(fed, ledger_root, chaos=chaos, **machine)
+    sup.attach()
+    for name in fed.plane_names():
+        ap = fed.handle(name).daemon.autopilot
+        if ap is not None:
+            ap.fleet = sup
+    return sup

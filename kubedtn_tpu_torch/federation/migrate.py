@@ -29,7 +29,8 @@ serving. The headline is the crash-safe migration state machine:
   in-flight frames (delay line, holdback, `_PeerSender` outage
   buffers) drain through src.
 - **RECONCILE** — release the dst hold, drain src residuals to zero
-  (ingress, holdback, delay line, peer egress buffers — breaker-aware:
+  (ingress, holdback, dispatches in flight, delay line, peer egress
+  buffers — breaker-aware:
   an OPEN src→peer breaker extends the wait to its next half-open
   probe instead of failing the migration), then snapshot the
   byte-exact accounting split: delivered_src from the src counter
@@ -765,10 +766,18 @@ class MigrationCoordinator:
     def _src_residue(self, spaces: set[str], wire_ids: set[int],
                      peer_addrs: set[str]) -> dict:
         """Tenant frames still owed by src: queued ingress (swept to
-        dst as a side effect), holdback entries, delay-line frames (the
-        `_pending` batches; the port releases only through the native
-        timing wheel, so there is no heap to count), peer egress
-        buffers."""
+        dst as a side effect), holdback entries, frames of dispatches in
+        flight, delay-line frames (the `_pending` batches; the port
+        releases only through the native timing wheel, so there is no
+        heap to count), peer egress buffers.
+
+        The in-flight count is the port's repair of a JAX fault: a held
+        tenant's holdback residue still shapes on src, and at pipeline
+        depth 2 a tick leaves its last chunk in flight — out of the
+        holdback, not yet in the delay line. The JAX package's check
+        passes then and freezes the src counters without those frames,
+        which complete after the freeze and are lost with the src wires
+        at RELEASE (tests/test_torch_federation.py pins both)."""
         src = self.src
         plane = src.plane
         swept = 0
@@ -776,11 +785,15 @@ class MigrationCoordinator:
             fork = self._record["fork"]
         for ws, wd in self._wire_pairs(fork):
             swept += self._transfer(ws, wd)
-        hold = pend = 0
+        hold = pend = infl = 0
         with plane._tick_lock:
             for wid in plane._holdback:
                 if wid in wire_ids:
                     hold += 1
+            for job in plane._inflight:
+                for wire, _row, lens, _fr, _pd in job.batches:
+                    if wire.wire_id in wire_ids:
+                        infl += len(lens)
             for entry in plane._pending.values():
                 if entry[0].partition("/")[0] in spaces:
                     pend += int(entry[4])
@@ -793,8 +806,8 @@ class MigrationCoordinator:
             peer_buffered += sender.buffered
             if sender.breaker.state != fault.CLOSED:
                 breaker_open = True
-        return {"swept": swept, "holdback": hold, "pending": pend,
-                "peer_buffered": peer_buffered,
+        return {"swept": swept, "holdback": hold, "inflight": infl,
+                "pending": pend, "peer_buffered": peer_buffered,
                 "breaker_open": breaker_open}
 
     def _step_reconcile(self) -> None:
@@ -813,8 +826,8 @@ class MigrationCoordinator:
         deadline = time.monotonic() + self.reconcile_timeout_s
         while True:
             res = self._src_residue(spaces, wire_ids, peer_addrs)
-            if (res["holdback"] == 0 and res["pending"] == 0
-                    and res["peer_buffered"] == 0):
+            if (res["holdback"] == 0 and res["inflight"] == 0
+                    and res["pending"] == 0 and res["peer_buffered"] == 0):
                 break
             now = time.monotonic()
             if now >= deadline:
@@ -984,11 +997,10 @@ class FederationController:
         self.journal_root = journal_root
         self.stats = stats if stats is not None else MigrationStats()
         self.chaos = chaos
-        # set by the fleet supervisor (federation.supervisor.attach in
-        # the JAX package; not ported yet, so None here): called with
-        # (tenant, dst_plane, qos) after every COMPLETED migration so
-        # the placement ledger tracks manual `kdt migrate` moves too,
-        # not only supervisor-driven ones
+        # set by the fleet supervisor (federation.supervisor.attach):
+        # called with (tenant, dst_plane, qos) after every COMPLETED
+        # migration so the placement ledger tracks manual `kdt migrate`
+        # moves too, not only supervisor-driven ones
         self.placement_hook = None
         self._lock = threading.Lock()
         self._handles: dict[str, PlaneHandle] = {}

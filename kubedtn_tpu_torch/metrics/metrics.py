@@ -25,15 +25,15 @@ labels and buckets the JAX package's daemon serves on :51112/metrics.
   series cap.
 - `kubedtn_migration_*` from the federation's live tenant migrations,
   with the alert-worthy `kubedtn_migration_accounting_mismatch` gauge.
+- `kubedtn_fleet_*` from the fleet supervisor: probes, sweeps,
+  suspicion transitions, planes by state, evacuations and the reported
+  failover loss.
 
 Mapping from simulation taxa to interface counters:
 - tx_dropped  ← netem loss + TBF queue + delay-ring drops (egress side)
 - rx_errors   ← corrupt-flagged deliveries
 
-Not ported yet: the fleet collector (the fleet supervisor);
-`make_registry` refuses its argument with a ValueError naming the
-collector. `prometheus_client` is imported by this
-module only.
+`prometheus_client` is imported by this module only.
 """
 
 from __future__ import annotations
@@ -1058,8 +1058,74 @@ class MigrationStatsCollector:
         return out
 
 
-# make_registry's arguments whose collectors are not ported yet
-_NOT_PORTED = {"fleet": "FleetStatsCollector"}
+class FleetStatsCollector:
+    """kubedtn_fleet_* series — observability for the fleet supervisor
+    (kubedtn_tpu_torch.federation.supervisor): probe volume and failures,
+    suspicion-machine transitions by target state, per-state plane
+    gauge, evacuation volume (tenants / rows / restored in-flight
+    frames), orphaned-migration resumes, rolling-upgrade volume, and
+    the honest-loss gauge `kubedtn_fleet_reported_lost` — the
+    checkpoint-to-death gap of the latest failover accounting check
+    (reported, never hidden; the companion
+    kubedtn_migration_accounting_mismatch must stay 0)."""
+
+    COUNTERS = (
+        ("probes", "Plane health probes issued"),
+        ("probe_failures", "Probes that failed hard (plane "
+                           "unreachable)"),
+        ("sweeps", "Supervision sweeps over the fleet"),
+        ("evacuations", "Dead-plane evacuations run"),
+        ("evacuated_tenants", "Tenants cold-restored onto survivors"),
+        ("evacuated_rows", "Edge rows restored by evacuations"),
+        ("pending_restored", "Checkpointed in-flight frames restored "
+                             "by evacuations"),
+        ("orphans_resumed", "Orphaned migration journals auto-resumed"),
+        ("upgrades", "Rolling-upgrade drives completed"),
+        ("upgrade_migrations", "Live migrations run by rolling "
+                               "upgrades (drain + refill)"),
+    )
+
+    def __init__(self, supervisor) -> None:
+        self._sup = supervisor
+
+    def collect(self):
+        snap = self._sup.stats.snapshot()
+        out = []
+        for name, doc in self.COUNTERS:
+            c = CounterMetricFamily(f"kubedtn_fleet_{name}", doc)
+            c.add_metric([], float(snap[name]))
+            out.append(c)
+        tr = CounterMetricFamily(
+            "kubedtn_fleet_transitions",
+            "Suspicion state-machine transitions by target state",
+            labels=["to_state"])
+        for state, n in sorted(snap["transitions"].items()):
+            tr.add_metric([state], float(n))
+        out.append(tr)
+        st = self._sup.status()
+        by_state: dict[str, int] = {}
+        for p in st["planes"]:
+            by_state[p["state"]] = by_state.get(p["state"], 0) + 1
+        g = GaugeMetricFamily(
+            "kubedtn_fleet_planes",
+            "Registered planes by suspicion state", labels=["state"])
+        for state in ("healthy", "suspect", "dead", "cordoned",
+                      "restarting"):
+            g.add_metric([state], float(by_state.get(state, 0)))
+        out.append(g)
+        pl = GaugeMetricFamily(
+            "kubedtn_fleet_placements",
+            "Tenants in the placement ledger")
+        pl.add_metric([], float(len(st["placements"])))
+        out.append(pl)
+        lost = GaugeMetricFamily(
+            "kubedtn_fleet_reported_lost",
+            "Frames reported lost by the latest failover accounting "
+            "check (the checkpoint-to-death RPO gap — reported, "
+            "never hidden)")
+        lost.add_metric([], float(snap["reported_lost"]))
+        out.append(lost)
+        return out
 
 
 def make_registry(engine=None, sim_counters_fn=None,
@@ -1068,14 +1134,7 @@ def make_registry(engine=None, sim_counters_fn=None,
                   max_tenants: int = 256, migration_stats=None,
                   fleet=None, slo=None, shm=None, autopilot=None):
     """Registry with the parity collectors installed, and the request
-    histogram (the JAX package's signature). Passing an argument whose
-    collector is not ported yet raises ValueError naming it."""
-    given = {"fleet": fleet}
-    for arg, value in given.items():
-        if value is not None:
-            raise ValueError(
-                f"make_registry({arg}=...): {_NOT_PORTED[arg]} is not "
-                f"ported to kubedtn_tpu_torch yet")
+    histogram (the JAX package's signature)."""
     registry = CollectorRegistry()
     hist = LatencyHistograms(registry)
     if engine is not None:
@@ -1096,6 +1155,8 @@ def make_registry(engine=None, sim_counters_fn=None,
             tenancy, dataplane, max_tenants=max_tenants))
     if migration_stats is not None:
         registry.register(MigrationStatsCollector(migration_stats))
+    if fleet is not None:
+        registry.register(FleetStatsCollector(fleet))
     if slo is not None:
         registry.register(SloStatsCollector(slo,
                                             max_tenants=max_tenants))

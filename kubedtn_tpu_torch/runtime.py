@@ -1137,6 +1137,23 @@ def _zero_counters(capacity: int) -> EdgeCounters:
                            for f in dataclasses.fields(EdgeCounters)})
 
 
+def _grown_counters(counters: EdgeCounters, capacity: int) -> EdgeCounters:
+    """`counters` on an engine grown to `capacity` rows: each row keeps
+    its counts, the new rows start at zero. The JAX plane replaces them
+    with zeros, so every tenant's counted deliveries vanish when another
+    tenant's rows grow the engine — a migration onto a plane that then
+    grows under a later RESTORE loses its delivered counts from the
+    accounting (tests/test_torch_federation.py pins both)."""
+    def grow(a: np.ndarray) -> np.ndarray:
+        out = np.zeros((capacity,) + a.shape[1:], a.dtype)
+        n = min(capacity, a.shape[0])
+        out[:n] = a[:n]
+        return out
+
+    return EdgeCounters(**{f.name: grow(getattr(counters, f.name))
+                           for f in dataclasses.fields(EdgeCounters)})
+
+
 class _ShapeJob:
     """One in-flight tick's shaping dispatch. The device outputs stay on
     their way to the host (`_HostOuts`) until _complete() — the dispatch
@@ -2042,7 +2059,10 @@ class WireDataPlane:
             state = engine.state  # flushes pending control-plane ops
             E = state.capacity
             if self.counters.tx_packets.shape[0] != E:
-                self.counters = _zero_counters(E)  # engine grew
+                # the engine grew: its rows keep their cumulative counts
+                # (the JAX plane starts every row from zero here; see
+                # _grown_counters)
+                self.counters = _grown_counters(self.counters, E)
             # Rows are re-resolved HERE, under the lock — the drain's
             # row values are advisory and compact() may have renumbered
             # rows since. A wire whose link vanished re-queues.

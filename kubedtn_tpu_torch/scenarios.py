@@ -2,11 +2,13 @@
 
 Port of kubedtn_tpu/scenarios.py, in part: `_tenant_plane_setup` (the
 multi-tenant plane harness), `burn_recovery` (the SLO autopilot's
-closed loop on one live plane) and `migration_under_flap` (a live tenant
-migration between two gRPC daemons under a flapping peer). Each takes a
-`device`, None meaning the CUDA card. The rest of the JAX module (the
-BASELINE ladder, the soaks, noisy_neighbor, whatif_sweep, the fleet
-scenarios, ...) is ported with the CLI and the fleet supervisor.
+closed loop on one live plane), `migration_under_flap` (a live tenant
+migration between two gRPC daemons under a flapping peer), and the fleet
+supervisor's two: `plane_failover` (a plane killed mid-migration and
+evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
+daemons upgraded one at a time under load). Each takes a `device`, None
+meaning the CUDA card. The rest of the JAX module (the BASELINE ladder,
+the soaks, noisy_neighbor, whatif_sweep, ...) is ported with the CLI.
 """
 
 from __future__ import annotations
@@ -540,3 +542,567 @@ def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
         "in_guardrails": in_guardrails,
         "wall_s": round(time.perf_counter() - t0, 3),
     }
+
+
+def _fleet_node(tenants: dict, addr_port, latency: str, dt_us: float,
+                pairs: int, seed: int = 0, capacity: int = 128,
+                device=None):
+    """One fleet member: store/engine/registry/daemon/plane + a real
+    gRPC server, explicit-clock plane (the failover scenarios drive
+    lockstep ticks so the kill/restart instants are exact), the engine on
+    `device` (None = the CUDA card). `tenants` maps tenant name → base
+    uid offset."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+    from kubedtn_tpu_torch.topology.engine import SimEngine
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.store import TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=capacity,
+                       device=resolve_device(device))
+    daemon = Daemon(engine)
+    server, port = serve_on(daemon, addr_port)
+    addr = f"127.0.0.1:{port}"
+    engine.node_ip = addr
+    registry = TenantRegistry(engine)
+    plane = WireDataPlane(daemon, dt_us=dt_us, seed=seed)
+    plane.pipeline_explicit_clock = True
+    plane.attach_tenancy(registry)
+    props = LinkProperties(latency=latency)
+    for ns, base in tenants.items():
+        registry.create(ns)
+        for i in range(pairs):
+            uid = base + i + 1
+            a, b = f"{ns}-a{i}", f"{ns}-b{i}"
+            for name, peer in ((a, b), (b, a)):
+                t = Topology(name=name, namespace=ns,
+                             spec=TopologySpec(links=[
+                                 Link(local_intf="eth1",
+                                      peer_intf="eth1", peer_pod=peer,
+                                      uid=uid, properties=props)]))
+                store.create(t)
+                engine.setup_pod(name, ns)
+    Reconciler(store, engine).drain()
+    for ns, base in tenants.items():
+        for i in range(pairs):
+            uid = base + i + 1
+            for side in ("a", "b"):
+                daemon._add_wire(wire_def(f"{ns}-{side}{i}", ns, uid))
+    return {"store": store, "engine": engine, "daemon": daemon,
+            "plane": plane, "registry": registry, "server": server,
+            "addr": addr}
+
+
+def serve_on(daemon, port: int = 0, host: str = "127.0.0.1",
+             tries: int = 100):
+    """A started gRPC server for `daemon` (`port` 0 = pick one). A port a
+    stopped server just released may take a moment to bind again: retry
+    every 0.1 s. Returns (server, bound port)."""
+    from kubedtn_tpu_torch.wire.server import make_server
+
+    for _ in range(tries):
+        try:
+            server, bound = make_server(daemon, port=port, host=host,
+                                        log_rpcs=False)
+        except RuntimeError:   # grpc raises on a busy port
+            server, bound = None, 0
+        if bound:
+            server.start()
+            return server, bound
+        time.sleep(0.1)
+    raise RuntimeError(f"port {port} rebind failed")
+
+
+def gated_offer(nodes: dict, order, key: tuple, frames: list) -> bool:
+    """Offer `frames` on the wire `key` = (pod_key, uid) of the first
+    node in `order` whose accept gate is open and which realizes the
+    link — a retrying producer's view of a fleet under upgrade. The gate
+    is the in-process stand-in for the TCP listener: an append either
+    lands before the restarter's capture (checkpointed) or is refused
+    (the producer tries elsewhere), never dropped in between. True when
+    the frames were accepted."""
+    for name in order:
+        node = nodes[name]
+        with node["gate"]:
+            if node["draining"]:
+                continue
+            if node["engine"].row_of(*key) is None:
+                continue
+            w = node["daemon"].wires.get_by_key(*key)
+            if w is None:
+                continue
+            w.ingress.extend(frames)
+            return True
+    return False
+
+
+def gated_producer(nodes: dict, order, keys, frames: list, fed: list,
+                   stop, pace_s: float = 0.02) -> None:
+    """Thread body: every `pace_s` until `stop` is set, `gated_offer`
+    `frames` on each wire of `keys`; fed[0] counts the accepted frames
+    (the loss denominator)."""
+    while not stop.is_set():
+        for key in keys:
+            if gated_offer(nodes, order, key, frames):
+                fed[0] += len(frames)
+        stop.wait(pace_s)
+
+
+def restart_node(node: dict, ckpt_dir: str, device, port: int, drain, *,
+                 plane_kwargs: dict, live_save: bool = False,
+                 configure=None, **restore_kw) -> tuple[dict, dict]:
+    """A rolling upgrade's restart of one fleet node ("the new binary"):
+    close its accept gate, checkpoint, tear down (server, plane;
+    `drain(node)` hands the stopped node's delivered egress to the
+    consumer), rebuild through `entry.restore_daemon`, attach a
+    TenantRegistry when the checkpoint had none, `configure(plane)`,
+    serve on the SAME port (the fleet's address book survives the
+    upgrade), start the runner and warm the kernels before the first
+    tick needs them.
+    `live_save` checkpoints with `save_live` before the teardown (a plane
+    the upgrade has already drained), else with `save` after it.
+    Returns (restore_daemon's dict with `tenancy`, `server`, the old
+    `gate` and `draining` False; seconds of each step)."""
+    from kubedtn_tpu_torch import checkpoint, entry
+    from kubedtn_tpu_torch.tenancy import TenantRegistry
+
+    steps = {}
+    with node["gate"]:
+        node["draining"] = True
+    if live_save:
+        t = time.perf_counter()
+        checkpoint.save_live(ckpt_dir, node["store"], node["engine"],
+                             node["plane"])
+        steps["save_s"] = time.perf_counter() - t
+    node["server"].stop(0)
+    node["plane"].stop()
+    drain(node)
+    if not live_save:
+        t = time.perf_counter()
+        checkpoint.save(ckpt_dir, node["store"], node["engine"],
+                        dataplane=node["plane"])
+        steps["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r = entry.restore_daemon(ckpt_dir, device, plane_kwargs=plane_kwargs,
+                             **restore_kw)
+    steps["restore_daemon_s"] = time.perf_counter() - t
+    if r["tenancy"] is None:
+        r["tenancy"] = TenantRegistry(r["engine"])
+        r["plane"].attach_tenancy(r["tenancy"])
+    if configure is not None:
+        configure(r["plane"])
+    r["server"], _port = serve_on(r["daemon"], port)
+    r["plane"].start()
+    t = time.perf_counter()
+    r["engine"].warm_kernels()   # waits for the card
+    steps["warm_kernels_s"] = time.perf_counter() - t
+    r.update(gate=node["gate"], draining=False)
+    return r, steps
+
+
+def plane_failover(pairs: int = 2, warm_ticks: int = 30,
+                   gap_frames_per_wire: int = 5,
+                   frames_per_tick: int = 3, latency: str = "2ms",
+                   dt_us: float = 2_000.0, seed: int = 7, device=None):
+    """SIGKILL a loaded plane MID-MIGRATION; the fleet supervisor
+    evacuates with NO operator action — the failover acceptance
+    scenario, the planes' engines on `device` (None = the CUDA card):
+
+    - two real gRPC daemons A (tenant `vic` + `bga`) and B (`bgb`),
+      lockstep explicit-clock ticks, real Local.Health probes over the
+      wire (`grpc_probe`) so the kill is detected as genuine dial
+      failures;
+    - steady load drains to idle, a crash-consistent `save_live`
+      checkpoint lands (the periodic-autosave stand-in), then a
+      migration of `vic` A→B is interrupted by an injected crash at
+      RESTORE (journal holds a `running` record with the FORK
+      committed);
+    - `gap_frames_per_wire` more frames load A's ingress and A is
+      killed (`kill -9` stand-in: no flush, no checkpoint, server
+      down);
+    - supervisor sweeps: healthy → suspect → dead (hysteresis), then
+      evacuates automatically — the journal FORK (newest
+      crash-consistent capture) rolls the tenant forward onto B, the
+      background tenant comes from A's checkpoint;
+    - feed resumes on B; the verdict pins the failover accounting
+      EXACT: fed == delivered_src + delivered_dst + reported_lost
+      with reported_lost exactly the post-checkpoint gap frames,
+      `kubedtn_migration_accounting_mismatch` == 0, and the restored
+      rows byte-identical to the fork capture."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kubedtn_tpu_torch import checkpoint
+    from kubedtn_tpu_torch.chaos import ChaosError, ChaosInjector
+    from kubedtn_tpu_torch.federation import (FederationController,
+                                              FleetSupervisor,
+                                              MigrationStats, PlaneHandle,
+                                              grpc_probe)
+    from kubedtn_tpu_torch.federation import journal as fjournal
+
+    t0 = time.perf_counter()
+    A = _fleet_node({"vic": 0, "bga": pairs}, 0, latency, dt_us, pairs,
+                    seed=seed, device=device)
+    B = _fleet_node({"bgb": 2 * pairs}, 0, latency, dt_us, pairs,
+                    seed=seed, device=device)
+    root = tempfile.mkdtemp(prefix="kdt-failover-")
+    ck_a = f"{root}/ckA"
+    mstats = MigrationStats()
+    chaos = ChaosInjector(seed=seed)
+    fed = FederationController(f"{root}/journal", stats=mstats,
+                               chaos=chaos)
+    fed.register(PlaneHandle("A", A["daemon"], A["plane"],
+                             A["registry"], checkpoint_dir=ck_a,
+                             probe=grpc_probe(A["addr"])))
+    fed.register(PlaneHandle("B", B["daemon"], B["plane"],
+                             B["registry"],
+                             probe=grpc_probe(B["addr"])))
+    sup = FleetSupervisor(fed, f"{root}/ledger", chaos=chaos,
+                          suspect_after=2, dead_after=4,
+                          healthy_after=2).attach()
+
+    k = [0]
+    fed_vic = [0]
+    delivered = [0]
+
+    def wire_of(node, ns, side, i, base):
+        return node["daemon"].wires.get_by_key(f"{ns}/{ns}-{side}{i}",
+                                               base + i + 1)
+
+    def tick(feed_on=None):
+        k[0] += 1
+        t = 100.0 + k[0] * dt_us / 1e6
+        if feed_on is not None:
+            for i in range(pairs):
+                w = wire_of(feed_on, "vic", "a", i, 0)
+                for _ in range(frames_per_tick):
+                    w.ingress.append(b"V" * 64)
+                fed_vic[0] += frames_per_tick
+        # background tenants keep both planes dispatching every tick
+        for node, ns, base in ((A, "bga", pairs), (B, "bgb", 2 * pairs)):
+            if getattr(node["daemon"], "chaos_dead", False):
+                continue
+            for i in range(pairs):
+                w = wire_of(node, ns, "a", i, base)
+                if w is not None:
+                    w.ingress.append(b"G" * 64)
+        for node in (A, B):
+            if not getattr(node["daemon"], "chaos_dead", False):
+                node["plane"].tick(now_s=t)
+
+    def drain():
+        for node in (A, B):
+            for i in range(pairs):
+                w = wire_of(node, "vic", "b", i, 0)
+                if w is None:
+                    continue
+                while True:
+                    try:
+                        w.egress.popleft()
+                        delivered[0] += 1
+                    except IndexError:
+                        break
+
+    def settle_drain(n):
+        for _ in range(n):
+            tick()
+        drain()
+
+    outcome = {}
+    try:
+        # steady load, then drain to idle (the checkpoint is a clean
+        # cut: no in-flight vic frames, counters == delivered)
+        for _ in range(warm_ticks):
+            tick(feed_on=A)
+        settle_drain(warm_ticks)
+        A["plane"].flush()
+        k[0] += 5000
+        settle_drain(1)
+        delivered_before = delivered[0]
+        # the periodic autosave (the RPO anchor)
+        checkpoint.save_live(ck_a, A["store"], A["engine"], A["plane"])
+        # mid-migration: crash injected at RESTORE — the journal keeps
+        # a running record with the FORK committed
+        chaos.fail_migration_step("restore")
+        migration_crashed = False
+        try:
+            fed.migrate("vic", "A", "B", settle=tick)
+        except ChaosError:
+            migration_crashed = True
+        # load the plane (the post-checkpoint gap), then kill -9
+        gap = 0
+        for i in range(pairs):
+            w = wire_of(A, "vic", "a", i, 0)
+            for _ in range(gap_frames_per_wire):
+                w.ingress.append(b"L" * 64)
+                gap += 1
+        fed_vic[0] += gap
+        chaos.kill_plane(fed.handle("A"), server=A["server"])
+        # supervision: probes fail over the REAL wire, hysteresis
+        # steps healthy → suspect → dead, evacuation is automatic
+        sweeps = 0
+        while sweeps < 20:
+            sweeps += 1
+            tr = sup.sweep()
+            if tr.get("A") == "dead":
+                break
+        evac = sup.evacuations()[-1] if sup.evacuations() else {}
+        vic_entry = (evac.get("tenants") or {}).get("vic", {})
+        # fork byte-identity: the restored rows carry the capture's
+        # exact bits (lockstep clocks ⇒ rebase delta 0)
+        rows_identical = True
+        if vic_entry.get("survivor") == "B":
+            mid = fed.status(tenant="vic")[-1]["migration_id"]
+            rec_full, arrays = fjournal.load_record(f"{root}/journal",
+                                                    mid)
+            fork = rec_full["fork"]
+            eng_b = B["engine"]
+            st_b = eng_b.state
+            for n_i, (pk, uid, *_r) in enumerate(fork["identities"]):
+                row = eng_b._rows.get((pk, int(uid)))
+                if row is None:
+                    rows_identical = False
+                    break
+                for col in ("tokens", "t_last", "corr", "pkt_count",
+                            "backlog_until", "props"):
+                    a = getattr(st_b, col)[row].cpu().numpy()
+                    b = np.asarray(arrays[col])[n_i]
+                    if not np.array_equal(a, b):
+                        rows_identical = False
+        # feed resumes on the survivor with NO operator action
+        for _ in range(warm_ticks):
+            tick(feed_on=B)
+        settle_drain(warm_ticks)
+        B["plane"].flush()
+        k[0] += 5000
+        settle_drain(1)
+        acct = sup.check_failover_accounting("vic", fed_vic[0])
+        snap = mstats.snapshot()
+        fstats = sup.stats.snapshot()
+        in_guardrails = (
+            vic_entry.get("survivor") == "B"
+            and vic_entry.get("source") == "journal-fork"
+            and migration_crashed
+            and rows_identical
+            and acct["mismatch"] == 0.0
+            and acct["reported_lost"] == gap
+            and fed_vic[0] == acct["delivered_src"]
+            + acct["delivered_dst"] + acct["reported_lost"]
+            and delivered[0] == acct["delivered_src"]
+            + acct["delivered_dst"]
+            and snap["accounting_mismatch"] == 0.0
+            and B["plane"].tick_errors == 0)
+        outcome = {
+            "scenario": "plane_failover",
+            "pairs": pairs,
+            "fed": fed_vic[0],
+            "delivered": delivered[0],
+            "delivered_before_kill": delivered_before,
+            "gap_frames": gap,
+            "sweeps_to_dead": sweeps,
+            "evacuation": {
+                "survivor": vic_entry.get("survivor"),
+                "source": vic_entry.get("source"),
+                "rows": vic_entry.get("rows"),
+                "migrations_resolved": [
+                    m["action"] for m in
+                    evac.get("migrations_resolved", ())],
+            },
+            "restored_rows_byte_identical": rows_identical,
+            "accounting": acct,
+            "accounting_mismatch_gauge": snap["accounting_mismatch"],
+            "reported_lost_gauge": fstats["reported_lost"],
+            "transitions": fstats["transitions"],
+            "in_guardrails": in_guardrails,
+            "wall_s": round(time.perf_counter() - t0, 3),
+        }
+    finally:
+        for node in (A, B):
+            try:
+                node["server"].stop(0)
+            except Exception:
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+    return outcome
+
+
+def fleet_rolling_upgrade(pairs: int = 1, steady_s: float = 1.5,
+                          offered_frames_per_s: int = 2_000,
+                          latency: str = "1ms", dt_us: float = 2_000.0,
+                          seed: int = 3,
+                          drain_timeout_s: float = 60.0, device=None):
+    """`kdt fleet upgrade` end to end across TWO real gRPC daemons
+    with live runners, the planes' engines on `device` (None = the CUDA
+    card): the supervisor cordons each plane in turn, drains its tenants
+    to the other plane via zero-loss live migrations, restarts the
+    daemon (graceful checkpoint → full teardown → `entry.restore_daemon`
+    from the checkpoint → new server on the SAME port), health-verifies
+    over the real wire before refilling, then moves to the next plane —
+    while a retrying producer keeps offering load the whole time.
+    Verdict: zero frame loss for every accepted frame (fed ==
+    delivered), both planes restarted and health-verified,
+    `kubedtn_migration_accounting_mismatch` == 0."""
+    import shutil
+    import tempfile
+    import threading as _threading
+
+    from kubedtn_tpu_torch.federation import (FederationController,
+                                              FleetSupervisor,
+                                              MigrationStats, PlaneHandle,
+                                              grpc_probe)
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    root = tempfile.mkdtemp(prefix="kdt-upgrade-")
+    nodes: dict[str, dict] = {}
+    TEN = {"A": ("ta", 0), "B": ("tb", pairs)}
+
+    def build(name, port=0):
+        node = _fleet_node({TEN[name][0]: TEN[name][1]}, port, latency,
+                           dt_us, pairs, seed=seed, device=dev)
+        node["plane"].pipeline_explicit_clock = False
+        node["draining"] = False
+        # accept gate: the in-process stand-in for the TCP listener —
+        # a producer's append either lands before the teardown capture
+        # (checkpointed) or is refused (producer retries elsewhere),
+        # never silently dropped in between
+        node["gate"] = _threading.Lock()
+        nodes[name] = node
+        return node
+
+    for name in ("A", "B"):
+        build(name)
+        nodes[name]["plane"].start()
+    mstats = MigrationStats()
+    fed = FederationController(f"{root}/journal", stats=mstats)
+
+    def drain_node(node) -> int:
+        got = 0
+        for w in node["daemon"].wires.all():
+            while True:
+                try:
+                    w.egress.popleft()
+                    got += 1
+                except IndexError:
+                    break
+        return got
+
+    def make_restarter(name):
+        def restart():
+            # graceful shutdown: the accept gate closes (a retrying
+            # producer sees refusal, exactly like a stopped listener),
+            # delivered egress goes to the consumer, the checkpoint
+            # holds delay-line frames, QUEUED INGRESS, wires, counters;
+            # then the full rebuild on the same port
+            addr = nodes[name]["addr"]
+            ck = f"{root}/ck{name}"
+
+            def drain(node):
+                delivered[0] += drain_node(node)
+
+            r, _steps = restart_node(
+                nodes[name], ck, dev, int(addr.rsplit(":", 1)[1]), drain,
+                plane_kwargs=dict(dt_us=dt_us, seed=seed), node_ip=addr)
+            r["engine"].node_ip = addr
+            nodes[name] = dict(r, registry=r["tenancy"], addr=addr,
+                               restarted=True,
+                               pending_restored=r["pending"],
+                               ingress_restored=r["ingress"])
+            return PlaneHandle(name, r["daemon"], r["plane"],
+                               r["tenancy"], checkpoint_dir=ck,
+                               probe=grpc_probe(addr),
+                               restarter=restart)
+
+        return restart
+
+    for name in ("A", "B"):
+        node = nodes[name]
+        fed.register(PlaneHandle(name, node["daemon"], node["plane"],
+                                 node["registry"],
+                                 checkpoint_dir=f"{root}/ck{name}",
+                                 probe=grpc_probe(node["addr"]),
+                                 restarter=make_restarter(name)))
+    sup = FleetSupervisor(fed, f"{root}/ledger",
+                          healthy_after=2).attach()
+
+    fed_count = [0]
+    delivered = [0]
+    stop_feed = _threading.Event()
+
+    # a RETRYING producer: each tenant wire is fed on whichever plane
+    # currently realizes it; while a plane restarts (draining) its frames
+    # wait — accepted frames are the loss denominator, exactly like a
+    # client retrying a refused dial
+    pace_s = 0.02
+    chunk = max(1, int(offered_frames_per_s * pace_s / max(1, 2 * pairs)))
+    keys = [(f"{ns}/{ns}-a{i}", base + i + 1)
+            for ns, base in (("ta", 0), ("tb", pairs))
+            for i in range(pairs)]
+    feed = _threading.Thread(
+        target=gated_producer, daemon=True,
+        args=(nodes, ("A", "B"), keys, [b"U" * 64] * chunk, fed_count,
+              stop_feed, pace_s))
+    feed.start()
+    report = None
+    try:
+        time.sleep(steady_s)
+        report = sup.rolling_upgrade(planes=["A", "B"],
+                                     verify_probes=2,
+                                     verify_timeout_s=30.0)
+        time.sleep(steady_s)
+    finally:
+        stop_feed.set()
+        feed.join(timeout=5)
+    # full drain: everything accepted must come out somewhere
+    deadline = time.monotonic() + drain_timeout_s
+    while time.monotonic() < deadline:
+        for name in ("A", "B"):
+            delivered[0] += drain_node(nodes[name])
+        if delivered[0] >= fed_count[0]:
+            break
+        time.sleep(0.05)
+    for name in ("A", "B"):
+        nodes[name]["plane"].flush_peers(timeout_s=10.0)
+        delivered[0] += drain_node(nodes[name])
+    snap = mstats.snapshot()
+    reports = (report or {}).get("reports", [])
+    frames_lost = fed_count[0] - delivered[0]
+    in_guardrails = (
+        frames_lost == 0
+        and len(reports) == 2
+        and all(r["restarted"] and r["healthy"] and not r["error"]
+                for r in reports)
+        and all(nodes[n].get("restarted") for n in ("A", "B"))
+        and snap["accounting_mismatch"] == 0.0
+        and all(nodes[n]["plane"].tick_errors == 0
+                for n in ("A", "B")))
+    out = {
+        "scenario": "fleet_rolling_upgrade",
+        "device": str(dev),
+        "pairs": pairs,
+        "frames_fed": fed_count[0],
+        "frames_delivered": delivered[0],
+        "frames_lost": frames_lost,
+        "migrations": (report or {}).get("migrations", 0),
+        "reports": [{k: v for k, v in r.items()} for r in reports],
+        "pending_restored": sum(
+            int(nodes[n].get("pending_restored", 0))
+            for n in ("A", "B")),
+        "accounting_mismatch_gauge": snap["accounting_mismatch"],
+        "migrations_completed": snap["completed"],
+        "in_guardrails": in_guardrails,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+    for name in ("A", "B"):
+        try:
+            nodes[name]["plane"].stop()
+            nodes[name]["server"].stop(0)
+        except Exception:
+            pass
+    shutil.rmtree(root, ignore_errors=True)
+    return out

@@ -51,11 +51,10 @@ installed as `autopilot`. MigrateTenant and MigrationStatus serve the
 federation's migration controller (kubedtn_tpu_torch.federation) that
 its `register` installs as `federation`; ObserveSLO then names the
 plane and appends the frozen slices of tenants this plane migrated
-away. `fleet` stays None until the fleet supervisor is ported, and
-ObserveSLO's fleet branch with it.
-
-Not ported yet (the RPCs answer UNIMPLEMENTED): FleetStatus /
-FleetUpgrade.
+away. FleetStatus and FleetUpgrade serve the fleet supervisor
+(kubedtn_tpu_torch.federation.supervisor) that its `attach` installs as
+`fleet`; ObserveSLO(fleet=true) then serves its cross-plane merge, and
+Health with a named `plane` answers for another plane of the federation.
 """
 
 from __future__ import annotations
@@ -496,7 +495,7 @@ class Daemon:
         # the federation's controller (set by its register()) and fleet
         # supervisor: MigrateTenant / MigrationStatus and ObserveSLO's
         # plane name and frozen windows read the controller, its fleet
-        # merge the supervisor, which is not ported yet (stays None)
+        # merge, FleetStatus and FleetUpgrade the supervisor
         self.federation = None
         self.fleet = None
         # slo.SloEvaluator installed by its attach(): the
@@ -795,13 +794,77 @@ class Daemon:
         supervisor's suspicion machine probes — heartbeat age, watchdog
         stalls, degradation rung, tick errors, backlog, tenant count
         and capacity headroom in one RPC (until now only the Prometheus
-        endpoint carried these). A named `plane` (another plane of a
-        federation) is not served by the port yet."""
-        if request.plane:
-            return self._health_response(
-                {}, ok=False, error="named planes need the federation, "
-                                    "which is not ported")
+        endpoint carried these). `plane` names another plane registered
+        with this daemon's federation controller; empty = this one."""
+        name = request.plane
+        if name and self.federation is not None:
+            from kubedtn_tpu_torch.federation import MigrationError
+
+            try:
+                handle = self.federation.handle(name)
+            except MigrationError as e:
+                return _pb().HealthResponse(ok=False, error=str(e))
+            return self._health_response(handle.daemon.health_snapshot())
         return self._health_response(self.health_snapshot())
+
+    def FleetStatus(self, request, context):
+        """Framework extension: the fleet supervisor's view — per-plane
+        suspicion state + health, and the placement ledger."""
+        pb = _pb()
+        sup = self.fleet
+        if sup is None:
+            return pb.FleetStatusResponse(
+                ok=False, error="fleet supervision not enabled on this "
+                                "daemon")
+        st = sup.status()
+        return pb.FleetStatusResponse(
+            ok=True,
+            planes=[pb.PlaneStatus(
+                name=p["name"], state=p["state"],
+                consecutive_failures=int(p["consecutive_failures"]),
+                last_error=p.get("last_error") or "",
+                tenants_placed=int(p["tenants_placed"]),
+                health=self._health_response(p["health"])
+                if p.get("health") else pb.HealthResponse(ok=False),
+            ) for p in st["planes"]],
+            placements=[pb.PlacementEntry(tenant=t, plane=pl)
+                        for t, pl in sorted(st["placements"].items())],
+            sweeps=int(st["sweeps"]),
+            evacuations=int(st["evacuations"]))
+
+    def FleetUpgrade(self, request, context):
+        """Framework extension: rolling upgrade across the supervisor's
+        planes — cordon, drain via live migration, restart the daemon,
+        health-verify, refill, next plane. Synchronous; the request
+        timeout bounds it."""
+        pb = _pb()
+        sup = self.fleet
+        if sup is None:
+            return pb.FleetUpgradeResponse(
+                ok=False, error="fleet supervision not enabled on this "
+                                "daemon")
+        from kubedtn_tpu_torch.federation import MigrationError
+        from kubedtn_tpu_torch.federation.supervisor import FleetError
+
+        try:
+            out = sup.rolling_upgrade(
+                planes=list(request.planes) or None,
+                verify_probes=int(request.verify_probes) or None)
+        except (FleetError, MigrationError) as e:
+            return pb.FleetUpgradeResponse(
+                ok=False, error=f"{type(e).__name__}: {e}")
+        return pb.FleetUpgradeResponse(
+            ok=all(r.get("error", "") == "" for r in out["reports"]),
+            reports=[pb.UpgradeReport(
+                plane=r["plane"],
+                drained_tenants=list(r["drained_tenants"]),
+                refilled_tenants=list(r["refilled_tenants"]),
+                restarted=bool(r["restarted"]),
+                healthy=bool(r["healthy"]),
+                error=r.get("error", ""),
+            ) for r in out["reports"]],
+            migrations=int(out["migrations"]),
+            frames_lost_known=bool(out["frames_lost_known"]))
 
     # -- the what-if twin and planned updates --------------------------
 
@@ -1012,9 +1075,7 @@ class Daemon:
         journal's RECONCILE-frozen window slice for it (`frozen=true`
         rows): `kdt slo --fleet` merging several daemons' answers
         stitches pre-move and post-move windows into one continuous
-        view without any daemon seeing the other's ring. The fleet
-        branch stays dormant while `fleet` is None (the supervisor is
-        not ported yet)."""
+        view without any daemon seeing the other's ring."""
         pb = _pb()
         ev = self.slo
         if ev is None:
@@ -1238,14 +1299,6 @@ class Daemon:
         return pb.MigrationStatusResponse(
             ok=True,
             migrations=[self._migration_info(r) for r in recs])
-
-    # -- surfaces not ported yet --------------------------------------
-
-    def _unimplemented(self, request, context):
-        _abort(context, "UNIMPLEMENTED",
-               "not implemented by this daemon yet")
-
-    FleetStatus = FleetUpgrade = _unimplemented
 
     # -- Remote --------------------------------------------------------
 

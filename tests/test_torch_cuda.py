@@ -1187,3 +1187,89 @@ def test_migration_on_card_equals_never_migrated(dev):
     rec, h, acct, _stats, _fed = run_migrated(m, depth=1, device=dev)
     assert rec["state"] == "done" and acct["mismatch"] == 0.0
     assert h.deliv == ref[0] and h.ticks == ref[3]
+
+
+def test_fleet_failover_and_upgrade_on_card_at_a_small_clos(dev):
+    """chip_smoke.py's phase 19 on the card at a small Clos (three
+    clos(4, 10) x 2 tenants in 2^10 rows): the plane killed
+    mid-migration is declared dead over real gRPC dials and evacuated,
+    the restored rows equal their sources, the survivor's streams equal
+    a hand-restored twin's, the accounting is exact, K4 equals its
+    plain version on the survivor's mailbox, and the upgrade of the
+    survivor over gRPC accounts for every frame fed: delivered at the
+    egress wires or dropped by a counted cause, c0 delivered whole (the
+    phase checks each and raises SystemExit on a failure)."""
+    import chip_smoke
+
+    card = torch.cuda.get_device_name(0)
+    m, _k1, k4 = chip_smoke.run_fleet_phase(
+        dev, card, n_spine=4, n_leaf=10, n_links=32, block=200,
+        capacity=1 << 10)
+    assert k4 > 0 and m["b"]["k4_launches"] > 0
+    assert m["b"]["survivors"] == {"t0": "B", "t1": "C", "t2": "B"}
+    c = m["c"]
+    assert sorted(c["fed"]) == ["c0", "t1"]
+    assert c["fed"]["c0"] == c["delivered"]["c0"] > 0
+    for t, fed in c["fed"].items():
+        n = c["counters"][t]
+        assert n["delivered_packets"] == c["delivered"][t]
+        assert fed == (c["delivered"][t] + n["dropped_loss"]
+                       + n["dropped_queue"] + n["dropped_ring"])
+
+
+def test_plane_failover_on_card_equals_the_cpu(dev):
+    """scenarios.plane_failover with both planes' engines on the card
+    gives the CPU run's outcome (but the wall time): the same
+    evacuation, the same exact accounting."""
+    from kubedtn_tpu_torch.scenarios import plane_failover
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        r = plane_failover(pairs=2, warm_ticks=20, device=d)
+        r.pop("wall_s")
+        out[d.type] = r
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"]["in_guardrails"]
+
+
+def test_k4_on_an_evacuation_survivor_mailbox_equals_plain(dev, tmp_path):
+    """A tenant evacuated onto a survivor at depth 2 on 2 virtual shards:
+    the survivor's dispatches launch K4, and K4 equals its plain version
+    bit for bit on a ring step of that mailbox."""
+    import _torch_fleet_harness as H
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    m = H.fmods("torch")
+    chaos = m.chaos.ChaosInjector()
+    ck = str(tmp_path / "ckA")
+    f = H.fleet(m, str(tmp_path), chaos=chaos, ck_a=ck, device=dev,
+                depth=2, suspect_after=1, dead_after=2)
+    d_a, p_a, _r, s_a, e_a = f["A"]
+    d_b, p_b, r_b = f["B"][:3]
+    p_b.enable_sharding(n_devices=2)
+    k = H.feed_and_tick(d_a, p_a, "t1", 0, 3)
+    m.ckpt.save_live(ck, s_a, e_a, p_a)
+    chaos.kill_plane(f["fed"].handle("A"))
+    for _ in range(3):
+        f["sup"].sweep()
+    assert f["sup"].ledger.get("t1") == "B" and r_b.rows_of("t1").size
+    captured = []
+    real = pex.ring_right_shift
+
+    def capture(blocks, mesh):
+        if not captured:
+            captured.append(([b.clone() for b in blocks], tuple(mesh)))
+        return real(blocks, mesh)
+
+    pex.reset_launches()
+    pex.ring_right_shift = capture
+    try:
+        H.feed_and_tick(d_b, p_b, "t1", 0, 4, k0=k)
+        p_b.flush()
+    finally:
+        pex.ring_right_shift = real
+    assert pex.LAUNCHES["ring_step"] > 0 and captured
+    blocks, mesh = captured[0]
+    for a, b in zip(pex.ring_right_shift(blocks, mesh),
+                    pex.ring_right_shift_plain(blocks)):
+        assert torch.equal(a, b)

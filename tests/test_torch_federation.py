@@ -708,6 +708,136 @@ def test_shm_frames_parked_by_the_hold_strand_on_src_fault(pkg, tmp_path):
     assert ingest.stats()["unresolved_frames"] == 20
 
 
+# correlated loss keeps the tenant's rows on the sequential core, whose
+# per-tick cap (seq_slots, 64) parks a burst's residue in the holdback;
+# no latency, so a completed chunk leaves the delay line in its own tick
+SEQ_PROPS = {"mig": dict(loss="10", loss_corr="25"),
+             "bg": dict(latency="1ms"), "bg2": dict(latency="1ms")}
+
+
+def _holdback_residue_migration(pkg, burst):
+    """A depth-2 migration whose src holds a holdback residue of `burst`
+    frames a wire at the fork: the held tenant's residue still shapes on
+    src, one 64-frame chunk a tick. Returns (accounting, frames out of
+    any egress, tenant frames in flight at the last residue check)."""
+    m = H.fmods(pkg)
+    fed, (d_s, p_s, _r_s), (d_d, p_d, _r_d), _root = H.federation(
+        m, depth=2, props=SEQ_PROPS)
+    h = H.Harness([(d_s, p_s), (d_d, p_d)],
+                  {id(d_s): "bg", id(d_d): "bg2"}, SEQ_PROPS)
+    for _ in range(3):
+        h.feed_mig(d_s)
+        h.tick()
+    for i in range(H.PAIRS):
+        H.wire(d_s, "mig", "a", i, SEQ_PROPS).ingress.extend(
+            H.tagged("mig", i, 1000 + j) for j in range(burst))
+    h.fed += burst * H.PAIRS
+    h.tick()
+    assert p_s._holdback, "no holdback residue at the fork"
+    real = m.fed.MigrationCoordinator._src_residue
+    last = []
+
+    def residue(co, *a):
+        out = real(co, *a)
+        last[:] = [sum(len(it[2]) for job in p_s._inflight
+                       for it in job.batches
+                       if it[0].pod_key.startswith("mig/"))]
+        return out
+
+    m.fed.MigrationCoordinator._src_residue = residue
+    try:
+        # a bound on the wall clock, not on the settle ticks: each check
+        # ticks once, and JAX compiles its first ticks of a shape
+        rec = fed.migrate("mig", "A", "B", settle=h.tick,
+                          reconcile_timeout_s=120.0)
+    finally:
+        m.fed.MigrationCoordinator._src_residue = real
+    h.finish()
+    acct = fed.coordinator(rec["migration_id"]).check_accounting(h.fed)
+    return acct, sum(len(d) for d in h.deliv), last[0]
+
+
+@pytest.mark.parametrize("burst", [150, 200, 300])
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_inflight_holdback_residue_at_reconcile_fault(pkg, burst):
+    """A fault of the JAX design: RECONCILE's residue check counts the
+    holdback and the delay line but not the dispatches in flight. At
+    depth 2 the last chunk of a held tenant's holdback residue (a burst
+    of more than seq_slots frames a wire on correlated-loss rows) is in
+    flight when both are empty, the check passes, the src counters
+    freeze without it, and its frames complete after the freeze and
+    never come out (the src wires are gone at RELEASE): in the JAX
+    package the mismatch is exactly the in-flight frames. The port
+    counts them and waits (migrate._src_residue): mismatch 0, every
+    frame accounted and out of an egress wire."""
+    acct, out, inflight = _holdback_residue_migration(pkg, burst)
+    if pkg == "jax":
+        assert inflight > 0
+        assert acct["mismatch"] == inflight
+        assert out == acct["delivered_src"]
+        assert acct["fed"] == (acct["accounted_src"] + acct["accounted_dst"]
+                               + inflight)
+    else:
+        assert inflight == 0
+        assert acct["mismatch"] == 0.0
+        assert acct["fed"] == acct["accounted_src"] + acct["accounted_dst"]
+        assert out == acct["delivered_src"] + acct["delivered_dst"]
+
+
+def _migrated_then_dst_grows(pkg):
+    """mig moved A -> B in its feed gap, fed on B, then a tenant whose
+    reserved block B's free rows cannot hold grows B's engine, and mig
+    is fed on. Returns (accounting, B's delivered count of mig just
+    before the growth, B's capacity before and after, B's per-row
+    delivered counts of mig at the end)."""
+    m = H.fmods(pkg)
+    fed, (d_s, p_s, _r_s), (d_d, p_d, r_d), _root = H.federation(
+        m, props=H.DET_PROPS)
+    h = H.Harness([(d_s, p_s), (d_d, p_d)],
+                  {id(d_s): "bg", id(d_d): "bg2"}, H.DET_PROPS)
+    while h.k < H.GAP_START:
+        h.feed_mig(d_s)
+        h.tick()
+    rec = fed.migrate("mig", "A", "B", settle=h.tick,
+                      reconcile_timeout_s=120.0)
+    while h.k < H.GAP_END:
+        h.tick()
+    for _ in range(10):
+        h.feed_mig(d_d)
+        h.tick()
+    for _ in range(10):
+        h.tick()
+    before = r_d.tenant_counters(p_d, "mig")["delivered_packets"]
+    cap0 = d_d.engine.state.capacity
+    r_d.create("big", block_edges=cap0)
+    while h.k < H.T_TOTAL:
+        h.feed_mig(d_d)
+        h.tick()
+    h.finish()
+    acct = fed.coordinator(rec["migration_id"]).check_accounting(h.fed)
+    rx = np.asarray(p_d.counters.rx_packets)[r_d.rows_of("mig")]
+    return acct, before, (cap0, d_d.engine.state.capacity), rx
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_engine_growth_resets_plane_counters_fault(pkg):
+    """A fault of the JAX design: when the engine grows, the plane's next
+    dispatch replaces its cumulative per-row counters with zeros. A
+    tenant migrated onto a plane that later grows (a RESTORE of a
+    tenant whose reserved block needs a contiguous run) loses every
+    delivery counted there, so the failover and migration accounting
+    read short by exactly those frames. The port keeps each row's
+    counts (runtime._grown_counters)."""
+    acct, before, (cap0, cap1), rx = _migrated_then_dst_grows(pkg)
+    assert cap1 > cap0 and before > 0
+    assert rx.sum() == acct["delivered_dst"]
+    if pkg == "jax":
+        assert acct["mismatch"] == before
+    else:
+        assert acct["mismatch"] == 0.0
+        assert acct["fed"] == acct["accounted_src"] + acct["accounted_dst"]
+
+
 # -- the live scenario -------------------------------------------------
 
 @pytest.mark.chaos

@@ -87,12 +87,41 @@ LIVE_PLANE_MODULES = (
     # live tenant migration
     "kubedtn_tpu_torch.federation", "kubedtn_tpu_torch.federation.journal",
     "kubedtn_tpu_torch.federation.migrate",
+    # the fleet supervisor and its placement ledger
+    "kubedtn_tpu_torch.federation.placement",
+    "kubedtn_tpu_torch.federation.supervisor",
+)
+
+# the fleet supervisor's surfaces: (module, attribute path)
+FLEET_SURFACES = (
+    ("kubedtn_tpu_torch.federation.placement", "PlacementLedger"),
+    ("kubedtn_tpu_torch.federation.supervisor", "FleetSupervisor"),
+    ("kubedtn_tpu_torch.wire.server", "Daemon.FleetStatus"),
+    ("kubedtn_tpu_torch.wire.server", "Daemon.FleetUpgrade"),
+    ("kubedtn_tpu_torch.wire.server", "Daemon.Health"),
+    ("kubedtn_tpu_torch.metrics.metrics", "FleetStatsCollector"),
+    ("kubedtn_tpu_torch.entry", "build_fleet"),
+    ("kubedtn_tpu_torch.scenarios", "plane_failover"),
+    ("kubedtn_tpu_torch.scenarios", "fleet_rolling_upgrade"),
 )
 
 
 @pytest.mark.parametrize("want", LIVE_PLANE_MODULES)
 def test_live_plane_modules_are_found(want):
     assert want in port_modules()
+
+
+@pytest.mark.parametrize("module,attr", FLEET_SURFACES)
+def test_fleet_surfaces_exist(module, attr):
+    """Each surface of the fleet supervisor is a callable of the port
+    (the modules above import neither jax nor the JAX package)."""
+    import importlib
+
+    obj = importlib.import_module(module)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    assert callable(obj)
+    assert obj.__module__.startswith("kubedtn_tpu_torch.")
 
 
 def test_import_loads_no_jax_in_a_fresh_process():

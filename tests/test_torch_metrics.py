@@ -11,9 +11,8 @@ whose families must still be the same. Also here: the request
 histogram's name and buckets, the node aggregates and the per-interface
 series cap, deleted links left out of the totals, the dataplane, pause
 and link-telemetry series, the HTTP server (404, concurrent scrapes, a
-collector raising mid-scrape), make_registry refusing the collector
-that is not ported yet (fleet) and accepting the migration, SLO and
-autopilot ones, and the shared-memory ingest series after the
+collector raising mid-scrape), make_registry accepting the migration,
+fleet, SLO and autopilot collectors, and the shared-memory ingest series after the
 same ring traffic (the tenant series are held in test_torch_tenancy.py).
 """
 
@@ -220,14 +219,26 @@ def test_whatif_and_update_series_equal_jax():
     ("migration_stats", "MigrationStatsCollector"),
     ("fleet", "FleetStatsCollector")])
 def test_make_registry_refuses_unported_collectors(arg, collector):
-    """make_registry refuses the fleet collector, which is not ported
-    yet; the migration collector is ported and registers (its series
-    against JAX's are held in test_torch_federation.py)."""
-    if arg == "fleet":
-        with pytest.raises(ValueError, match=collector):
-            tm.make_registry(**{arg: object()})
-        return
+    """Every collector is ported: make_registry registers the migration
+    and the fleet collectors (their series against JAX's are held in
+    test_torch_federation.py and test_torch_fleet.py)."""
     from prometheus_client import generate_latest
+
+    if arg == "fleet":
+        from kubedtn_tpu_torch.federation import FleetStats
+
+        sup = types.SimpleNamespace(
+            stats=FleetStats(),
+            status=lambda: {"planes": [{"state": "healthy"}],
+                            "placements": {"t1": "A"}})
+        reg, _h = tm.make_registry(**{arg: sup})
+        assert any(type(c).__name__ == collector
+                   for c in reg._collector_to_names)
+        text = generate_latest(reg).decode()
+        assert "kubedtn_fleet_probes_total 0.0" in text
+        assert 'kubedtn_fleet_planes{state="healthy"} 1.0' in text
+        assert "kubedtn_fleet_placements 1.0" in text
+        return
 
     from kubedtn_tpu_torch.federation import MigrationStats
 

@@ -301,12 +301,44 @@ def test_rpc_inject_bulk_is_ingress_send_to_bulk_is_egress(client):
         server.stop(0)
 
 
+def _jax_daemon():
+    """The JAX package's Daemon over the same pod pair as `served`."""
+    from kubedtn_tpu.api.types import Link as JLink
+    from kubedtn_tpu.api.types import LinkProperties as JProps
+    from kubedtn_tpu.api.types import Topology as JTopology
+    from kubedtn_tpu.api.types import TopologySpec as JSpec
+    from kubedtn_tpu.topology import Reconciler as JReconciler
+    from kubedtn_tpu.topology import SimEngine as JEngine
+    from kubedtn_tpu.topology import TopologyStore as JStore
+    from kubedtn_tpu.wire.server import Daemon as JDaemon
+
+    store = JStore()
+    engine = JEngine(store, capacity=16)
+    props = JProps(latency="1ms")
+    for a, b in (("a", "b"), ("b", "a")):
+        store.create(JTopology(name=a, spec=JSpec(links=[
+            JLink(local_intf="eth1", peer_intf="eth1", peer_pod=b, uid=1,
+                  properties=props)])))
+    engine.setup_pod("a")
+    engine.setup_pod("b")
+    JReconciler(store, engine).drain()
+    return JDaemon(engine)
+
+
 def test_rpc_observers_and_health(served, client):
     pb, c = client.pb, client.c
     h = c.Health(pb.HealthRequest())
     assert h.ok and h.serving and not h.running and h.capacity == 16
     assert h.active_rows == 2 and h.headroom_rows == 14
-    assert not c.Health(pb.HealthRequest(plane="other")).ok
+    # a named plane on a daemon without a federation: this daemon's own
+    # health, as the JAX daemon answers (a federation's answer is held
+    # in tests/test_torch_fleet.py)
+    named = c.Health(pb.HealthRequest(plane="other"))
+    want = _jax_daemon().Health(jpb.HealthRequest(plane="other"), None)
+    assert named.ok == want.ok is True
+    assert named.SerializeToString() == h.SerializeToString()
+    assert (named.tenants, named.capacity, named.active_rows) == \
+        (want.tenants, want.capacity, want.active_rows)
     links = c.ObserveLinks(pb.ObserveLinksRequest(top_n=5))
     assert not links.ok and "telemetry" in links.error
     assert not c.ObservePauses(pb.ObservePausesRequest()).ok
@@ -319,14 +351,17 @@ def test_rpc_observers_and_health(served, client):
     ("FleetStatus", "FleetStatusRequest"),
     ("FleetUpgrade", "FleetUpgradeRequest")])
 def test_rpc_not_ported_answer_unimplemented(served, client, method, req):
-    """Only the two fleet RPCs are still not ported: they answer
-    UNIMPLEMENTED. The migration RPCs are ported: on a daemon without a
-    federation controller they answer the JAX daemon's refusal (the
-    migration itself is held in tests/test_torch_federation.py)."""
+    """Every Local RPC is ported. On a daemon without a federation
+    controller the migration RPCs, and without a fleet supervisor the
+    fleet RPCs, answer the JAX daemon's refusal (the migration itself is
+    held in tests/test_torch_federation.py, the fleet in
+    tests/test_torch_fleet.py)."""
     if method.startswith("Fleet"):
-        with pytest.raises(grpc.RpcError) as e:
-            getattr(client.c, method)(getattr(client.pb, req)())
-        assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        resp = getattr(client.c, method)(getattr(client.pb, req)())
+        want = getattr(_jax_daemon(), method)(getattr(jpb, req)(), None)
+        assert not resp.ok and not want.ok
+        assert resp.error == want.error == ("fleet supervision not "
+                                            "enabled on this daemon")
         return
     resp = getattr(client.c, method)(getattr(client.pb, req)())
     assert not resp.ok
