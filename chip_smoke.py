@@ -5,6 +5,7 @@
                                            # 3 and 4, 10, 11 and 14 bring
                                            # 2 and 3; 6, 7 and 8 go
                                            # together)
+    python3 chip_smoke.py --phases 20 --daemon-rate  # + the daemon's rate
 
 Drives kubedtn_tpu_torch's main path at the BASELINE size — the
 100k-link Clos (200,000 directed rows in capacity 2^18), churned by
@@ -65,9 +66,10 @@ Phases, each fatal on failure:
      engine's again); (d) ping on a 10 ms link (K1): one-way == 10 ms and
      == the plain step; (b) 3 x 4,096 links re-shaped into the three
      kernel classes by UpdateLinks, wires on both ends, 1-64 tagged
-     frames per ingress wire and tick for 6 ticks of 10 ms (16 until
+     frames per ingress wire and tick for 4 ticks of 10 ms (16 until
      phase 16, then 10; 6 since a whole run with phase 19 took 948.8 s
-     against the script's 898 s bound, PERF.md §4), drained:
+     against the script's 898 s bound; 4 since phase 20, PERF.md §4),
+     drained:
      depth 1 (telemetry off) == depth 2 (telemetry on), byte for byte
      per wire (digests),
      the books close per edge, the window totals == the counters, the
@@ -103,8 +105,9 @@ Phases, each fatal on failure:
      Clos through the control plane (200,000 rows in 2^18, Q = 32) and
      15 scenarios (degrades, failures, a spine and a leaf blackholed by
      name, offered load x 1.5 and x 0.5) swept as 15 x 262,144 replica
-     rows for 100 steps of 1 ms (cut from the WhatIf default of 1,000;
-     200 until that run went over the bound, PERF.md §4),
+     rows for 50 steps of 1 ms (cut from the WhatIf default of 1,000;
+     200 until that run went over the bound, 100 until phase 20,
+     PERF.md §4),
      each shaping slot ONE K1 launch over all rows, the uniforms shared:
      per replica and edge the books close; replica 0 == sim.run; the
      first 8 scenarios alone == their lanes; 2 steps through K1 == the
@@ -123,16 +126,16 @@ Phases, each fatal on failure:
  15. checkpoint and restart, K1's launches counted from 0 around the
      phase: phase 12's daemon with its Prometheus exporter and a tenancy
      registry (the "default" tenant owns all 200,000 rows), its classes
-     and wires, at depth 1 on an explicit clock; (a) 4 feed ticks, the
-     next tick's feed queued, save_live (seconds, the checkpoint_save
-     pause, directory bytes, frames pending and ingress captured), then
-     4 more fed ticks and the drain; (e) 3 scrapes of /metrics over HTTP:
+     and wires, at depth 1 on an explicit clock; (a) 3 feed ticks (4
+     until phase 20, PERF.md §4), the next tick's feed queued, save_live
+     (seconds, the checkpoint_save pause, directory bytes, frames
+     pending and ingress captured), then 3 more fed ticks and the drain; (e) 3 scrapes of /metrics over HTTP:
      the interface_* sums and node totals == the plane's counters, the
      10,000-series cap and its truncation gauge, the request histogram
      counting the daemon's UpdateLinks calls; (b) entry.restore_daemon
      from the directory alone at the cut's clock: every EdgeState column,
      the wires, the counters and the registry (export_config,
-     rows_of("default")) == the cut's, the same 4 fed ticks and
+     rows_of("default")) == the cut's, the same 3 fed ticks and
      the drain: the TBF-only and delay-only wires release the same bytes
      on the same ticks as the uninterrupted daemon, every frame pending
      at the cut delivered exactly once; (c) a truncated edge_state.npz:
@@ -290,7 +293,53 @@ Phases, each fatal on failure:
      move, each step of the upgrade and each barrier's pause. Cut: the
      two-plane `fleet_rolling_upgrade` (both planes upgraded in turn)
      stays a CPU test (tests/test_torch_fleet.py); here one plane is
-     upgraded.
+     upgraded;
+ 20. the daemon process, driven only through what an operator has (the
+     child process, its CLI, gRPC, /metrics and files): (a) the Clos
+     through the control plane with a tenancy registry
+     (entry.build_daemon, 200,000 rows in 2^18), saved cold with
+     checkpoint.save: seconds and bytes; (b) `python -m
+     kubedtn_tpu_torch.cli daemon --port 0 --metrics-port 0
+     --checkpoint-dir D --shm-dir S --trace-out T --profile P
+     --telemetry-window 0.5` as a child process, no --device (the
+     card): its ready line parsed, boot-to-ready and each boot step's
+     seconds (from its log), the child on the card (nvidia-smi's compute
+     processes, or where their pids are another namespace's, one more
+     process and the card's free memory down), Health serving, /metrics
+     with the 200,000 rows and the checkpoint's tenants; (c) 4,096
+     leaf -> spine links wired on both ends by AddGRPCWireLocal, fed for
+     3 s over InjectBulk from a client process (1-4 tagged frames of
+     64-256 B a wire every 0.5 s) and by 8 ShmSender processes into S
+     (5,000 frames each; cut from a round every 0.1 s and 20,000 frames,
+     which the daemon drained too slowly, PERF.md §4 and §7); after the
+     drain the books close from the
+     scrape: per fed link its leaf end's tx == the frames fed into its
+     wire, node-wide fed == delivered + netem loss + TBF queue + delay
+     ring; each operator verb a `tpudtn-torch` process (python -m
+     kubedtn_tpu_torch.cli; the first 11 started as the feed ends, while
+     the books are read) with rc 0 and JSON: top, slo, pauses,
+     tenant list / stats, autopilot status (attached, disabled), fleet
+     status, migrate --status, trace latest, whatif --daemon (degrade,
+     fail, spine0 blackholed, load x 1.5; 200 ticks), then plan of 64
+     links of one leaf (verified) and apply --plan; (d) the fed links'
+     leaf ends set to 2 s of latency by UpdateLinks, one frame on every
+     fed wire and SIGTERM at once: exit 0 within 120 s, a new generation
+     in D with the frames pending and queued at the stop (at least one),
+     T a JSON array with checkpoint-load, checkpoint-save and pause:
+     spans (the save's seconds), P a profiler trace (the profiler's
+     start and export seconds from the daemon's log); (e) the restart
+     from D, spawned once the first daemon has logged its save (its boot
+     overlaps that daemon's profile export and exit; its own trace file):
+     boot-to-ready, the rows and interface series as before, every fed
+     link's counters continued by its one frame, the books closed again
+     (every frame pending at the stop delivered once), SIGTERM again.
+     The child's own kernel launches (logged at its shutdown) are
+     printed on a line of their own, not in the kernels line.
+
+`--daemon-rate` (never in the default run; e.g. `--phases 20
+--daemon-rate`) then measures the daemon process's shaping rate under a
+saturating InjectBulk feed, booted with phase 20's flags, without
+--profile, and without --profile and telemetry (run_daemon_rate).
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds (with --phases, the kernels whose checks ran: K1-K3
@@ -304,6 +353,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import re
 import statistics
 import sys
 import threading
@@ -1336,15 +1386,16 @@ def run_routed_phase(el, fresh, dev, card):
 # -- phase 12: the host live plane -------------------------------------------
 
 PLANE_ROWS = 4096           # rows per kernel class (the live tick's width)
-PLANE_TICKS = 6             # explicit-clock ticks that feed frames (16
+PLANE_TICKS = 4             # explicit-clock ticks that feed frames (16
 #                             until phase 16 joined, then 10; 6 since a
 #                             whole run with phase 19 went over the
-#                             script's time bound, PERF.md §4)
+#                             script's time bound, 4 since phase 20
+#                             joined, PERF.md §4)
 PLANE_DT_S = 0.01
 PLANE_MAX_FRAMES = 64       # 1..64 frames per ingress wire and tick
 PLANE_SIZES = (64, 257)     # frame bytes drawn from [64, 257)
 PLANE_DRAIN_TICKS = 40      # idle ticks at most, to empty the delay line
-PLANE_PROFILED = (3, 6)     # feed ticks [a, b) under torch.profiler
+PLANE_PROFILED = (1, 4)     # feed ticks [a, b) under torch.profiler
 UPDATE_BATCH = 1000         # links in phase 12(a)'s UpdateLinks batch
 GRPC_PAIRS = 8
 GRPC_FRAMES = 20_000        # per wire and round
@@ -2479,9 +2530,10 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 14: the what-if twin and planned updates --------------------------
 
 TWIN_SCENARIOS = 15         # MAX_REPLICA_CELLS // 2^18 lanes at full width
-TWIN_STEPS = 100            # cut from twin.query.DEFAULT_TICKS = 1,000
+TWIN_STEPS = 50             # cut from twin.query.DEFAULT_TICKS = 1,000
 #                             (200 until a whole run with phase 19 went
-#                             over the script's time bound, PERF.md §4)
+#                             over the script's time bound, 100 until
+#                             phase 20 joined, PERF.md §4)
 TWIN_K = 4
 TWIN_DT_US = 1000.0
 TWIN_SEED = 41
@@ -3015,8 +3067,10 @@ def toolchain_lines() -> list:
             out.append(f"{cc}: {e}")
     return out
 
-CKPT_FEED_TICKS = 4         # k: phase 12's feed before the cut
-CKPT_RESUME_TICKS = 4       # m: the same feed after it, on both daemons
+CKPT_FEED_TICKS = 3         # k: phase 12's feed before the cut (4 until
+#                             phase 20 joined, PERF.md §4)
+CKPT_RESUME_TICKS = 3       # m: the same feed after it, on both daemons
+#                             (4 until phase 20 joined)
 SNAP_LANES = 2              # 15(d): scenarios of the snapshot-file sweep
 SNAP_STEPS = 20
 SCRAPES = 3
@@ -3401,7 +3455,9 @@ TEN_SPINE, TEN_LEAF, TEN_LPP = 100, 166, 2   # 33,200 links a tenant
 TEN_BLOCK = 70_000          # t1's reserved rows (66,400 used)
 TEN_TICKS = 5               # fed ticks of (b)-(d) (6 until a whole run
 #                             with phase 19 went over the script's time
-#                             bound, PERF.md §4)
+#                             bound, PERF.md §4); more than
+#                             TEN_NOISY_TICKS: (d) reads its books on the
+#                             tick after the throttled ones
 TEN_NOISY_TICKS = 4         # (d): t0 throttled on these fed ticks
 TEN_NOISY_SHARE = 0.2       # (d): t0's frame budget over its fed rate
 TEN_SEED = 16
@@ -6259,27 +6315,865 @@ def run_fleet_phase(dev, card, n_spine=None, n_leaf=None,
     return m, k1, k4
 
 
-ALL_PHASES = tuple(range(1, 20))
+# -- phase 20: the daemon process ------------------------------------------
+
+DMN_LINKS = 4096            # fed Clos links, leaf ends among the scrape's
+                            # first 10,000 interface series
+DMN_PRODUCERS = 8           # shm producer processes, one fed link each
+DMN_SHM_FRAMES = 5_000      # frames per producer
+DMN_SHM_BYTES = 200
+DMN_FEED_S = 3.0            # seconds of feed
+DMN_ROUND_S = 0.5           # the InjectBulk feeder's pace: a round a 0.5 s
+DMN_MAX_FRAMES = 4          # 1..4 frames of 64-256 B per wire and round
+DMN_HOLD_LATENCY = "2s"     # the fed links' leaf ends before 20(d)'s burst:
+                            # the burst is in the delay line at the stop
+DMN_PLAN_LINKS = 64
+DMN_PLAN_LATENCY = "8ms"    # from 10 ms, the same (5, 10] ms bucket
+DMN_WHATIF_TICKS = 200
+DMN_SEED = 20
+DMN_BOOT_S = 300.0          # bound on boot-to-ready
+DMN_WAIT_S = 180.0          # bound on the feed's drain and every verb
+DMN_TERM_S = 120.0          # bound on SIGTERM to exit
+DMN_RATE_FEED_S = 3.0       # --daemon-rate: seconds of saturating feed
+
+DMN_FEEDER = r"""
+import json, random, sys, time
+sys.path.insert(0, sys.argv[1])
+from kubedtn_tpu_torch.wire import proto as pb
+from kubedtn_tpu_torch.wire.client import DaemonClient
+addr, wids = sys.argv[2], [int(w) for w in sys.argv[3].split(",")]
+seconds, round_s = float(sys.argv[4]), float(sys.argv[5])
+max_frames, rng = int(sys.argv[6]), random.Random(int(sys.argv[7]))
+fed = dict.fromkeys(wids, 0)
+nbytes = 0
+
+def batches(r):
+    global nbytes
+    out = []
+    for lo in range(0, len(wids), 512):
+        pkts = []
+        for w in wids[lo:lo + 512]:
+            for j in range(rng.randint(1, max_frames)):
+                size = rng.randint(64, 256)
+                tag = (w.to_bytes(4, "big") + r.to_bytes(4, "big")
+                       + fed[w].to_bytes(4, "big"))
+                pkts.append(pb.Packet(remot_intf_id=w,
+                                      frame=tag + bytes(size - 12)))
+                fed[w] += 1
+                nbytes += size
+        out.append(pb.PacketBatch(packets=pkts))
+    return out
+
+client = DaemonClient(addr)
+t0 = time.perf_counter()
+r = 0
+while time.perf_counter() - t0 < seconds:
+    t_r = time.perf_counter()
+    if not client.InjectBulk(iter(batches(r)), timeout=120).response:
+        sys.exit("InjectBulk refused a round")
+    r += 1
+    time.sleep(max(0.0, round_s - (time.perf_counter() - t_r)))
+client.close()
+print(json.dumps({"fed": fed, "bytes": nbytes, "rounds": r,
+                  "s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+class DaemonChild:
+    """`python -m kubedtn_tpu_torch.cli daemon ARGS` as a child process:
+    its ready line parsed, its stderr in a file, SIGTERM and the wait."""
+
+    READY = re.compile(r"^kubedtn-tpu daemon: gRPC on :(\d+), metrics on "
+                       r":(\d+)/metrics$")
+
+    def __init__(self, args: list, err_path: str, root: str) -> None:
+        import os
+        import subprocess
+
+        self.err_path = err_path
+        self._err = open(err_path, "w")
+        self.t0 = time.perf_counter()
+        self.t_wall0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubedtn_tpu_torch.cli", "daemon",
+             *args], cwd=root, env=dict(os.environ, PYTHONPATH=root,
+                                        PYTHONFAULTHANDLER="1"),
+            stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self.lines = []
+        self.ports = None
+        self._ready = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            m = self.READY.match(line.strip())
+            if m and self.ports is None:
+                self.ports = (int(m.group(1)), int(m.group(2)))
+                self._ready.set()
+        self._ready.set()
+
+    def wait_ready(self, timeout: float) -> float:
+        self._ready.wait(timeout)
+        check(self.ports is not None,
+              f"20: the daemon printed no ready line in {timeout} s "
+              f"(rc {self.proc.poll()}): {self.lines[-5:]}\n"
+              f"{self.err_tail()}")
+        return time.perf_counter() - self.t0
+
+    def err_tail(self, n: int = 4000) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-n:]
+
+    def term(self, timeout: float) -> float:
+        """SIGTERM, then the wait for exit 0: seconds between them."""
+        self.send_term()
+        return self.wait_exit(timeout)
+
+    def send_term(self) -> None:
+        import signal
+
+        self.t_term = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+
+    def wait_exit(self, timeout: float) -> float:
+        """Exit 0 within `timeout` s of send_term; seconds since it."""
+        try:
+            rc = self.proc.wait(max(0.0, self.t_term + timeout
+                                    - time.perf_counter()))
+        except Exception:
+            self.kill()
+            fail(f"20: the daemon did not exit within {timeout} s of "
+                 f"SIGTERM:\n{self.err_tail()}")
+        check(rc == 0, f"20: the daemon exited {rc} after SIGTERM:\n"
+                       f"{self.err_tail()}")
+        return time.perf_counter() - self.t_term
+
+    def wait_log(self, msg: str, timeout: float) -> float:
+        """Seconds from send_term until the daemon logs a message that
+        starts with `msg`; fatal when it exits or times out first."""
+        while True:
+            self._err.flush()
+            with open(self.err_path) as f:
+                if any(f'msg="{msg}' in line for line in f):
+                    return time.perf_counter() - self.t_term
+            exited = self.proc.poll() is not None
+            check(not exited and time.perf_counter() - self.t_term < timeout,
+                  f"20: the daemon logged no {msg!r} within {timeout} s of "
+                  f"SIGTERM (exit {self.proc.poll()}):\n{self.err_tail()}")
+            time.sleep(0.1)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._err.close()
+
+    BOOT_STEPS = ("daemon starting", "restored from checkpoint",
+                  "tenant registry restored",
+                  "link telemetry on", "slo autopilot on", "shm ingest on",
+                  "profiler capturing", "daemon up")
+
+    def logged(self, msg: str, key: str):
+        """The number `key=` of the first log line whose message starts
+        with `msg`, None when there is none."""
+        self._err.flush()
+        with open(self.err_path) as f:
+            for line in f:
+                if f'msg="{msg}' in line:
+                    got = re.search(rf"\b{key}=([0-9.]+)", line)
+                    return float(got.group(1)) if got else None
+        return None
+
+    def boot_steps(self) -> dict:
+        """Seconds from the spawn to each boot step the daemon logged
+        (its log lines' wall-clock stamps)."""
+        import datetime
+
+        self._err.flush()
+        out = {}
+        with open(self.err_path) as f:
+            for line in f:
+                m = re.match(r'time=(\S+) level=\w+ msg="([^"]*)', line)
+                if not m:
+                    continue
+                step = next((s for s in self.BOOT_STEPS
+                             if m.group(2).startswith(s)), None)
+                if step and step not in out:
+                    t = datetime.datetime.fromisoformat(m.group(1))
+                    out[step] = round(t.timestamp() - self.t_wall0, 3)
+                if step == "daemon up":
+                    break
+        return out
+
+    def launches(self) -> dict:
+        """The kernel launches the daemon logged at its shutdown."""
+        self._err.flush()
+        with open(self.err_path) as f:
+            got = [l for l in f if 'msg="kernel launches' in l]
+        check(got, "20: the daemon logged no kernel launches")
+        return {k: int(v) for k, v in re.findall(
+            r"(\w+)=(\d+)", got[-1].split('msg="kernel launches', 1)[1])}
+
+
+def dmn_scrape(port: int) -> dict:
+    """One scrape of the child's /metrics: {(name, labels): value}."""
+    import urllib.request
+
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=120).read().decode()
+    out = {}
+    for line in body.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, _, val = line.rpartition(" ")
+        name, _, labels = key.partition("{")
+        out[(name, labels.rstrip("}"))] = float(val)
+    return out
+
+
+def dmn_books(sc: dict, links, fed: dict) -> dict:
+    """The books of the fed links from one scrape: per link the leaf
+    end's tx_packets (frames shaped on the leaf -> spine row) == the
+    frames fed into its wire, and the node totals over every active row
+    (only the fed links carry traffic): fed == delivered + netem loss +
+    TBF queue + delay-ring drops."""
+    def node(k):
+        return sc[(f"kubedtn_node_{k}_total", "")]
+
+    tx = {}
+    for (leaf, uid), wid in links.items():
+        key = ("interface_tx_packets",
+               f'interface="uid{uid}",namespace="default",pod="{leaf}"')
+        check(key in sc, f"20: no interface series for {leaf} uid{uid} in "
+                         f"the scrape")
+        tx[wid] = sc[key]
+    total = sum(fed.values())
+    b = {"fed": total, "tx_packets": node("tx_packets"),
+         "delivered": node("rx_packets"), "dropped_loss": node("dropped_loss"),
+         "dropped_queue": node("dropped_queue"),
+         "dropped_ring": node("dropped_ring"),
+         "links_off": sum(1 for w in fed if tx[w] != fed[w])}
+    b["closed"] = (b["links_off"] == 0 and b["tx_packets"] == total
+                   and b["delivered"] + b["dropped_loss"]
+                   + b["dropped_queue"] + b["dropped_ring"] == total)
+    b["per_link"] = tx
+    return b
+
+
+def dmn_wait_books(port: int, links, fed: dict, what: str) -> tuple:
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + DMN_WAIT_S
+    while True:
+        sc = dmn_scrape(port)
+        b = dmn_books(sc, links, fed)
+        if b["closed"] or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    off = [(w, b["per_link"][w], n) for w, n in fed.items()
+           if b["per_link"][w] != n][:8]
+    check(b["closed"], f"20: {what}: the books do not close: "
+                       f"{ {k: v for k, v in b.items() if k != 'per_link'} }"
+                       f"; (wire, tx, fed) {off}; "
+                       f"{ {k: v for k, v in sc.items() if 'shm' in k[0]} }")
+    return b, sc, time.perf_counter() - t0
+
+
+def dmn_rows(sc: dict) -> tuple:
+    """(realized rows, the interface series' label set): the scrape caps
+    per-interface series and counts the rest as truncated."""
+    labels = {k[1] for k in sc if k[0] == "interface_tx_packets"}
+    return (len(labels) + int(sc[("kubedtn_interface_series_truncated", "")]),
+            labels)
+
+
+def dmn_checkpoint(dev, D: str, n_spine: int, n_leaf: int, capacity: int,
+                   n_links: int) -> dict:
+    """20(a): the Clos through the control plane with a tenancy registry
+    (entry.build_daemon), saved cold into D; the fed links are leaf ends
+    among the first 10,000 realized ends in the scrape's sorted (pod,
+    uid) order, whose series it exports."""
+    import os
+
+    from kubedtn_tpu_torch import checkpoint, entry
+
+    ck = {}
+    t0 = time.perf_counter()
+    built = entry.build_daemon(dev, n_spine, n_leaf, capacity=capacity,
+                               tenancy=True)
+    ck["n_rows"] = built["engine"].num_active
+    ck["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save(D, built["store"], built["engine"])
+    ck["save_cold_s"] = time.perf_counter() - t0
+    ck["ckpt_bytes"] = sum(os.path.getsize(os.path.join(D, f))
+                           for f in os.listdir(D))
+    with open(os.path.join(D, "manifest.json"), "rb") as f:
+        ck["manifest0"] = f.read()
+    ck["crs"] = {t.name: t for t in built["crs"]}
+    ck["tenants0"] = sorted(t.name for t in built["tenancy"].list())
+    ends = sorted(k for k in built["engine"]._rows
+                  if k[0].startswith("default/leaf"))[:10_000]
+    step = max(1, len(ends) // n_links)
+    ck["fed_ends"] = ends[::step][:n_links]
+    check(len(ck["fed_ends"]) == n_links,
+          f"20: {len(ck['fed_ends'])} fed links")
+    del built
+    _free_card(dev)
+    return ck
+
+
+def dmn_wire(client, fed_ends, crs) -> dict:
+    """AddGRPCWireLocal on both ends of the fed links: the leaf ends one
+    at a time, since their wire ids come from the registry's counter in
+    call order (1001, 1002, ...); then the spine ends, whose ids nothing
+    addresses, from 8 threads at once. {(leaf pod, uid): wire id}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubedtn_tpu_torch.wire import proto as pb
+
+    for leaf_key, uid in fed_ends:
+        client.AddGRPCWireLocal(pb.WireDef(
+            local_pod_name=leaf_key.split("/")[1], kube_ns="default",
+            link_uid=uid, intf_name_in_pod="eth1"), timeout=30)
+    spine_of = {l.uid: l.peer_pod for t in crs.values()
+                if t.name.startswith("leaf") for l in t.spec.links}
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda e: client.AddGRPCWireLocal(pb.WireDef(
+            local_pod_name=spine_of[e[1]], kube_ns="default",
+            link_uid=e[1], intf_name_in_pod="eth1"), timeout=30),
+            fed_ends))
+    return {(k.split("/")[1], u): 1001 + i
+            for i, (k, u) in enumerate(fed_ends)}
+
+
+def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
+                     capacity: int = 1 << 18, n_links: int = DMN_LINKS,
+                     n_producers: int = DMN_PRODUCERS,
+                     shm_frames: int = DMN_SHM_FRAMES,
+                     child_device: str | None = None) -> dict:
+    """Phase 20: the daemon process at full width, driven only through
+    what an operator has — the child process, its CLI, gRPC, /metrics
+    and files. `child_device` None lets the daemon take its default,
+    the card."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import yaml
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+
+    n_spine = n_spine or entry.N_SPINE
+    n_leaf = n_leaf or entry.N_LEAF
+    m = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kdt-p20-")
+    D, S = os.path.join(tmp, "ckpt"), os.path.join(tmp, "shm")
+    T, P = os.path.join(tmp, "trace.json"), os.path.join(tmp, "profile")
+    children = []
+    try:
+        # (a) the checkpoint: the Clos through the control plane, saved
+        ck = dmn_checkpoint(dev, D, n_spine, n_leaf, capacity, n_links)
+        m.update({k: ck[k] for k in ("build_s", "save_cold_s",
+                                     "ckpt_bytes")})
+        n_rows, crs, fed_ends = ck["n_rows"], ck["crs"], ck["fed_ends"]
+        tenants0, manifest0 = ck["tenants0"], ck["manifest0"]
+        log(f"20(a) the Clos through the control plane ({n_rows} rows in "
+            f"{capacity}, tenants {tenants0}) in {m['build_s']:.1f} s; "
+            f"checkpoint.save {m['save_cold_s']:.3f} s, {m['ckpt_bytes']} "
+            f"bytes ({card})")
+
+        # (b) the boot
+        args = ["--port", "0", "--metrics-port", "0", "--checkpoint-dir", D,
+                "--shm-dir", S, "--trace-out", T, "--profile", P,
+                "--telemetry-window", "0.5"]
+        if child_device is not None:
+            args += ["--device", child_device]
+        apps0 = _card_apps(dev)
+        child = DaemonChild(args, os.path.join(tmp, "daemon1.err"), root)
+        children.append(child)
+        m["boot_cold_s"] = child.wait_ready(DMN_BOOT_S)
+        m["boot_cold_steps"] = child.boot_steps()
+        m["load_cold_s"] = child.logged("restored from checkpoint", "load_s")
+        gport, mport = child.ports
+        addr = f"127.0.0.1:{gport}"
+        m["on_card"] = _child_on_card(child.proc.pid, dev, apps0)
+        client = DaemonClient(addr)
+        h = client.Health(pb.HealthRequest(), timeout=30)
+        check(h.ok and h.serving, f"20(b): Health {h}")
+        sc = dmn_scrape(mport)
+        rows, labels0 = dmn_rows(sc)
+        check(rows == n_rows, f"20(b): /metrics realizes {rows} rows, the "
+                              f"checkpoint {n_rows}")
+        ten = {k[1] for k in sc if k[0] == "kubedtn_tenant_links"}
+        check(ten == {f'tenant="{t}"' for t in tenants0},
+              f"20(b): /metrics tenants {ten}, the checkpoint {tenants0}")
+        check(sc[("kubedtn_tenant_links", 'tenant="default"')] == n_rows,
+              "20(b): the default tenant's rows")
+        log(f"20(b) tpudtn-torch daemon from the checkpoint, no --device: "
+            f"ready in {m['boot_cold_s']:.1f} s (s after the spawn: "
+            f"{m['boot_cold_steps']}; checkpoint.load {m['load_cold_s']} s)"
+            f"; {m['on_card']}; Health serving, "
+            f"/metrics {rows} rows, tenants {tenants0} ({card})")
+
+        # (c) wires, the feed, the books
+        t0 = time.perf_counter()
+        links = dmn_wire(client, fed_ends, crs)
+        m["wires_s"] = time.perf_counter() - t0
+        wids = list(links.values())
+        shm_w, bulk_w = wids[:n_producers], wids[n_producers:]
+        env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        feeder = subprocess.Popen(
+            [sys.executable, "-c", DMN_FEEDER, root, addr,
+             ",".join(map(str, bulk_w)), str(DMN_FEED_S), str(DMN_ROUND_S),
+             str(DMN_MAX_FRAMES), str(DMN_SEED)], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        producers = [subprocess.Popen(
+            [sys.executable, "-m", "kubedtn_tpu_torch.shm.producer",
+             os.path.join(S, f"p{k}.ring"), str(w), str(shm_frames),
+             "--frame-size", str(DMN_SHM_BYTES), "--namespace", "default",
+             "--pace-s", str(DMN_FEED_S * 256 / shm_frames)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for k, w in enumerate(shm_w)]
+        try:
+            f_out, f_err = feeder.communicate(timeout=DMN_WAIT_S)
+            p_out = [p.communicate(timeout=DMN_WAIT_S) for p in producers]
+        finally:
+            for p in [feeder, *producers]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        m["feed_s"] = time.perf_counter() - t0
+        check(feeder.returncode == 0, f"20(c): the feeder failed: "
+                                      f"{f_err[-2000:]}")
+        check(all(p.returncode == 0 and o[0].splitlines()[-1]
+                  == f"done pushed={shm_frames}"
+                  for p, o in zip(producers, p_out)),
+              f"20(c): a producer failed: {[o[1][-300:] for o in p_out]}")
+        fr = json.loads(f_out.splitlines()[-1])
+        fed = {int(w): n for w, n in fr["fed"].items()}
+        fed.update({w: shm_frames for w in shm_w})
+        m["fed"] = sum(fed.values())
+        m["fed_bulk"], m["fed_shm"] = sum(fr["fed"].values()), \
+            n_producers * shm_frames
+        # the operator verbs, each a tpudtn-torch process, started as the
+        # feed ends: the books are read from the scrape while they run
+        spec_path = os.path.join(tmp, "whatif.yaml")
+        u0, u1 = fed_ends[0][1], fed_ends[1][1]
+        with open(spec_path, "w") as f:
+            yaml.safe_dump([
+                {"name": "degrade", "perturbations": [
+                    {"kind": "degrade", "uid": u0,
+                     "properties": {"latency": "50ms"}}]},
+                {"name": "fail", "perturbations": [
+                    {"kind": "fail", "uid": u1}]},
+                {"name": "spine0-blackholed", "perturbations": [
+                    {"kind": "blackhole", "node": "spine0"}]},
+                {"name": "load-x1.5", "perturbations": [
+                    {"kind": "scale", "factor": 1.5}]}], f)
+        plan_leaf = crs[f"leaf{n_leaf - 1}"]
+        n_plan = min(DMN_PLAN_LINKS, len(plan_leaf.spec.links))
+        new_props = LinkProperties(latency=DMN_PLAN_LATENCY, rate="10Gbit")
+        plan_topo = dataclasses.replace(plan_leaf, spec=dataclasses.replace(
+            plan_leaf.spec, links=[l.with_properties(new_props)
+                                   for l in plan_leaf.spec.links[:n_plan]]
+            + plan_leaf.spec.links[n_plan:]))
+        plan_path = os.path.join(tmp, "plan.yaml")
+        with open(plan_path, "w") as f:
+            yaml.safe_dump(plan_topo.to_manifest(), f, sort_keys=False)
+        d = ["--daemon", addr]
+        together = {
+            "top": ["top", "--json", *d], "slo": ["slo", "--json", *d],
+            "pauses": ["pauses", "--json", "--events", "20", *d],
+            "tenant list": ["tenant", "list", *d],
+            "tenant stats": ["tenant", "stats", "default", *d],
+            "autopilot status": ["autopilot", "status", "--json", *d],
+            "fleet status": ["fleet", "status", *d],
+            "migrate --status": ["migrate", "--status", *d],
+            "trace latest": ["trace", "latest", "--json", *d],
+            "whatif": ["whatif", "--json", "--ticks",
+                       str(DMN_WHATIF_TICKS), "--spec", spec_path, *d],
+            "plan": ["plan", plan_path, "--json", *d]}
+        verbs = {}
+
+        def launch(cmds: dict) -> tuple:
+            return time.perf_counter(), {k: subprocess.Popen(
+                [sys.executable, "-m", "kubedtn_tpu_torch.cli", *a],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for k, a in cmds.items()}
+
+        def collect(started: tuple) -> None:
+            t0, procs = started
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=DMN_WAIT_S)
+                check(p.returncode == 0, f"20(c): tpudtn-torch {k} exited "
+                      f"{p.returncode}: {err[-1500:]}")
+                verbs[k] = {"s": time.perf_counter() - t0,
+                            "out": json.loads(out.splitlines()[-1])}
+
+        running = launch(together)
+        books, sc, m["drain_s"] = dmn_wait_books(mport, links, fed,
+                                                 "20(c) the feed")
+        log(f"20(c) {len(wids)} + {len(wids)} wires by AddGRPCWireLocal in "
+            f"{m['wires_s']:.1f} s; fed {m['feed_s']:.1f} s: "
+            f"{m['fed_bulk']} frames over InjectBulk from a client process "
+            f"({fr['rounds']} rounds, {len(bulk_w)} wires, 1-"
+            f"{DMN_MAX_FRAMES} frames of 64-256 B) and {m['fed_shm']} from "
+            f"{n_producers} ShmSender processes; drained {m['drain_s']:.1f} "
+            f"s after; books closed: fed {books['fed']} == delivered "
+            f"{books['delivered']:.0f} + loss {books['dropped_loss']:.0f} + "
+            f"queue {books['dropped_queue']:.0f} + ring "
+            f"{books['dropped_ring']:.0f}, every link's tx == its feed "
+            f"({card})")
+
+        collect(running)
+        plan = verbs["plan"]["out"]["plans"][0]
+        check(plan["ok"] and plan["verified"], f"20(c): plan {plan}")
+        n_changed = sum(r["changes"] for r in plan["rounds"])
+        check(n_changed == n_plan,
+              f"20(c): the plan changes {n_changed} links")
+        collect(launch({"apply --plan": ["apply", "--plan",
+                                         str(plan["plan_id"]), *d]}))
+        check(verbs["apply --plan"]["out"]["ok"],
+              f"20(c): apply --plan {verbs['apply --plan']['out']}")
+        ap = verbs["autopilot status"]["out"]
+        check(ap["running"] and not ap["enabled"],
+              f"20(c): the autopilot is not attached and disabled: {ap}")
+        check([t["name"] for t in verbs["tenant list"]["out"]["tenants"]]
+              == tenants0, "20(c): tenant list")
+        check(verbs["tenant stats"]["out"]["links"] == n_rows,
+              "20(c): tenant stats")
+        check(verbs["top"]["out"]["windows_closed"] > 0,
+              "20(c): top: no telemetry window closed")
+        check(verbs["trace latest"]["out"]["events"], "20(c): no trace")
+        ranked = verbs["whatif"]["out"]["ranked"]
+        check(sorted(r["name"] for r in ranked) == sorted(
+            ["baseline", "degrade", "fail", "spine0-blackholed",
+             "load-x1.5"]), f"20(c): whatif ranked {ranked}")
+        fleet = verbs["fleet status"]["out"]["planes"]
+        check(len(fleet) == 1 and fleet[0]["state"] == "healthy",
+              f"20(c): fleet status {fleet}")
+        m["verbs_s"] = {k: v["s"] for k, v in verbs.items()}
+        log(f"20(c) tpudtn-torch verbs against the daemon, rc 0 and JSON "
+            f"each, wall s (the first {len(together)} run together while "
+            f"the feed drained, then apply --plan): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in m["verbs_s"].items())
+            + f"; plan {plan['plan_id']} verified ({n_changed} links, gate "
+            f"{plan['gate_s']:.2f} s), applied in "
+            f"{verbs['apply --plan']['out']['stage_s']:.2f} s ({card})")
+
+        # (d) SIGTERM with frames pending: the fed links' leaf ends take
+        # DMN_HOLD_LATENCY by UpdateLinks first, so the burst is in the
+        # delay line (or still queued) when the plane stops. Nothing was
+        # fed since the books closed: (e) holds each link's counter to
+        # its value then, plus its burst frame.
+        books1 = books
+        hold = LinkProperties(latency=DMN_HOLD_LATENCY, rate="10Gbit")
+        fed_uids = {}
+        for leaf_key, uid in fed_ends:
+            fed_uids.setdefault(leaf_key.split("/")[1], set()).add(uid)
+        for pod, uids in fed_uids.items():
+            check(client.UpdateLinks(pb.LinksBatchQuery(
+                local_pod=pb.Pod(name=pod, kube_ns="default"),
+                links=[pb.link_to_proto(l.with_properties(hold))
+                       for l in crs[pod].spec.links if l.uid in uids]),
+                timeout=60).response, f"20(d): UpdateLinks on {pod}")
+        burst = client.InjectBulk(iter([pb.PacketBatch(packets=[
+            pb.Packet(remot_intf_id=w, frame=w.to_bytes(4, "big")
+                      + bytes(60)) for w in wids])]), timeout=60)
+        check(burst.response, "20(d): the burst was refused")
+        client.close()
+        child.send_term()
+        # D is whole once the daemon logs its save: read the counts, then
+        # boot the restart while the daemon writes its profile and exits
+        m["saved_s"] = child.wait_log("checkpoint written", DMN_TERM_S)
+        with open(os.path.join(D, "manifest.json"), "rb") as f:
+            check(f.read() != manifest0, "20(d): no new generation in D")
+        # the frame counts from the npz files alone: the restart's
+        # loaders verify them against the manifest (a parse of ~72 MB)
+        for key, fname in (("pending_at_stop", "pending_frames.npz"),
+                           ("ingress_at_stop", "wire_ingress.npz")):
+            fpath = os.path.join(D, fname)
+            m[key] = 0
+            if os.path.exists(fpath):
+                with np.load(fpath) as z:
+                    m[key] = int(z["uids"].size)
+        check(m["pending_at_stop"] + m["ingress_at_stop"] > 0,
+              f"20(d): no frame pending or queued at the stop, with the "
+              f"fed links at {DMN_HOLD_LATENCY}")
+        # (e) the restart from D, without --profile and with a trace file
+        # of its own (the first daemon still appends its last spans to T)
+        args2 = list(args)
+        i = args2.index("--profile")
+        del args2[i:i + 2]
+        args2[args2.index("--trace-out") + 1] = os.path.join(tmp,
+                                                             "trace2.json")
+        child2 = DaemonChild(args2, os.path.join(tmp, "daemon2.err"), root)
+        children.append(child2)
+        m["term_s"] = child.wait_exit(DMN_TERM_S)
+        launches1 = child.launches()
+        m["profile_start_s"] = child.logged("profiler capturing",
+                                            "start_s")
+        m["profile_write_s"] = child.logged("profile written", "s")
+        with open(T) as f:
+            text = f.read().rstrip().rstrip(",")
+        spans = json.loads(text + ("" if text.endswith("]") else "\n]"))
+        names = {s["name"] for s in spans}
+        check({"checkpoint-load", "checkpoint-save"} <= names
+              and any(n.startswith("pause:") for n in names),
+              f"20(d): the trace holds {sorted(names)}")
+        m["save_s"] = max(s["dur"] for s in spans
+                          if s["name"] == "checkpoint-save") / 1e6
+        profs = [f for f in os.listdir(P) if f.endswith(".pt.trace.json")]
+        check(profs, f"20(d): no profiler trace in {os.listdir(P)}")
+        m["profile_bytes"] = sum(os.path.getsize(os.path.join(P, f))
+                                 for f in profs)
+        m["spans"] = len(spans)
+        log(f"20(d) SIGTERM after a burst of {len(wids)} frames on links "
+            f"held at {DMN_HOLD_LATENCY} by UpdateLinks: exit 0 in "
+            f"{m['term_s']:.1f} s (checkpoint-save {m['save_s']:.3f} s, "
+            f"logged {m['saved_s']:.1f} s after the SIGTERM, when the "
+            f"restart was spawned; the profile written in "
+            f"{m['profile_write_s']} s); a new "
+            f"generation with {m['pending_at_stop']} frames pending "
+            f"and {m['ingress_at_stop']} queued; the trace {len(spans)} "
+            f"spans ({', '.join(sorted(names))}); the profile "
+            f"{m['profile_bytes']} bytes, its start {m['profile_start_s']} "
+            f"s at the boot; the daemon's kernel launches {launches1} "
+            f"({card})")
+
+        # (e) the restart, spawned above
+        m["boot_warm_s"] = child2.wait_ready(DMN_BOOT_S)
+        m["boot_warm_steps"] = child2.boot_steps()
+        m["load_warm_s"] = child2.logged("restored from checkpoint",
+                                         "load_s")
+        mport2 = child2.ports[1]
+        fed2 = {w: n + 1 for w, n in fed.items()}
+        books2, sc2, m["drain2_s"] = dmn_wait_books(
+            mport2, links, fed2, "20(e) after the restart")
+        rows2, labels2 = dmn_rows(sc2)
+        check(rows2 == n_rows and labels2 == labels0,
+              f"20(e): {rows2} rows after the restart, {n_rows} before")
+        off = [w for w in wids
+               if books2["per_link"][w] != books1["per_link"][w] + 1]
+        check(not off, f"20(e): {len(off)} links' counters do not continue "
+                       f"from the stop")
+        for k in ("kubedtn_dataplane_undeliverable_total",
+                  "kubedtn_dataplane_bulk_unresolved_total",
+                  "kubedtn_dataplane_tick_errors_total"):
+            check(sc2.get((k, ""), 0.0) == 0.0, f"20(e): {k} != 0")
+        m["term2_s"] = child2.term(DMN_TERM_S)
+        launches2 = child2.launches()
+        check(child_device == "cpu" or launches1["shape_step_rows"] > 0,
+              "20: K1 never launched in the daemon")
+        m["launches"] = {"first": launches1, "restart": launches2}
+        log(f"20(e) the restart from D: ready in {m['boot_warm_s']:.1f} s "
+            f"(s after the spawn: {m['boot_warm_steps']}; checkpoint.load "
+            f"{m['load_warm_s']} s), "
+            f"{rows2} rows as before, every fed link's counters continued "
+            f"by its burst frame, the {m['pending_at_stop']} pending and "
+            f"{m['ingress_at_stop']} queued frames delivered with the books "
+            f"closed (fed {books2['fed']} == delivered "
+            f"{books2['delivered']:.0f} + drops "
+            f"{books2['dropped_loss'] + books2['dropped_queue'] + books2['dropped_ring']:.0f}"
+            f"), in {m['drain2_s']:.1f} s; exit 0 in {m['term2_s']:.1f} s; "
+            f"its kernel launches {launches2} ({card})")
+    except BaseException:
+        for c in children:
+            log(f"20: daemon (exit {c.proc.poll()}) stderr tail:\n"
+                + "\n".join(l for l in c.err_tail(200_000).splitlines()
+                             if 'msg="rpc' not in l)[-6000:])
+        raise
+    finally:
+        for c in children:
+            c.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"20: the daemon's own kernel launches (another process, not in "
+        f"the kernels line): first run {launches1}, restart {launches2} "
+        f"({card})")
+    return m
+
+
+def run_daemon_rate(dev, card, n_spine=None, n_leaf=None,
+                    capacity: int = 1 << 18, n_links: int = DMN_LINKS,
+                    child_device: str | None = None) -> dict:
+    """`--daemon-rate` (not in the default run): the daemon process's
+    shaping rate under a saturating feed, booted from one Clos checkpoint
+    three ways: as phase 20 boots it (--profile, telemetry on, so the
+    SLO evaluator and the autopilot run), without --profile, and without
+    --profile with --no-telemetry. Per boot, on phase 20's fed links: the
+    InjectBulk feeder's rounds back to back for DMN_RATE_FEED_S (1-4
+    frames of 64-256 B a wire a round), then the books closed from the
+    scrape; frames fed, the feeder's frames/s, and frames/s delivered
+    from the feed's start to the books closing (scrapes every 0.5 s);
+    from the scrapes before the feed and at the close, the plane's ticks,
+    frames a tick, and its tick-stage seconds over that window (their
+    sum against the window's wall seconds: how busy the plane thread
+    was). Each child is killed, so none saves over the checkpoint."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+
+    n_spine = n_spine or entry.N_SPINE
+    n_leaf = n_leaf or entry.N_LEAF
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kdt-rate-")
+    D, P = os.path.join(tmp, "ckpt"), os.path.join(tmp, "profile")
+    out = {}
+    child = None
+    try:
+        ck = dmn_checkpoint(dev, D, n_spine, n_leaf, capacity, n_links)
+        base = ["--port", "0", "--metrics-port", "0", "--checkpoint-dir", D]
+        if child_device is not None:
+            base += ["--device", child_device]
+        boots = {"as phase 20": ["--profile", P, "--telemetry-window", "0.5"],
+                 "no --profile": ["--telemetry-window", "0.5"],
+                 "no --profile, --no-telemetry": ["--no-telemetry"]}
+        env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+        for name, extra in boots.items():
+            child = DaemonChild(base + extra,
+                                os.path.join(tmp, f"rate{len(out)}.err"), root)
+            boot_s = child.wait_ready(DMN_BOOT_S)
+            gport, mport = child.ports
+            client = DaemonClient(f"127.0.0.1:{gport}")
+            links = dmn_wire(client, ck["fed_ends"], ck["crs"])
+            client.close()
+            sc0 = dmn_scrape(mport)
+            t0 = time.perf_counter()
+            feeder = subprocess.run(
+                [sys.executable, "-c", DMN_FEEDER, root,
+                 f"127.0.0.1:{gport}", ",".join(map(str, links.values())),
+                 str(DMN_RATE_FEED_S), "0", str(DMN_MAX_FRAMES),
+                 str(DMN_SEED)], cwd=root, env=env, capture_output=True,
+                text=True, timeout=DMN_WAIT_S)
+            check(feeder.returncode == 0, f"daemon rate: the feeder failed: "
+                                          f"{feeder.stderr[-2000:]}")
+            fr = json.loads(feeder.stdout.splitlines()[-1])
+            fed = {int(w): n for w, n in fr["fed"].items()}
+            books, sc1, drain_s = dmn_wait_books(mport, links, fed,
+                                                 f"daemon rate, {name}")
+            total_s = time.perf_counter() - t0
+            ticks = (sc1[("kubedtn_dataplane_ticks_total", "")]
+                     - sc0[("kubedtn_dataplane_ticks_total", "")])
+            stages = {k[1].split('"')[1]: v - sc0[k] for k, v in sc1.items()
+                      if k[0] == "kubedtn_dataplane_stage_seconds_total"}
+            in_ticks = sum(stages.values())
+            out[name] = {"boot_s": boot_s, "fed": books["fed"],
+                         "rounds": fr["rounds"], "feeder_s": fr["s"],
+                         "feeder_fps": books["fed"] / fr["s"],
+                         "drain_s": drain_s, "total_s": total_s,
+                         "delivered_fps": books["fed"] / total_s,
+                         "ticks": ticks, "stage_s": stages,
+                         "tick_share": in_ticks / total_s}
+            child.kill()
+            child = None
+            log(f"daemon rate, {name}: {books['fed']} frames fed in "
+                f"{fr['s']:.2f} s ({fr['rounds']} rounds, "
+                f"{out[name]['feeder_fps']:.0f} frames/s offered), books "
+                f"closed {drain_s:.2f} s after: "
+                f"{out[name]['delivered_fps']:.0f} frames/s delivered; "
+                f"{ticks:.0f} ticks, {books['fed'] / max(ticks, 1):.0f} "
+                f"frames and {in_ticks / max(ticks, 1) * 1e3:.1f} ms a tick, "
+                f"the plane in ticks {out[name]['tick_share']:.3f} of the "
+                f"window, stage s "
+                f"{ {k: round(v, 3) for k, v in stages.items()} }; boot "
+                f"{boot_s:.1f} s ({card})")
+    except BaseException:
+        if child is not None:
+            log(f"daemon rate: daemon stderr tail:\n{child.err_tail()}")
+        raise
+    finally:
+        if child is not None:
+            child.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _free_card(dev) -> None:
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def _card_apps(dev):
+    """(nvidia-smi's compute processes as [pid, used memory] rows, the
+    card's free bytes); (None, None) off the card."""
+    import subprocess
+
+    if dev.type != "cuda":
+        return None, None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout
+    rows = [[x.strip() for x in l.split(",")] for l in out.splitlines()
+            if l.strip()]
+    return rows, torch.cuda.mem_get_info(dev)[0]
+
+
+def _child_on_card(pid: int, dev, before) -> str:
+    """Where the child holds memory on the card: its pid among
+    nvidia-smi's compute processes, or, where a container's pid
+    namespace shows other pids, one compute process more than before
+    the child started and the card's free memory down by its share."""
+    if dev.type != "cuda":
+        return "the child on the CPU (--device cpu)"
+    rows0, free0 = before
+    rows, free = _card_apps(dev)
+    mine = [r for r in rows if r[0] == str(pid)]
+    if mine:
+        return f"the child's pid {pid} holds {mine[0][1]} on the card"
+    drop = free0 - free
+    check(len(rows) == len(rows0) + 1 and drop >= 256 << 20,
+          f"20(b): the child (pid {pid}) holds no memory on the card: "
+          f"compute processes {rows0} before, {rows} after, free memory "
+          f"down {drop} bytes")
+    return (f"nvidia-smi lists {len(rows)} compute processes, one more "
+            f"than before the child ({rows}; pids of another namespace), "
+            f"the card's free memory down {drop / 2**20:.0f} MiB")
+
+
+ALL_PHASES = tuple(range(1, 21))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
 NEEDS_MAIN_PATH = {3, 4, 10, 11, 14}
 LIVE_TICK_PHASES = {6, 7, 8}   # one run of run_live_tick
 
 
-def parse_phases(argv) -> set:
+def parse_phases(argv) -> tuple[set, bool]:
     """The phases a call runs: every phase without arguments, else those
     of `--phases LIST` (e.g. `--phases 1-4,19`; ranges and single
     numbers, comma-separated), closed under what they need: phase 1
     always, phases 2 and 3 for any phase in NEEDS_MAIN_PATH, and 6, 7
-    and 8 together."""
+    and 8 together; and whether `--daemon-rate` asks for
+    run_daemon_rate after them (never in the default run)."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--phases", default="",
                     help="phases to run, e.g. 1-4,19 (default: all)")
-    spec = ap.parse_args(argv).phases
+    ap.add_argument("--daemon-rate", action="store_true",
+                    help="then measure the daemon process's shaping rate "
+                         "with and without --profile and telemetry")
+    args = ap.parse_args(argv)
+    spec = args.phases
     if not spec:
-        return set(ALL_PHASES)
+        return set(ALL_PHASES), args.daemon_rate
     want = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -6294,11 +7188,11 @@ def parse_phases(argv) -> set:
         want |= {2, 3}
     if want & LIVE_TICK_PHASES:
         want |= LIVE_TICK_PHASES
-    return want
+    return want, args.daemon_rate
 
 
 def main(argv=None) -> int:
-    want = parse_phases(sys.argv[1:] if argv is None else argv)
+    want, daemon_rate = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -6340,6 +7234,8 @@ def main(argv=None) -> int:
 
     def clock(name, t0):
         phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s, script "
+            f"{time.perf_counter() - t_script:.1f} s so far")
 
     if 2 in want:
         t0 = time.perf_counter()
@@ -6482,6 +7378,14 @@ def main(argv=None) -> int:
               "K1 or K4 never launched on the fleet path")
         detail["fleet"] = fl_m
         clock("19", t0)
+    if 20 in want:
+        t0 = time.perf_counter()
+        detail["daemon"] = run_daemon_phase(dev, card)
+        clock("20", t0)
+    if daemon_rate:
+        t0 = time.perf_counter()
+        detail["daemon_rate"] = run_daemon_rate(dev, card)
+        clock("daemon-rate", t0)
     if plane_m is not None and ckpt_m is not None:
         release = plane_m["plane"]["stage_depth1"]["share"]["release"]
         log(f"12(b) depth-1 release share {release} with kdt_ext "

@@ -30,8 +30,6 @@ Pass `device="cpu"` to run the plain tensor versions on the host.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 # Group/version identity kept parity-compatible with the reference CRD
@@ -41,10 +39,13 @@ VERSION = "v1"
 GROUP_VERSION = f"{GROUP}/{VERSION}"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """`None` -> the CUDA card; raises when CUDA is unavailable (no
     silent fallback to the CPU). Anything else passes through
-    torch.device."""
+    torch.device. (torch is imported here, not with the package: the
+    CLI's client verbs and the shm producer never touch it.)"""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

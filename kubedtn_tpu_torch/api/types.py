@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import re
-from dataclasses import dataclass, field, asdict
+from dataclasses import dataclass, field
 from typing import Any, Iterable
 
 from kubedtn_tpu_torch.api.parsers import (
@@ -105,18 +105,29 @@ class LinkProperties:
     def from_dict(cls, d: dict[str, Any] | None) -> "LinkProperties":
         if not d:
             return cls()
-        known = {f for f in cls.__dataclass_fields__}
-        unknown = set(d) - known
-        if unknown:
-            raise ValueError(f"unknown LinkProperties fields: {sorted(unknown)}")
-        return cls(**{k: d[k] for k in d})
+        try:
+            # a topology's links share a handful of property sets, and
+            # the instances are frozen: one per distinct set
+            return _props_from_items(cls, tuple(d.items()))
+        except TypeError:  # an unhashable value: built as given
+            return _props_from_items.__wrapped__(cls, tuple(d.items()))
 
     def to_dict(self) -> dict[str, Any]:
         out = {}
-        for k, v in asdict(self).items():
+        for k in self.__dataclass_fields__:
+            v = getattr(self, k)
             if v not in ("", 0):
                 out[k] = v
         return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _props_from_items(cls, items: tuple) -> "LinkProperties":
+    d = dict(items)
+    unknown = set(d) - set(cls.__dataclass_fields__)
+    if unknown:
+        raise ValueError(f"unknown LinkProperties fields: {sorted(unknown)}")
+    return cls(**d)
 
 
 @functools.lru_cache(maxsize=65536)
@@ -188,7 +199,11 @@ class Link:
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Link":
-        return cls(
+        # the instance dict filled in field order, as with_properties
+        # does: the frozen __init__ sets each field through
+        # object.__setattr__, and a restore builds 200,000 links
+        new = object.__new__(cls)
+        new.__dict__.update(
             local_intf=d["local_intf"],
             peer_intf=d.get("peer_intf", ""),
             peer_pod=d["peer_pod"],
@@ -199,6 +214,7 @@ class Link:
             peer_mac=d.get("peer_mac", ""),
             properties=LinkProperties.from_dict(d.get("properties")),
         )
+        return new
 
     def to_dict(self) -> dict[str, Any]:
         out: dict[str, Any] = {

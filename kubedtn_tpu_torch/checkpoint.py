@@ -43,11 +43,11 @@ the JAX package's tenancy section (quotas, QoS, block entitlements,
 namespace bindings, admitted meters) and appends the blocks' unused rows
 to the saved free list, reverse-sorted; `load_tenancy` rebuilds the
 registry from it, re-carving each block from the restored free list. A
-load without tenancy keeps those rows in the global pool. Not ported:
-the trace spans
-around save/load (the port has no tracing module yet) and
-`load_or_rebuild`'s mesh re-sharding (the port's plane splits the whole
-state into shards per dispatch).
+load without tenancy keeps those rows in the global pool. `save`,
+`save_live` and `load` run in JAX's `checkpoint-save`,
+`checkpoint-save-live` and `checkpoint-load` spans (utils/tracing). Not
+ported: `load_or_rebuild`'s mesh re-sharding (the port's plane splits
+the whole state into shards per dispatch).
 
 Two additions, each readable by the JAX loaders unchanged: the plane
 section carries the wheel's `origin_s` next to `last_shaped_s` (a JAX
@@ -358,16 +358,19 @@ def save(path: str, store: TopologyStore, engine: SimEngine,
             "stop() the data plane before checkpointing its pending "
             "frames, or use save_live() for a barrier-consistent "
             "autosave")
-    pauses = getattr(dataplane, "pauses", None)
-    if pauses is not None:
-        # stopped plane, but the pause still lands in the ledger so a
-        # restart-heavy fleet's checkpoint cost stays attributable
-        with pauses.pause("checkpoint_save", path=path,
-                          rows=int(engine._state.capacity)):
+    from kubedtn_tpu_torch.utils import tracing
+
+    with tracing.span("checkpoint-save", path=path):
+        pauses = getattr(dataplane, "pauses", None)
+        if pauses is not None:
+            # stopped plane, but the pause still lands in the ledger so
+            # a restart-heavy fleet's checkpoint cost stays attributable
+            with pauses.pause("checkpoint_save", path=path,
+                              rows=int(engine._state.capacity)):
+                cap = _capture(store, engine, sim, dataplane)
+        else:
             cap = _capture(store, engine, sim, dataplane)
-    else:
-        cap = _capture(store, engine, sim, dataplane)
-    _write_captured(path, cap)
+        _write_captured(path, cap)
 
 
 def save_live(path: str, store: TopologyStore, engine: SimEngine,
@@ -378,11 +381,14 @@ def save_live(path: str, store: TopologyStore, engine: SimEngine,
     runner pauses one barrier, cause `checkpoint_save`, rows = the
     engine's full column height), then the staging, fsync and atomic
     swap run OFF the tick path so disk I/O never blocks a tick."""
-    cap = dataplane.stage_update_round(
-        lambda: _capture(store, engine, None, dataplane),
-        cause="checkpoint_save", path=path,
-        rows=int(engine._state.capacity))
-    _write_captured(path, cap)
+    from kubedtn_tpu_torch.utils import tracing
+
+    with tracing.span("checkpoint-save-live", path=path):
+        cap = dataplane.stage_update_round(
+            lambda: _capture(store, engine, None, dataplane),
+            cause="checkpoint_save", path=path,
+            rows=int(engine._state.capacity))
+        _write_captured(path, cap)
 
 
 def _capture(store: TopologyStore, engine: SimEngine,
@@ -560,13 +566,16 @@ def load(path: str, device=None) -> tuple[TopologyStore, SimEngine]:
     raises `CheckpointError`/`CheckpointCorruptError` (typed — see
     `load_or_rebuild` for the reconstruction fallback) when neither
     generation is usable."""
-    return _load_traced(path, resolve_device(device))
+    from kubedtn_tpu_torch.utils import tracing
+
+    with tracing.span("checkpoint-load", path=_path_of(path)):
+        gen = path if isinstance(path, Generation) else Generation(path)
+        return _load_traced(gen, resolve_device(device))
 
 
-def _load_traced(path: str, dev: torch.device
+def _load_traced(gen: "Generation", dev: torch.device
                  ) -> tuple[TopologyStore, SimEngine]:
-    path = os.path.abspath(path)
-    dirpath, manifest = _resolve_dir(path)
+    dirpath, manifest = gen.dirpath, gen.manifest
 
     try:
         store = restore_store(manifest["store"])
@@ -633,7 +642,8 @@ def load_or_rebuild(path: str, store: TopologyStore | None = None,
             raise
         get_logger("checkpoint").warning(
             "checkpoint unusable; rebuilding from store %s",
-            fields(path=path, error=f"{type(err).__name__}: {err}"))
+            fields(path=_path_of(path),
+                   error=f"{type(err).__name__}: {err}"))
         return store, rebuild_engine(store, capacity=capacity,
                                      node_ip=node_ip,
                                      device=device), "rebuild"
@@ -683,10 +693,14 @@ class Generation:
     manifest (same-generation resolution as `load`). A caller that
     reads several files of one checkpoint resolves it once — the fleet
     supervisor's evacuation slices every tenant of a dead plane out of
-    one Generation; the module-level readers open one per call. Raises
+    one Generation. The module-level loaders take a checkpoint directory
+    (and open a Generation per call) or a Generation the caller holds:
+    a daemon's restore opens one and hands it to every loader, so a
+    full-width manifest of ~72 MB is parsed once. Raises
     CheckpointMissingError when there is no checkpoint at `path`."""
 
     def __init__(self, path: str) -> None:
+        self.path = path
         self.dirpath, self.manifest = _resolve_dir(os.path.abspath(path))
 
     def has(self, fname: str) -> bool:
@@ -741,7 +755,15 @@ class Generation:
                     f"{e}") from e
 
 
-def _generation(path: str) -> Generation | None:
+def _path_of(path) -> str:
+    return path.path if isinstance(path, Generation) else path
+
+
+def _generation(path) -> Generation | None:
+    """`path` itself when it is a Generation, else the generation at
+    `path`; None when there is no checkpoint there (damage raises)."""
+    if isinstance(path, Generation):
+        return path
     try:
         return Generation(path)
     except CheckpointMissingError:
@@ -808,11 +830,11 @@ def consume_pending(path: str) -> None:
     crash before the next graceful checkpoint cannot re-deliver the same
     frames twice."""
     try:
-        dirpath, _manifest = _resolve_dir(os.path.abspath(path))
+        gen = path if isinstance(path, Generation) else Generation(path)
     except CheckpointError:
         return  # nothing restorable: nothing to consume
     for fname in ("pending_frames.npz", "wire_ingress.npz"):
-        p = os.path.join(dirpath, fname)
+        p = os.path.join(gen.dirpath, fname)
         if os.path.exists(p):
             os.remove(p)
 
@@ -825,11 +847,10 @@ def load_tenancy(path: str, engine: SimEngine):
     layout is unchanged; the ENTITLEMENT, not the position, is the
     contract). None when the checkpoint (or its tenancy section) does
     not exist; a malformed section raises CheckpointCorruptError."""
-    try:
-        _dirpath, manifest = _resolve_dir(os.path.abspath(path))
-    except CheckpointMissingError:
+    gen = _generation(path)
+    if gen is None:
         return None
-    section = manifest.get("tenancy")
+    section = gen.manifest.get("tenancy")
     if section is None:
         return None
     from kubedtn_tpu_torch.tenancy import TenantRegistry
@@ -848,7 +869,7 @@ def load_tenancy(path: str, engine: SimEngine):
             won.admitted_bytes = int(t.get("admitted_bytes", 0))
     except (KeyError, TypeError, ValueError, AttributeError) as e:
         raise CheckpointCorruptError(
-            f"malformed tenancy section in {path}: {e}") from e
+            f"malformed tenancy section in {gen.path}: {e}") from e
     return registry
 
 
@@ -857,15 +878,14 @@ def load_wires(path: str, daemon) -> int:
     Idempotent per (pod, uid) — `get_or_create` keeps whatever a faster
     client already registered. Returns wires (re)registered; 0 when no
     checkpoint or no wires section exists."""
-    try:
-        _dirpath, manifest = _resolve_dir(os.path.abspath(path))
-    except CheckpointMissingError:
+    gen = _generation(path)
+    if gen is None:
         return 0
     from kubedtn_tpu_torch.wire.server import Wire
 
     n = 0
     for pod_key, uid, peer_ip, peer_intf_id, ifname in \
-            manifest.get("wires", ()):
+            gen.manifest.get("wires", ()):
         def build(wire_id: int, _pk=pod_key, _uid=uid, _peer=peer_ip,
                   _pid=peer_intf_id, _if=ifname):
             return Wire(wire_id=wire_id, uid=int(_uid), pod_key=_pk,
@@ -912,11 +932,8 @@ def plane_meta(path: str) -> dict:
     """The checkpoint's `plane` manifest section ({} when absent):
     `last_shaped_s` is the saved plane's shaping epoch on its clock,
     `origin_s` (written by this package only) its wheel's origin."""
-    try:
-        _dirpath, manifest = _resolve_dir(os.path.abspath(path))
-    except CheckpointMissingError:
-        return {}
-    return dict(manifest.get("plane") or {})
+    gen = _generation(path)
+    return {} if gen is None else dict(gen.manifest.get("plane") or {})
 
 
 class Autosaver:

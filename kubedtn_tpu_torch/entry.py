@@ -25,9 +25,10 @@ directory; `build_plane` wires both into the plane, and
 `restore_daemon` restores a checkpoint's registry. `build_daemon(...,
 slo=True)` adds the SLO evaluator and the autopilot (disabled unless
 `autopilot=True` or "dry-run") with their sidecars, on a plane with
-telemetry. The JAX CLI's daemon always attaches a registry, and with
-telemetry on the evaluator and the autopilot; here the defaults stay
-without them until the port has that CLI. `build_federation` registers
+telemetry. The daemon process (`tpudtn-torch daemon`, cli.cmd_daemon)
+always attaches a registry, and with telemetry on the evaluator and the
+autopilot; these builders leave each off unless asked, for the tests and
+chip_smoke.py's phases that build planes in process. `build_federation` registers
 several such daemons' planes with one federation controller, as the JAX
 CLI's daemon registers its own, so MigrateTenant / MigrationStatus move
 tenants between them (kubedtn_tpu_torch.federation). `build_fleet` puts
@@ -465,13 +466,19 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
     from kubedtn_tpu_torch.wire.server import Daemon
 
     log = get_logger("checkpoint")
+    try:
+        # every loader below reads this one Generation: the manifest is
+        # parsed once for the whole restore
+        src = checkpoint.Generation(ckpt_dir)
+    except checkpoint.CheckpointError:
+        src = ckpt_dir  # load_or_rebuild reports it
     store, engine, source = checkpoint.load_or_rebuild(
-        ckpt_dir, store=store, capacity=capacity, node_ip=node_ip,
+        src, store=store, capacity=capacity, node_ip=node_ip,
         device=device)
     daemon = Daemon(engine)
     plane = build_plane(daemon, **(plane_kwargs or {}))
     try:
-        registry = checkpoint.load_tenancy(ckpt_dir, engine)
+        registry = checkpoint.load_tenancy(src, engine)
     except checkpoint.CheckpointError:
         if source == "checkpoint":
             raise
@@ -486,25 +493,25 @@ def restore_daemon(ckpt_dir: str, device=None, store=None,
            "plane": plane, "source": source, "tenancy": registry,
            "wires": 0, "ingress": 0, "pending": 0, "counters": False}
     try:
-        out["wires"] = checkpoint.load_wires(ckpt_dir, daemon)
-        out["ingress"] = checkpoint.load_ingress(ckpt_dir, daemon)
-        out["counters"] = checkpoint.restore_plane_counters(ckpt_dir, plane)
+        out["wires"] = checkpoint.load_wires(src, daemon)
+        out["ingress"] = checkpoint.load_ingress(src, daemon)
+        out["counters"] = checkpoint.restore_plane_counters(src, plane)
     except checkpoint.CheckpointError:
         log.exception("wire/counter restore failed; continuing without %s",
                       fields(path=ckpt_dir))
     if now_s is not None and source == "checkpoint":
-        meta = checkpoint.plane_meta(ckpt_dir)
+        meta = checkpoint.plane_meta(src)
         plane.resume_clock(now_s, meta.get("origin_s"),
                            meta.get("last_shaped_s"))
     try:
-        out["pending"] = checkpoint.load_pending(ckpt_dir, plane,
+        out["pending"] = checkpoint.load_pending(src, plane,
                                                  now_s=now_s)
     except checkpoint.CheckpointError:
         # the file stays on disk: a later start can still restore it
         log.exception("pending-frame restore failed; continuing without "
                       "%s", fields(path=ckpt_dir))
     else:
-        checkpoint.consume_pending(ckpt_dir)
+        checkpoint.consume_pending(src)
     if metrics_port is not None:
         out["metrics"] = serve_metrics(daemon, plane, metrics_port)
     return out

@@ -30,9 +30,10 @@ site reports into:
   was clean) and accumulates per-cause histograms on the reference
   bucket ladder (metrics.BUCKETS, ms → seconds edges). This is the
   feed for `kubedtn_tick_latency_seconds{cause}`.
-- **Tracer streaming** is not ported: the JAX package's ledger also
-  opens a `pause:<cause>` span on its process tracer (utils/tracing,
-  which comes with the CLI).
+- **Tracer streaming**: every `pause()` context also opens a
+  `pause:<cause>` span on the process tracer, so `--trace-out`
+  Perfetto dumps show barriers on the tick timeline next to the
+  reconcile/checkpoint spans that caused them.
 - **A/B switch**: `enabled=False` turns every hook into a
   near-zero-cost branch — the `pause_observability` bench phase
   measures the on/off delta on the plane-only probe and holds it
@@ -81,7 +82,7 @@ N_TICK_BINS = len(TICK_EDGES_S) + 1
 class PauseLedger:
     """Thread-safe per-cause pause accounting (see module docstring)."""
 
-    def __init__(self, max_events: int = 2048,
+    def __init__(self, max_events: int = 2048, tracer=None,
                  enabled: bool = True) -> None:
         self.enabled = enabled
         self._lock = threading.Lock()
@@ -98,6 +99,7 @@ class PauseLedger:
         self._tick_count: dict[str, int] = {}
         self._tick_sum: dict[str, float] = {}
         self._t0 = time.monotonic()
+        self._tracer = tracer
 
     # -- recording ------------------------------------------------------
 
@@ -120,7 +122,9 @@ class PauseLedger:
 
     def record(self, cause: str, dur_s: float, **detail) -> None:
         """Record one timed pause (any thread: the pause() exit path,
-        the GC callback, a site that measured its own region)."""
+        the GC callback, a site that measured its own region). Streams
+        a `pause:<cause>` span onto the process tracer so `--trace-out`
+        Perfetto dumps show the barrier on the tick timeline."""
         if not self.enabled:
             return
         dur_s = float(dur_s)
@@ -150,6 +154,11 @@ class PauseLedger:
                 ev.update({k: v for k, v in detail.items()
                            if v is not None})
             self._events.append(ev)
+        tracer = self._tracer
+        if tracer is None:
+            from kubedtn_tpu_torch.utils.tracing import default_tracer
+            tracer = self._tracer = default_tracer()
+        tracer.add_span(f"pause:{cause}", dur_s, **detail)
 
     def note_tick(self, dur_s: float) -> None:
         """Attribute one tick's wall latency (lock-wait included) to

@@ -1120,16 +1120,6 @@ class _HostOuts:
         return [h.numpy() for h in self._host]
 
 
-def _stage_shares(stage_s: dict) -> dict:
-    """Cumulative per-stage seconds → {seconds, share}: share is each
-    stage's fraction of the total accounted time, 0.0 when nothing has
-    been timed yet."""
-    total = sum(stage_s.values())
-    return {"seconds": {k: round(v, 4) for k, v in stage_s.items()},
-            "share": {k: (round(v / total, 3) if total > 0 else 0.0)
-                      for k, v in stage_s.items()}}
-
-
 def _zero_counters(capacity: int) -> EdgeCounters:
     """Cumulative per-edge counters of the live plane, on the HOST:
     float32 numpy arrays (the plane adds to them at completion)."""
@@ -1786,7 +1776,9 @@ class WireDataPlane:
     def stage_breakdown(self) -> dict:
         """Cumulative per-stage tick seconds plus each stage's share of
         the total (see `stage_s`), the pipeline posture beside them."""
-        out = _stage_shares(self.stage_s)
+        from kubedtn_tpu_torch.utils.tracing import stage_shares
+
+        out = stage_shares(self.stage_s)
         out["ticks"] = self.ticks
         out["pipeline"] = {
             "depth": self.pipeline_depth,

@@ -7,8 +7,10 @@ migration between two gRPC daemons under a flapping peer), and the fleet
 supervisor's two: `plane_failover` (a plane killed mid-migration and
 evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
 daemons upgraded one at a time under load). Each takes a `device`, None
-meaning the CUDA card. The rest of the JAX module (the BASELINE ladder,
-the soaks, noisy_neighbor, whatif_sweep, ...) is ported with the CLI.
+meaning the CUDA card. `LADDER` holds these four in the order of the
+JAX module's ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED`
+names the rest of that ladder (the BASELINE rungs, the soaks,
+noisy_neighbor, whatif_sweep, ...), still to be ported.
 """
 
 from __future__ import annotations
@@ -1106,3 +1108,21 @@ def fleet_rolling_upgrade(pairs: int = 1, steady_s: float = 1.5,
             pass
     shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+# The JAX module's ladder (kubedtn_tpu/scenarios.py LADDER), in its
+# order: the ported scenarios, and the names still to be ported.
+LADDER = {
+    "burn_recovery": burn_recovery,
+    "migration_under_flap": migration_under_flap,
+    "plane_failover": plane_failover,
+    "fleet_rolling_upgrade": fleet_rolling_upgrade,
+}
+NOT_PORTED = (
+    "3node", "fat_tree_64", "churn_1k", "routes_10k", "clos_100k",
+    "reconcile_100k", "scale_1m", "chaos_flaps", "live_plane",
+    "live_plane_soak", "reconverge_10k", "chaos_soak", "whatif_sweep",
+    "telemetry_overhead", "slo_overhead", "pause_observability",
+    "sharded_soak", "staged_update_soak", "update_under_flap",
+    "noisy_neighbor", "shm_producer_crash", "shm_soak", "tenant_soak",
+)

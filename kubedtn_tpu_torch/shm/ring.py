@@ -5,7 +5,10 @@ Port of kubedtn_tpu/shm/ring.py over the port's own build of the native
 library (kubedtn_tpu_torch.native): the segment layout is the library's,
 so a ring created by either package is read by the other. `attach`
 refuses a still-empty file with ShmRingError (the JAX package's raises
-mmap's ValueError there, which its ingest scan does not catch).
+mmap's ValueError there, which its ingest scan does not catch), and its
+introspection reads (`pending`, `committed`, ...) read a closed ring as
+empty: the ingest's watcher and the metrics scrape read rings on their
+own threads while the drain retires them.
 
 One ring file per producer process: the producer creates it (`create`)
 and owns the tail/commit side; the daemon attaches (`attach`) and owns
@@ -149,23 +152,34 @@ class ShmRing:
 
     # -- introspection -------------------------------------------------
 
+    def _read(self, fn) -> int:
+        """One introspection read of the segment, 0 once it is closed.
+        Other threads read a ring the drain may retire (close) meanwhile:
+        the local reference pins the map for the read (close() then
+        leaves it to gc), and a closed ring reads as empty instead of
+        handing the native side a NULL segment. The JAX package reads
+        `self._buf` unguarded and faults there (pinned in
+        tests/test_torch_shm.py)."""
+        buf = self._buf
+        return 0 if buf is None else int(fn(buf))
+
     def __len__(self) -> int:
-        return int(self._l.kdt_shm_pending(self._buf))
+        return self.pending()
 
     def pending(self) -> int:
         """Reserved-and-unconsumed entries (committed or not)."""
-        return int(self._l.kdt_shm_pending(self._buf))
+        return self._read(self._l.kdt_shm_pending)
 
     def committed(self) -> int:
         """Committed-and-unconsumed frames — O(pending) commit-word
         walk, for accounting/audits, not the hot path."""
-        return int(self._l.kdt_shm_committed(self._buf))
+        return self._read(self._l.kdt_shm_committed)
 
     def full_failures(self) -> int:
-        return int(self._l.kdt_shm_full_failures(self._buf))
+        return self._read(self._l.kdt_shm_full_failures)
 
     def producer_pid(self) -> int:
-        return int(self._l.kdt_shm_pid(self._buf))
+        return self._read(self._l.kdt_shm_pid)
 
     def producer_dead(self) -> bool:
         """True only when the recorded producer pid provably no longer

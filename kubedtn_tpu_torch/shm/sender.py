@@ -29,7 +29,6 @@ from collections import deque
 
 from kubedtn_tpu_torch.shm.ring import (DEFAULT_SLOT_SIZE, DEFAULT_SLOTS,
                                   ShmRing)
-from kubedtn_tpu_torch.telemetry import _mix64
 
 
 class ShmSender:
@@ -65,6 +64,10 @@ class ShmSender:
     def _tid_for(self, i: int) -> int:
         if self.sample_period <= 0 or i % self.sample_period:
             return 0
+        # here, not at import: telemetry brings torch, which a producer
+        # that samples nothing never needs
+        from kubedtn_tpu_torch.telemetry import _mix64
+
         tid = _mix64(self._seed + i) or 1
         self.minted.append(tid)
         return tid

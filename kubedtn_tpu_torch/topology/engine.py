@@ -94,10 +94,18 @@ def link_key_id(pod_key: str, uid: int) -> int:
     perfectly correlated loss/jitter/reorder draws, possibly across
     tenants — near 2^32 links, past the roadmap's scale ambition; a
     31-bit id expects one around 65k links."""
+    h = _fnv64_prefix(pod_key)
+    for b in int(uid).to_bytes(8, "big", signed=True):
+        h = ((h ^ b) * _FNV64_PRIME) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+@functools.lru_cache(maxsize=65536)
+def _fnv64_prefix(pod_key: str) -> int:
+    """The FNV-1a state after a pod key's bytes: shared by every link
+    end of the pod (a restore keys 200,000 ends of 600 pods)."""
     h = _FNV64_OFFSET
     for b in pod_key.encode():
-        h = ((h ^ b) * _FNV64_PRIME) & 0xFFFFFFFFFFFFFFFF
-    for b in int(uid).to_bytes(8, "big", signed=True):
         h = ((h ^ b) * _FNV64_PRIME) & 0xFFFFFFFFFFFFFFFF
     return h
 

@@ -19,8 +19,8 @@ scatters replaces the reference's 32 concurrent reconcile workers (:336) as
 the scaling mechanism.
 
 Port of kubedtn_tpu/topology/reconciler.py, the twin-gated planned
-branch (kubedtn_tpu_torch.updates) included; the tracing span around
-each pass comes with the port's tracing module.
+branch (kubedtn_tpu_torch.updates) included, with its `reconcile` span
+around each pass (utils/tracing).
 """
 
 from __future__ import annotations
@@ -203,6 +203,13 @@ class Reconciler:
         """One reconcile pass for one Topology, mirroring Reconcile
         (topology_controller.go:61-156)."""
         key = f"{namespace or 'default'}/{name}"
+        from kubedtn_tpu_torch.utils import tracing
+
+        with tracing.span("reconcile", key=key):
+            return self._reconcile_traced(namespace, name, key)
+
+    def _reconcile_traced(self, namespace: str, name: str,
+                          key: str) -> ReconcileResult:
         t_start = time.perf_counter()
         tenancy = getattr(self.engine, "tenancy", None)
         if tenancy is not None:

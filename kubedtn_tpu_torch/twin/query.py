@@ -13,8 +13,8 @@ the compile/run split accumulate in `WhatIfStats` (exported as
 Port of kubedtn_tpu/twin/query.py. A request naming a tenant is served
 from a fork scoped to that tenant's rows (registry.tenant_snapshot) and
 takes that tenant's sweep slot; it is refused as unknown when the daemon
-has no tenancy registry or the registry lacks the name. The tracing
-span around a sweep comes with the port's tracing module.
+has no tenancy registry or the registry lacks the name. A sweep runs in
+a `whatif-sweep` span (utils/tracing).
 """
 
 from __future__ import annotations
@@ -183,6 +183,14 @@ def scenarios_from_request(request, props_from_proto) -> list:
 def serve_whatif(daemon, request):
     """The Local.WhatIf handler body (imported lazily by the daemon so
     the twin engine costs nothing until the first query)."""
+    from kubedtn_tpu_torch.utils import tracing
+
+    with tracing.span("whatif-sweep",
+                      scenarios=len(request.scenarios)):
+        return _serve_whatif_traced(daemon, request)
+
+
+def _serve_whatif_traced(daemon, request):
     from kubedtn_tpu_torch.twin.engine import run_sweep
     from kubedtn_tpu_torch.wire import proto as pb
 

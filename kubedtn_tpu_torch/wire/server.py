@@ -37,7 +37,13 @@ the Tenant* RPCs the tenancy registry (kubedtn_tpu_torch.tenancy) that
 
 `drain_ingress` takes the registry's per-wire admission budget
 (`admit`), and with a shm.ShmIngest attached as `shm` it folds the
-shared-memory rings' committed frames into the same batches and backlog.
+shared-memory rings' committed frames into the same batches and backlog,
+one batch per wire: a ring drained in several spans (a producer's commit
+landing between two dequeues), or a wire fed over gRPC and a ring in one
+tick, is merged into the wire's one batch. The JAX package hands the
+plane a batch per span, so a row can appear twice in one shaping group:
+shaped twice from the same state, counted once (a fault pinned in
+tests/test_torch_shm.py).
 
 `FrameSeg.materialize` slices a segment's frames in one C loop
 (`slice_frames` of native/kdt_ext.c, built by kubedtn_tpu_torch.native)
@@ -167,6 +173,29 @@ class FrameSeg:
 def _entry_frames(item) -> int:
     """Frame count of one ingress-deque entry (segment or single frame)."""
     return len(item) if type(item) is FrameSeg else 1
+
+
+def one_batch_per_wire(batches: list) -> list:
+    """Drain batches (wire, row, lens, parts) with every wire's entries
+    merged into its first, in arrival order: lens concatenated, parts
+    appended. The plane shapes each batch as one row of a group, so a
+    wire must not appear twice."""
+    import numpy as np
+
+    first: dict[int, int] = {}
+    out: list = []
+    for b in batches:
+        i = first.get(b[0].wire_id)
+        if i is None:
+            first[b[0].wire_id] = len(out)
+            out.append(b)
+            continue
+        wire, row, lens, parts = out[i]
+        out[i] = (wire, row,
+                  np.concatenate([np.asarray(lens, np.uint64),
+                                  np.asarray(b[2], np.uint64)]),
+                  [*parts, *b[3]])
+    return out
 
 
 def flatten_frames(parts) -> list[bytes]:
@@ -1724,9 +1753,13 @@ class Daemon:
         if self.shm is not None:
             # shared-memory ingest: committed ring spans join the same
             # batch list (admission at the ring head BEFORE dequeue),
-            # ring residue the same entry-denominated backlog
+            # ring residue the same entry-denominated backlog; a wire's
+            # spans and its gRPC batch merge into one batch
+            n_grpc = len(out)
             backlog += self.shm.drain_into(out, max_per_wire, admit,
                                            self)
+            if len(out) > n_grpc:
+                out = one_batch_per_wire(out)
         self.last_drain_backlog = backlog
         return out
 

@@ -90,6 +90,9 @@ LIVE_PLANE_MODULES = (
     # the fleet supervisor and its placement ledger
     "kubedtn_tpu_torch.federation.placement",
     "kubedtn_tpu_torch.federation.supervisor",
+    # the operator CLI, the tracer and the CRD rendering
+    "kubedtn_tpu_torch.cli", "kubedtn_tpu_torch.utils.tracing",
+    "kubedtn_tpu_torch.api.crd",
 )
 
 # the fleet supervisor's surfaces: (module, attribute path)
@@ -157,3 +160,43 @@ def test_no_jax_import_in_source(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+# what `python -m kubedtn_tpu_torch.cli` loads: the module run as
+# __main__ with these arguments (each exits through argparse or a verb)
+CLI_RUNS = (["--help"], ["daemon", "--help"], ["whatif", "--help"],
+            ["crd"])
+
+
+@pytest.mark.parametrize("argv", CLI_RUNS, ids=" ".join)
+def test_the_cli_loads_no_jax_in_a_fresh_process(argv):
+    """`python -m kubedtn_tpu_torch.cli ARGS` as it runs, in a fresh
+    process: after it, neither jax nor the JAX package is loaded."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['tpudtn-torch', *{argv!r}]\n"
+        "try:\n"
+        "    runpy.run_module('kubedtn_tpu_torch.cli', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'kubedtn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'kubedtn_tpu.')))\n"
+        "print('RC', rc, 'BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "RC 0 BAD []", out.stdout
+
+
+def test_python_m_cli_help():
+    out = subprocess.run([sys.executable, "-m", "kubedtn_tpu_torch.cli",
+                          "--help"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage: tpudtn-torch")
+    for verb in ("daemon", "top", "slo", "whatif", "scenario"):
+        assert verb in out.stdout
+    assert "manager" not in out.stdout and "bench" not in out.stdout

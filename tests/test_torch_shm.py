@@ -557,3 +557,72 @@ def test_scan_skips_a_ring_file_still_being_created(tmp_path):
     assert ingest.stats()["rings"] == 1 and ingest.pending_total() == 3
     sender.close()
     ingest.close()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_a_wire_drained_in_several_spans_counts_once_fault(tmp_path,
+                                                           monkeypatch,
+                                                           pkg):
+    """One drain that takes a wire's frames from its gRPC ingress and in
+    several ring spans (a producer's commit landing between two
+    dequeues; here every dequeue is capped at 3 frames): the JAX plane
+    gets a batch per span, so the wire's row appears five times in one
+    shaping group and its counters keep the last batch only (tx 1 of 12
+    frames); the port merges a wire's batches into one (12). Both
+    deliver every frame, in order (deterministic 1 ms rows)."""
+    Ring, Sender, Ingest, _e = shm_mods(pkg)
+    plane, win, wout = shm_daemon(pkg, [dict(latency="1ms")])
+    sender = Sender(str(tmp_path / "p.ring"), namespace="default")
+    ingest = Ingest(str(tmp_path))
+    ingest.attach_ring(Ring.attach(sender.ring.path))
+    plane.attach_shm(ingest, watcher=False)
+    real = Ring.dequeue
+    monkeypatch.setattr(Ring, "dequeue", lambda self, n, **kw: real(
+        self, min(n, 3), **kw))
+    sender.send(win[0].wire_id, tagged(0, 10))
+    win[0].ingress.extend(tagged(0, 2, first=100))
+    t = 100.0
+    plane.tick(now_s=t)
+    monkeypatch.setattr(Ring, "dequeue", real)
+    for _ in range(10):
+        t += DT_S
+        plane.tick(now_s=t)
+    plane.flush()
+    plane.tick(now_s=t + 10.0)
+    assert plane.tick_errors == 0 and plane.shaped == 12
+    assert list(wout[0].egress) == tagged(0, 2, first=100) + tagged(0, 10)
+    row = plane.daemon.engine.row_of(win[0].pod_key, win[0].uid)
+    tx = float(np.asarray(plane.counters.tx_packets)[row])
+    rx = float(np.asarray(plane.counters.rx_packets)[row])
+    assert (tx, rx) == ((12.0, 12.0) if pkg == "torch" else (1.0, 1.0))
+    sender.close()
+    ingest.close()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_a_closed_ring_reads_as_empty_fault(tmp_path, pkg):
+    """The ingest's watcher and the metrics scrape read rings on their
+    own threads while the drain retires (closes) them: a read after the
+    close hands JAX's native side a NULL segment and the process dies of
+    SIGSEGV (a full-width daemon did, its watcher in `pending()`); the
+    port's ring reads as empty. In a subprocess, so the fault cannot
+    take the test run down."""
+    if pkg == "jax":
+        from _torch_native_guard import ensure_jax_native
+
+        ensure_jax_native()
+    root = "kubedtn_tpu_torch" if pkg == "torch" else "kubedtn_tpu"
+    code = (f"import sys; sys.path.insert(0, {REPO!r})\n"
+            f"from {root}.shm import ShmRing\n"
+            f"r = ShmRing.create({str(tmp_path / 'x.ring')!r}, slots=8)\n"
+            f"r.close()\n"
+            f"print(r.pending(), r.committed(), r.full_failures(), "
+            f"r.producer_dead(), len(r), flush=True)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    if pkg == "torch":
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == ["0", "0", "0", "False", "0"]
+    else:
+        assert out.returncode == -11, (out.returncode, out.stderr[-500:])
