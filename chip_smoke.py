@@ -29,8 +29,9 @@ Phases, each fatal on failure:
   5. the fat-tree entry step against known one-way delays;
   6. the live tick, unsharded: a fresh Clos reshaped into the three
      kernel classes, 4,000 busy rows per class (padded to 4,096), K = 64
-     slots; 8 chained ticks through fused_tick and the same 8 through
-     the per-class ladder, bit for bit equal;
+     slots; 2 chained ticks through fused_tick and the same 2 through
+     the per-class ladder, bit for bit equal (8 until phase 21 joined,
+     PERF.md §4);
   7. the sharded tick on S = 2 and 4 virtual shards of the one card,
      with the launch counts set to 0 just before and read just after:
      bit for bit the unsharded tick; K4 must have launched;
@@ -66,9 +67,10 @@ Phases, each fatal on failure:
      engine's again); (d) ping on a 10 ms link (K1): one-way == 10 ms and
      == the plain step; (b) 3 x 4,096 links re-shaped into the three
      kernel classes by UpdateLinks, wires on both ends, 1-64 tagged
-     frames per ingress wire and tick for 4 ticks of 10 ms (16 until
+     frames per ingress wire and tick for 2 ticks of 10 ms (16 until
      phase 16, then 10; 6 since a whole run with phase 19 took 948.8 s
-     against the script's 898 s bound; 4 since phase 20, PERF.md §4),
+     against the script's 898 s bound; 4 since phase 20, 2 since phase
+     21, PERF.md §4),
      drained:
      depth 1 (telemetry off) == depth 2 (telemetry on), byte for byte
      per wire (digests),
@@ -105,15 +107,16 @@ Phases, each fatal on failure:
      Clos through the control plane (200,000 rows in 2^18, Q = 32) and
      15 scenarios (degrades, failures, a spine and a leaf blackholed by
      name, offered load x 1.5 and x 0.5) swept as 15 x 262,144 replica
-     rows for 50 steps of 1 ms (cut from the WhatIf default of 1,000;
-     200 until that run went over the bound, 100 until phase 20,
-     PERF.md §4),
+     rows for 20 steps of 1 ms (cut from the WhatIf default of 1,000;
+     200 until that run went over the bound, 100 until phase 20, 50
+     until phase 21, PERF.md §4),
      each shaping slot ONE K1 launch over all rows, the uniforms shared:
      per replica and edge the books close; replica 0 == sim.run; the
      first 8 scenarios alone == their lanes; 2 steps through K1 == the
      plain version, bit for bit; K1 at 3,932,160 rows timed against its
      bound; ms per step, replica-steps/s, busy share, peak memory;
-     (b) a 4-lane routed sweep of 50 steps on the Clos with its routes:
+     (b) a 4-lane routed sweep of 20 steps (50 until phase 21) on the
+     Clos with its routes:
      replica 0 == run_routed bit for bit; (c) phase 12's daemon and
      classes, its plane in the real-time runner at depth 2 behind a gRPC
      server: a WhatIf of 4 scenarios x 100 ticks while phase 12's feed
@@ -126,10 +129,12 @@ Phases, each fatal on failure:
  15. checkpoint and restart, K1's launches counted from 0 around the
      phase: phase 12's daemon with its Prometheus exporter and a tenancy
      registry (the "default" tenant owns all 200,000 rows), its classes
-     and wires, at depth 1 on an explicit clock; (a) 3 feed ticks (4
-     until phase 20, PERF.md §4), the next tick's feed queued, save_live
-     (seconds, the checkpoint_save pause, directory bytes, frames
-     pending and ingress captured), then 3 more fed ticks and the drain; (e) 3 scrapes of /metrics over HTTP:
+     and wires, at depth 1 on an explicit clock; (a) 2 feed ticks (4
+     until phase 20, 3 until phase 21, PERF.md §4), the next tick's feed
+     queued, save_live (seconds, the checkpoint_save pause, directory
+     bytes, frames pending and ingress captured), then 2 more fed ticks
+     (3 until phase 21) and the drain; (e) 2 scrapes of /metrics over
+     HTTP (3 until phase 21):
      the interface_* sums and node totals == the plane's counters, the
      10,000-series cap and its truncation gauge, the request histogram
      counting the daemon's UpdateLinks calls; (b) entry.restore_daemon
@@ -156,14 +161,16 @@ Phases, each fatal on failure:
      its block, the ownership masks == a walk of the engine's rows,
      TenantList / TenantStats / Health over the Daemon; (b) each tenant's
      first 4,096 spine links wired on both ends and fed phase 12's feed
-     for 5 ticks (6 until that run went over the bound, PERF.md §4)
+     for 3 ticks (6 until that run went over the bound, 5 until phase
+     21, PERF.md §4)
      and the drain at depth 1: per tenant, the per-wire
      egress bytes, the telemetry and counter rows (by link identity) and
      tenant_counters of the cohabited plane == the tenant's own plane,
      bit for bit, the tenants' counters summing to the plane's; (c) the
      cohabited plane at depth 2 on 2 virtual shards (K4) == (b)'s depth
      1, K4 == plain on a ring step of this plane's mailbox; (d) t0's
-     frame budget cut to 20 % of its fed rate for 4 fed ticks: admitted
+     frame budget cut to 20 % of its fed rate for 2 fed ticks (4 until
+     phase 21): admitted
      + queued == fed, typed frame-budget verdicts, t1 and t2 == alone;
      (e) tenant_snapshot(plane, "t1"): active rows == rows_of(t1); a
      4-lane x 50-step sweep of it (each slot one K1 launch over 4 x 2^18
@@ -194,8 +201,8 @@ Phases, each fatal on failure:
      ticks, t1 and t2 never; (e) a one-topology shape candidate through
      guardrails that reject it, and (f) the same in dry run: the SoA
      columns and the engine's registries unchanged; (c) one
-     Autopilot.poll (seed 0, width 2, 200 steps, the gate cut to 200
-     ticks): ONE sweep, K1 launches == steps x slots, each over (1 +
+     Autopilot.poll (seed 0, width 2, 100 steps, the gate cut to 100
+     ticks; 200 and 200 until phase 21 joined): ONE sweep, K1 launches == steps x slots, each over (1 +
      candidates) x 2^18 rows; the same snapshot, seed and verdict rank
      the same; 2 steps of the grid's rows through K1 == the plain
      version; (d) one gate per touched topology, then the stage: rows
@@ -308,7 +315,8 @@ Phases, each fatal on failure:
      process and the card's free memory down), Health serving, /metrics
      with the 200,000 rows and the checkpoint's tenants; (c) 4,096
      leaf -> spine links wired on both ends by AddGRPCWireLocal, fed for
-     3 s over InjectBulk from a client process (1-4 tagged frames of
+     2 s (3 until phase 21) over InjectBulk from a client process (1-4
+     tagged frames of
      64-256 B a wire every 0.5 s) and by 8 ShmSender processes into S
      (5,000 frames each; cut from a round every 0.1 s and 20,000 frames,
      which the daemon drained too slowly, PERF.md §4 and §7); after the
@@ -320,7 +328,8 @@ Phases, each fatal on failure:
      the books are read) with rc 0 and JSON: top, slo, pauses,
      tenant list / stats, autopilot status (attached, disabled), fleet
      status, migrate --status, trace latest, whatif --daemon (degrade,
-     fail, spine0 blackholed, load x 1.5; 200 ticks), then plan of 64
+     fail, spine0 blackholed, load x 1.5; 100 ticks, 200 until phase
+     21), then plan of 64
      links of one leaf (verified) and apply --plan; (d) the fed links'
      leaf ends set to 2 s of latency by UpdateLinks, one frame on every
      fed wire and SIGTERM at once: exit 0 within 120 s, a new generation
@@ -334,7 +343,46 @@ Phases, each fatal on failure:
      link's counters continued by its one frame, the books closed again
      (every frame pending at the stop delivered once), SIGTERM again.
      The child's own kernel launches (logged at its shutdown) are
-     printed on a line of their own, not in the kernels line.
+     printed on a line of their own, not in the kernels line;
+ 21. the Kubernetes-facing control plane and six BASELINE rungs, K1's
+     launches counted from 0 around each part: (a) the Clos's 600 CRs,
+     unplaced (the CNI has not run), on the port's fake apiserver
+     (tests/_torch_fake_apiserver.py, loaded by path) on 127.0.0.1; one
+     node's TopologyStore, SimEngine on the card (2^18 rows) and Daemon
+     behind a real gRPC server; a K8sBridge over HttpKubeApi (LIST, then
+     its watch); two ControllerManagers, manager-0 and manager-1 (32
+     workers, leader election through KubeLeaseStore over HttpLeaseApi
+     on the same apiserver, probes and metrics on port 0): exactly one
+     leads, healthz 200 and readyz as the JAX semantics say for both;
+     `cni.main` ADD for each of the 600 pods (CNI env and stdin, the
+     daemon's port in the conf): rc 0, the prevResult echoed; 200,000
+     rows realized (the first ADD to the rows on the card) and every
+     CR's status steady in the store (reconcile-to-steady: the first ADD
+     to that), equal per link end, bit for bit in every column, to an
+     engine realized from the same CRs straight through store ->
+     Reconciler (no kernel launched); every CR's status pushed back and
+     read back by a LIST; a ping over a 10 ms link (K1) == 10 ms one
+     way == the plain step; a leaf's links edited by a PUT to the
+     apiserver reach the rows through the watch; the leader stopped: the
+     standby holds the Lease within a lease duration plus a renew
+     interval and reconciles a second leaf's edit; the leaders' /metrics
+     carry the manager's series; `cni.main` DEL for every pod: 0 rows;
+     K1 launched exactly twice on the node's engine (warm_kernels, the
+     ping). Timed: the first ADD to the rows, reconcile-to-steady, the
+     status push, ADD and DEL ms per pod (median), watch-to-rows, the
+     takeover. (b) `python -m
+     kubedtn_tpu_torch.cli manager --leader-elect --probe-port 0
+     --metrics-port 0` as a child process, no --device (the card),
+     spawned as (a) starts its status push (which moves no memory on
+     the card) and checked after its LIST back: its
+     ready line, healthz and readyz 200, /metrics, the child on the card
+     (as 20(b)), SIGINT: exit 0; boot-to-ready. (c) scenarios.LADDER's
+     3node, fat_tree_64, churn_1k, clos_100k, reconcile_100k and scale_1m
+     in this process at their JAX defaults: each rung's own asserts, the
+     JAX keys, tx >= rx, K1 launched once per ping, per slot and step,
+     by warm_kernels and per shaping iteration; K1 over scale_1m's
+     2^21-row state == the plain step bit for bit on the rung's keyed
+     draws for 2 steps, and timed against its bound.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
@@ -390,10 +438,10 @@ DEPART_TOL = dict(rtol=1e-5, atol=1e-2)  # tolerances
 # The live tick (runtime.fused_tick) at the Clos's full width.
 LIVE_ROWS = 4000            # busy rows per class and tick, padded to 4096
 LIVE_SLOTS = 64             # K, runtime's seq_slots default
-LIVE_TICKS = 8
+LIVE_TICKS = 2              # chained ticks (8 until phase 21 joined)
 LIVE_ELAPSED_US = 1000.0    # wall time between two ticks
 LIVE_SHARDS = (2, 4)        # virtual shards of the one card
-LIVE_TIMED_TICKS = 3
+LIVE_TIMED_TICKS = 3        # the median of 3 timed ticks
 LIVE_JAMMED = 40            # TBF busy rows that start with a full queue
 K4_SRC = "kubedtn_tpu_torch/ops/cuda/csrc/exchange.cu"
 K4_REPLACES = "kubedtn_tpu/parallel/exchange.py:70"
@@ -1386,11 +1434,11 @@ def run_routed_phase(el, fresh, dev, card):
 # -- phase 12: the host live plane -------------------------------------------
 
 PLANE_ROWS = 4096           # rows per kernel class (the live tick's width)
-PLANE_TICKS = 4             # explicit-clock ticks that feed frames (16
+PLANE_TICKS = 2             # explicit-clock ticks that feed frames (16
 #                             until phase 16 joined, then 10; 6 since a
 #                             whole run with phase 19 went over the
 #                             script's time bound, 4 since phase 20
-#                             joined, PERF.md §4)
+#                             joined, 2 since phase 21, PERF.md §4)
 PLANE_DT_S = 0.01
 PLANE_MAX_FRAMES = 64       # 1..64 frames per ingress wire and tick
 PLANE_SIZES = (64, 257)     # frame bytes drawn from [64, 257)
@@ -2530,10 +2578,11 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
 # -- phase 14: the what-if twin and planned updates --------------------------
 
 TWIN_SCENARIOS = 15         # MAX_REPLICA_CELLS // 2^18 lanes at full width
-TWIN_STEPS = 50             # cut from twin.query.DEFAULT_TICKS = 1,000
+TWIN_STEPS = 20             # cut from twin.query.DEFAULT_TICKS = 1,000
 #                             (200 until a whole run with phase 19 went
 #                             over the script's time bound, 100 until
-#                             phase 20 joined, PERF.md §4)
+#                             phase 20 joined, 50 until phase 21, PERF.md
+#                             §4)
 TWIN_K = 4
 TWIN_DT_US = 1000.0
 TWIN_SEED = 41
@@ -2541,7 +2590,7 @@ TWIN_CHECK_STEPS = 2        # K1's replica launches vs the plain version
 TWIN_SUBSET = 8             # scenarios of the N = 8 sweep
 TWIN_PROFILED_STEPS = 5
 TWIN_ROUTED_LANES = 4
-TWIN_ROUTED_STEPS = 50
+TWIN_ROUTED_STEPS = 20      # (50 until phase 21 joined)
 WHATIF_TICKS = 100
 WHATIF_FEED_ROUNDS = 4      # phase 12's feed rounds around the WhatIf
 WHATIF_WAIT_S = 300.0       # bound on every wait of 14(c) and 14(d)
@@ -3067,13 +3116,13 @@ def toolchain_lines() -> list:
             out.append(f"{cc}: {e}")
     return out
 
-CKPT_FEED_TICKS = 3         # k: phase 12's feed before the cut (4 until
-#                             phase 20 joined, PERF.md §4)
-CKPT_RESUME_TICKS = 3       # m: the same feed after it, on both daemons
-#                             (4 until phase 20 joined)
+CKPT_FEED_TICKS = 2         # k: phase 12's feed before the cut (4 until
+#                             phase 20 joined, 3 until phase 21, PERF.md §4)
+CKPT_RESUME_TICKS = 2       # m: the same feed after it, on both daemons
+#                             (4 until phase 20 joined, 3 until phase 21)
 SNAP_LANES = 2              # 15(d): scenarios of the snapshot-file sweep
 SNAP_STEPS = 20
-SCRAPES = 3
+SCRAPES = 2                 # (3 until phase 21 joined)
 SERIES_CAP = 10_000         # make_registry's default max_interfaces
 
 
@@ -3453,12 +3502,13 @@ def _checkpoint_phase(m, tmp, built, plane, snap, win, wout, keep,
 TEN_NAMES = ("t0", "t1", "t2")
 TEN_SPINE, TEN_LEAF, TEN_LPP = 100, 166, 2   # 33,200 links a tenant
 TEN_BLOCK = 70_000          # t1's reserved rows (66,400 used)
-TEN_TICKS = 5               # fed ticks of (b)-(d) (6 until a whole run
+TEN_TICKS = 3               # fed ticks of (b)-(d) (6 until a whole run
 #                             with phase 19 went over the script's time
-#                             bound, PERF.md §4); more than
-#                             TEN_NOISY_TICKS: (d) reads its books on the
-#                             tick after the throttled ones
-TEN_NOISY_TICKS = 4         # (d): t0 throttled on these fed ticks
+#                             bound, 5 until phase 21 joined, PERF.md §4);
+#                             more than TEN_NOISY_TICKS: (d) reads its
+#                             books on the tick after the throttled ones
+TEN_NOISY_TICKS = 2         # (d): t0 throttled on these fed ticks (4
+#                             until phase 21 joined)
 TEN_NOISY_SHARE = 0.2       # (d): t0's frame budget over its fed rate
 TEN_SEED = 16
 TEN_SWEEP_STEPS = 50        # (e): the t1-scoped sweep's 4 lanes
@@ -3808,7 +3858,8 @@ def run_tenancy_phase(dev, card, n_spine=None, n_leaf=None,
         f"cross-shard frames; wall {m['c']['wall_ms_per_tick']:.3f} "
         f"ms/tick ({card})")
 
-    # (d) noisy neighbour: t0 at 20 % of its fed rate for 4 fed ticks
+    # (d) noisy neighbour: t0 at 20 % of its fed rate for
+    # TEN_NOISY_TICKS fed ticks
     t0 = reg.get("t0")
     fed_t0 = sum(sum(feeds["t0"][i][3]) for i in range(TEN_NOISY_TICKS))
     rate = TEN_NOISY_SHARE * fed_t0 / (TEN_NOISY_TICKS * PLANE_DT_S)
@@ -3842,7 +3893,7 @@ def run_tenancy_phase(dev, card, n_spine=None, n_leaf=None,
     pd = d["plane"]
     check(pd.shaped + pd.dropped == sum(d["fed"].values()),
           "16(d): t0's frames were not all shaped after the cut")
-    m["d"] = {"t0_fed_4_ticks": fed_t0, "t0_admitted": seen["admitted"],
+    m["d"] = {"t0_fed_throttled_ticks": fed_t0, "t0_admitted": seen["admitted"],
               "t0_queued": seen["queued"], "verdicts": events,
               "budget_frames_per_s": rate}
     log(f"16(d) t0 cut to {TEN_NOISY_SHARE:.0%} of its fed rate "
@@ -4212,8 +4263,9 @@ AP_PAGE_POLLS = 30          # bound on (b)'s polls to the page
 AP_GREEN_POLLS = 40         # bound on (d)'s polls to green
 AP_LOSS = "25"
 AP_SEED = 0
-AP_STEPS = 200
-AP_GATE_TICKS = 200         # the gate's horizon, cut from 400
+AP_STEPS = 100             # the search's steps (200 until phase 21)
+AP_GATE_TICKS = 100         # the gate's horizon, cut from 400 (200 until
+#                             phase 21 joined, PERF.md §4)
 AP_CHECK_STEPS = 2          # (c): K1 vs the plain version
 AP_EVAL_REPS = 3            # (a): timed evaluate() passes
 AP_SIDECAR_S = 4.0          # (g): seconds of the real-time plane
@@ -6322,14 +6374,14 @@ DMN_LINKS = 4096            # fed Clos links, leaf ends among the scrape's
 DMN_PRODUCERS = 8           # shm producer processes, one fed link each
 DMN_SHM_FRAMES = 5_000      # frames per producer
 DMN_SHM_BYTES = 200
-DMN_FEED_S = 3.0            # seconds of feed
+DMN_FEED_S = 2.0            # seconds of feed (3 until phase 21 joined)
 DMN_ROUND_S = 0.5           # the InjectBulk feeder's pace: a round a 0.5 s
 DMN_MAX_FRAMES = 4          # 1..4 frames of 64-256 B per wire and round
 DMN_HOLD_LATENCY = "2s"     # the fed links' leaf ends before 20(d)'s burst:
                             # the burst is in the delay line at the stop
 DMN_PLAN_LINKS = 64
 DMN_PLAN_LATENCY = "8ms"    # from 10 ms, the same (5, 10] ms bucket
-DMN_WHATIF_TICKS = 200
+DMN_WHATIF_TICKS = 100      # (200 until phase 21 joined, PERF.md §4)
 DMN_SEED = 20
 DMN_BOOT_S = 300.0          # bound on boot-to-ready
 DMN_WAIT_S = 180.0          # bound on the feed's drain and every verb
@@ -6380,22 +6432,28 @@ print(json.dumps({"fed": fed, "bytes": nbytes, "rounds": r,
 
 
 class DaemonChild:
-    """`python -m kubedtn_tpu_torch.cli daemon ARGS` as a child process:
-    its ready line parsed, its stderr in a file, SIGTERM and the wait."""
+    """`python -m kubedtn_tpu_torch.cli daemon ARGS` (or another `verb`
+    with its own `ready` line, two ports in it) as a child process: its
+    ready line parsed, its stderr in a file, SIGTERM and the wait.
+    `tag` names the phase in its failures."""
 
     READY = re.compile(r"^kubedtn-tpu daemon: gRPC on :(\d+), metrics on "
                        r":(\d+)/metrics$")
 
-    def __init__(self, args: list, err_path: str, root: str) -> None:
+    def __init__(self, args: list, err_path: str, root: str,
+                 verb: str = "daemon", ready=None, tag: str = "20") -> None:
         import os
         import subprocess
 
+        if ready is not None:
+            self.READY = ready
+        self.tag = tag
         self.err_path = err_path
         self._err = open(err_path, "w")
         self.t0 = time.perf_counter()
         self.t_wall0 = time.time()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "kubedtn_tpu_torch.cli", "daemon",
+            [sys.executable, "-m", "kubedtn_tpu_torch.cli", verb,
              *args], cwd=root, env=dict(os.environ, PYTHONPATH=root,
                                         PYTHONFAULTHANDLER="1"),
             stdout=subprocess.PIPE, stderr=self._err, text=True)
@@ -6416,7 +6474,7 @@ class DaemonChild:
     def wait_ready(self, timeout: float) -> float:
         self._ready.wait(timeout)
         check(self.ports is not None,
-              f"20: the daemon printed no ready line in {timeout} s "
+              f"{self.tag}: the child printed no ready line in {timeout} s "
               f"(rc {self.proc.poll()}): {self.lines[-5:]}\n"
               f"{self.err_tail()}")
         return time.perf_counter() - self.t0
@@ -6431,11 +6489,11 @@ class DaemonChild:
         self.send_term()
         return self.wait_exit(timeout)
 
-    def send_term(self) -> None:
+    def send_term(self, sig=None) -> None:
         import signal
 
         self.t_term = time.perf_counter()
-        self.proc.send_signal(signal.SIGTERM)
+        self.proc.send_signal(signal.SIGTERM if sig is None else sig)
 
     def wait_exit(self, timeout: float) -> float:
         """Exit 0 within `timeout` s of send_term; seconds since it."""
@@ -6444,10 +6502,10 @@ class DaemonChild:
                                     - time.perf_counter()))
         except Exception:
             self.kill()
-            fail(f"20: the daemon did not exit within {timeout} s of "
-                 f"SIGTERM:\n{self.err_tail()}")
-        check(rc == 0, f"20: the daemon exited {rc} after SIGTERM:\n"
-                       f"{self.err_tail()}")
+            fail(f"{self.tag}: the child did not exit within {timeout} s "
+                 f"of its signal:\n{self.err_tail()}")
+        check(rc == 0, f"{self.tag}: the child exited {rc} after its "
+                       f"signal:\n{self.err_tail()}")
         return time.perf_counter() - self.t_term
 
     def wait_log(self, msg: str, timeout: float) -> float:
@@ -7101,6 +7159,627 @@ def run_daemon_rate(dev, card, n_spine=None, n_leaf=None,
     return out
 
 
+# -- phase 21: the Kubernetes-facing control plane and six rungs -----------
+
+MGR_WORKERS = 32            # config/manager/deployment.yaml's --workers
+MGR_LEASE_S = 2.0           # ControllerManager's lease and renew defaults
+MGR_RENEW_S = 0.5
+MGR_NS = "kubedtn-tpu"      # the Lease's namespace
+# a leaf's links re-shaped on the apiserver, before and after the
+# takeover (leaves n_leaf // 3 and 2 * n_leaf // 3)
+MGR_EDITS = (dict(latency="3ms", rate="1Gbit"),
+             dict(latency="4ms", rate="2Gbit"))
+MGR_WATCH_S = 1.0           # the apiserver ends each watch after this
+MGR_EVENTS = 4096           # watch events it retains (every push's echo)
+MGR_WAIT_S = 120.0          # bound on every wait of 21(a) and 21(b)
+MGR_PING_SEED = 21
+MGR_K1 = 2                  # K1 on 21(a)'s engine: warm_kernels, the ping
+LADDER_RUNGS = ("3node", "fat_tree_64", "churn_1k", "clos_100k",
+                "reconcile_100k", "scale_1m")
+# the JAX rungs' result keys (kubedtn_tpu/scenarios.py:36-406); the
+# port's add "device"
+RUNG_KEYS = {
+    "3node": {"scenario", "links", "reachable", "pings", "wall_s"},
+    "fat_tree_64": {"scenario", "nodes", "links", "sim_time_s",
+                    "tx_packets", "rx_packets", "wall_s"},
+    "churn_1k": {"scenario", "nodes", "links", "churn_links_total",
+                 "updates_per_sec", "wall_s"},
+    "clos_100k": {"scenario", "links", "directed_edges", "sim_time_s",
+                  "tx_packets", "rx_packets", "loss_rate",
+                  "packet_events_per_sec", "wall_s"},
+    "reconcile_100k": {"scenario", "topologies", "links", "directed_rows",
+                       "setup_s", "reconcile_s", "churn_s", "teardown_s",
+                       "grpc_update_s", "grpc_update_links", "grpc_ok",
+                       "device_calls", "spot_check_latency_us", "target_s",
+                       "meets_target"},
+    "scale_1m": {"scenario", "links", "directed_rows", "capacity",
+                 "load_s", "updates_per_sec", "shape_pkts_per_sec",
+                 "wall_s"},
+}
+RUNG_CHECK_STEPS = 2        # 21(c): K1 vs the plain version at 2^21 rows
+
+
+def load_fake_apiserver():
+    """The port's fake apiserver, tests/_torch_fake_apiserver.py, loaded
+    by path (it imports neither jax nor the JAX package)."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent / "tests"
+            / "_torch_fake_apiserver.py")
+    spec = importlib.util.spec_from_file_location("_torch_fake_apiserver",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def wait_for(cond, timeout: float, what: str, interval: float = 0.01):
+    """Seconds until cond() holds; fatal after `timeout`."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout,
+              f"{what}: not within {timeout} s")
+        time.sleep(interval)
+    return time.perf_counter() - t0
+
+
+def same_realized(a, b, name: str) -> None:
+    """Engine a's realized columns == engine b's per link end, bit for
+    bit: the same (pod, uid) ends, and each end's row equal in every
+    EdgeState column, src and dst compared as pod names (the two engines
+    may hand out rows and pod ids in another order)."""
+    check(a._rows.keys() == b._rows.keys(),
+          f"{name}: the realized link ends differ "
+          f"({len(a._rows)} vs {len(b._rows)})")
+    keys = sorted(a._rows)
+    sa, sb = a.state, b.state
+    ra = torch.as_tensor([a._rows[k] for k in keys], device=sa.uid.device)
+    rb = torch.as_tensor([b._rows[k] for k in keys], device=sb.uid.device)
+    ids = torch.full((max(a._pod_ids.values(), default=0) + 1,), -1,
+                     dtype=torch.long)
+    for pod, pid in a._pod_ids.items():
+        ids[pid] = b._pod_ids.get(pod, -2)
+    ids = ids.to(sa.uid.device)
+    for f in dataclasses.fields(sa):
+        x = getattr(sa, f.name).index_select(0, ra)
+        y = getattr(sb, f.name).index_select(0, rb)
+        if f.name in ("src", "dst"):
+            x = ids[x.long()].to(y.dtype)
+        same(x, y, f"{name}: column {f.name}")
+    check(int(sa.active.sum()) == int(sb.active.sum()) == len(keys),
+          f"{name}: active rows differ from the realized ends")
+
+
+def cni_call(cni, command: str, pod: str, port: int, prev=None) -> tuple:
+    """One `cni.main` as the kubelet runs the plugin: CNI env, the
+    network conf on stdin (the daemon's port in it). Returns (rc,
+    stdout, ms)."""
+    import contextlib
+    import io
+
+    conf = {"cniVersion": "1.0.0", "name": "k8s-pod-network",
+            "type": "kubedtn", "daemonPort": port}
+    if prev is not None:
+        conf["prevResult"] = prev
+    env = {"CNI_COMMAND": command,
+           "CNI_ARGS": f"IgnoreUnknown=1;K8S_POD_NAMESPACE=default;"
+                       f"K8S_POD_NAME={pod}",
+           "CNI_NETNS": f"/var/run/netns/{pod}", "CNI_CONTAINERID": pod}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cni.main(stdin_text=json.dumps(conf), env=env)
+    return rc, buf.getvalue().strip(), 1e3 * (time.perf_counter() - t0)
+
+
+def http_get(port: int, path: str) -> tuple:
+    """(status, body) of GET http://127.0.0.1:port/path; an HTTP error's
+    status and body too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+MGR_SERIES = ("controller_runtime_reconcile_total",
+              "controller_runtime_reconcile_errors_total",
+              "leader_election_master_status", "controller_synced")
+
+
+def mgr_series(port: int, identity: str) -> dict:
+    """The manager's series on its /metrics, by name (None: absent)."""
+    sc = dmn_scrape(port)
+    return {name: sc.get((name, f'identity="{identity}"'))
+            for name in MGR_SERIES}
+
+
+def run_manager_phase(dev, card, n_spine=None, n_leaf=None, lpp=None,
+                      capacity: int = 1 << 18, verb=None) -> dict:
+    """Phase 21(a): the control plane as a cluster runs it. The Clos's
+    CRs, unplaced, on the fake apiserver; a node's store, engine (on
+    `dev`) and Daemon behind gRPC; a K8sBridge (LIST, then its watch);
+    two ControllerManagers electing a leader through the Lease; the CNI
+    shim's ADD for every pod, status pushed back, ping, spec edits
+    through the watch, a takeover, DEL for every pod. `verb` (a
+    callable returning a ManagerVerb) spawns 21(b)'s child as the status
+    push starts and finishes it after the LIST back: metrics["verb"]."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import GROUP_VERSION, cni, entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.ops import netem
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.ops.edge_state import props_row
+    from kubedtn_tpu_torch.topology import SimEngine, TopologyStore
+    from kubedtn_tpu_torch.topology.reconciler import Reconciler
+    from kubedtn_tpu_torch.topology.engine import ping_inputs
+    from kubedtn_tpu_torch.topology.k8s import (HttpKubeApi, HttpLeaseApi,
+                                                K8sBridge)
+    from kubedtn_tpu_torch.topology.manager import (LEADER_ELECTION_ID,
+                                                    ControllerManager,
+                                                    KubeLeaseStore)
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    n_spine = n_spine or entry.N_SPINE
+    n_leaf = n_leaf or entry.N_LEAF
+    lpp = lpp or entry.LINKS_PER_PAIR
+    n_rows = 2 * n_spine * n_leaf * lpp
+    m = {}
+    tmp = tempfile.mkdtemp(prefix="kdt-p21-")
+    cni.LOG_PATH = os.path.join(tmp, "cni.log")
+    srv = load_fake_apiserver().FakeApiServer(event_window=MGR_EVENTS,
+                                              watch_timeout_s=MGR_WATCH_S)
+    mgrs, bridge, server, pending = [], None, None, None
+    try:
+        host, port = srv.start()
+        url = f"http://{host}:{port}"
+        crs = entry.clos_crs(n_spine, n_leaf, lpp)
+        t0 = time.perf_counter()
+        for t in crs:   # unplaced: the CNI has not run
+            manifest = t.to_manifest()
+            manifest.pop("status", None)
+            srv.put_object(manifest)
+        m["apiserver_load_s"] = time.perf_counter() - t0
+        store = TopologyStore()
+        engine = SimEngine(store, capacity=capacity, node_ip="10.0.0.1",
+                           device=dev)
+        engine.warm_kernels()
+        daemon = Daemon(engine)
+        server, gport = make_server(daemon, port=0, host="127.0.0.1",
+                                    log_rpcs=False)
+        server.start()
+        api = HttpKubeApi(url, timeout_s=MGR_WAIT_S)
+        leases = HttpLeaseApi(url)
+        bridge = K8sBridge(store, api)
+        t0 = time.perf_counter()
+        n = bridge.sync_once()
+        m["list_s"] = time.perf_counter() - t0
+        check(n == len(crs) == len(store.list()),
+              f"21(a): the bridge's LIST brought {n} of {len(crs)} CRs")
+        bridge.start()
+        for i in range(2):
+            mgrs.append(ControllerManager(
+                store, engine, identity=f"manager-{i}",
+                workers=MGR_WORKERS, leader_election=True,
+                lease_store=KubeLeaseStore(MGR_NS, HttpLeaseApi(url)),
+                lease_duration_s=MGR_LEASE_S, renew_interval_s=MGR_RENEW_S,
+                probe_port=0, probe_host="127.0.0.1", metrics_port=0))
+        t0 = time.perf_counter()
+        for g in mgrs:
+            g.start()
+
+        def leaders():
+            return [g for g in mgrs if g.status.is_leader]
+
+        def holder():
+            return leases.read_namespaced_lease(
+                LEADER_ELECTION_ID, MGR_NS)["spec"]["holderIdentity"]
+
+        wait_for(lambda: leaders(), MGR_WAIT_S, "21(a) a leader")
+        end = time.perf_counter() + 2 * MGR_RENEW_S
+        while time.perf_counter() < end:
+            check(len(leaders()) == 1, f"21(a): leaders "
+                  f"{[g.identity for g in leaders()]}")
+            time.sleep(0.01)
+        leader = leaders()[0]
+        standby = next(g for g in mgrs if g is not leader)
+        check(holder() == leader.identity,
+              f"21(a): the Lease names {holder()}, {leader.identity} leads")
+        wait_for(lambda: leader.status.synced, MGR_WAIT_S,
+                 "21(a) the leader's initial resync")
+        m["leader_synced_s"] = time.perf_counter() - t0
+        for g in mgrs:
+            code, body = http_get(g.probe_port, "/healthz")
+            check(code == 200, f"21(a): {g.identity} healthz {code}")
+            code, body = http_get(g.probe_port, "/readyz")
+            checks = json.loads(body)["checks"]
+            check(code == 200 and checks["leader"] == (g is leader)
+                  and checks["standby"] == (g is standby)
+                  and checks["synced"] == (g is leader),
+                  f"21(a): {g.identity} readyz {code} {checks}")
+        log(f"21(a) {len(crs)} CRs on the apiserver "
+            f"({m['apiserver_load_s']:.3f} s to load), the bridge's LIST "
+            f"{m['list_s']:.3f} s; "
+            f"{leader.identity} leads, {standby.identity} stands by "
+            f"(healthz / readyz 200 both), the leader's first resync "
+            f"{m['leader_synced_s']:.3f} s after the start ({card})")
+
+        # the CNI shim's ADD for every pod: the CNI realizes the links
+        add_ms = []
+        t_first = time.perf_counter()
+        for i, t in enumerate(crs):
+            prev = {"cniVersion": "1.0.0", "ips": [
+                {"address": f"10.244.{i // 250}.{i % 250 + 1}/16"}]}
+            rc, out, ms = cni_call(cni, "ADD", t.name, gport, prev)
+            check(rc == 0 and json.loads(out) == prev,
+                  f"21(a): CNI ADD {t.name}: rc {rc}, stdout {out[:200]}")
+            add_ms.append(ms)
+        engine.flush()
+        _sync(dev)
+        m["cni_add_to_rows_s"] = time.perf_counter() - t_first
+        m["add_ms_median"] = statistics.median(add_ms)
+        check(engine.num_active == n_rows
+              and int(engine.state.active.sum()) == n_rows,
+              f"21(a): {engine.num_active} rows realized, want {n_rows}")
+        wait_for(lambda: all(t.status.links == t.spec.links
+                             and t.status.src_ip == "10.0.0.1"
+                             for t in store.list()), MGR_WAIT_S,
+                 "21(a) every CR's status steady")
+        m["reconcile_to_steady_s"] = time.perf_counter() - t_first
+        check(leader.status.errors == 0 and standby.status.reconciles == 0,
+              f"21(a): leader errors {leader.status.errors}, standby "
+              f"reconciles {standby.status.reconciles}")
+        # the reference: the same CRs straight through store -> Reconciler
+        # into an engine of its own; it launches no kernel
+        k1_before = shaping.LAUNCHES["shape_step_rows"]
+        t0 = time.perf_counter()
+        ref_store = TopologyStore()
+        ref = SimEngine(ref_store, capacity=capacity, node_ip="10.0.0.1",
+                        device=dev)
+        for t in crs:
+            ref_store.create(t)
+        Reconciler(ref_store, ref).drain()
+        ref.flush()
+        _sync(dev)
+        m["reference_s"] = time.perf_counter() - t0
+        check(shaping.LAUNCHES["shape_step_rows"] == k1_before,
+              "21(a): the reference build launched K1")
+        same_realized(engine, ref, "21(a) the manager + bridge + CNI engine "
+                                   "vs store -> Reconciler")
+        del ref, ref_store
+        log(f"21(a) CNI ADD of {len(crs)} pods (rc 0, prevResult echoed): "
+            f"{n_rows} rows realized {m['cni_add_to_rows_s']:.3f} s after "
+            f"the first ADD, every CR's status steady (reconcile-to-steady) "
+            f"{m['reconcile_to_steady_s']:.3f} s after it, ADD "
+            f"{m['add_ms_median']:.3f} ms a pod (median); the realized "
+            f"columns == an engine realized straight through store -> "
+            f"Reconciler ({m['reference_s']:.3f} s), per link end ({card})")
+
+        # every CR's status pushed back, read back by a LIST
+        if verb is not None:
+            pending = verb()
+        t0 = time.perf_counter()
+        pushed = [bridge.push_status(t) for t in store.list()]
+        m["status_push_s"] = time.perf_counter() - t0
+        check(all(pushed), "21(a): a status push found no object")
+        t0 = time.perf_counter()
+        items, _rv = api.list_topologies()
+        m["list_back_s"] = time.perf_counter() - t0
+        # the last Topology write's version (the LIST's own counts the
+        # Lease's writes too): the bridge has seen every echo from it on
+        rv = max(int(i["metadata"]["resourceVersion"]) for i in items)
+        m["echoes_s"] = wait_for(lambda: int(bridge.cluster_rv) >= rv,
+                                 MGR_WAIT_S, "21(a) the pushes' echoes")
+        by = {(i["metadata"]["namespace"], i["metadata"]["name"]): i
+              for i in items}
+        for t in store.list():
+            got = by[(t.namespace, t.name)]
+            check(got["status"] == t.to_manifest()["status"]
+                  and got["status"]["net_ns"] == f"/var/run/netns/{t.name}"
+                  and GROUP_VERSION in got["metadata"].get("finalizers", []),
+                  f"21(a): {t.key}'s status or finalizers not pushed")
+        log(f"21(a) {len(pushed)} statuses pushed (and finalizers) in "
+            f"{m['status_push_s']:.3f} s, a LIST reads them back in "
+            f"{m['list_back_s']:.3f} s, the echoes drained "
+            f"{m['echoes_s']:.3f} s after it "
+            f"({bridge.stats['echoes_skipped']} skipped) ({card})")
+        if pending is not None:
+            m["verb"], pending = pending.finish(), None
+
+        # ping over a 10 ms link: K1
+        spine = f"spine{n_spine - 1}"
+        link = store.get("default", spine).spec.links[0]
+        ra = engine.row_of(f"default/{spine}", link.uid)
+        rb = engine.row_of(f"default/{link.peer_pod}", link.uid)
+        plain_in = ping_inputs(engine.state, (ra, rb), 84.0, link.uid,
+                               MGR_PING_SEED)
+        _ps, plain = netem.shape_step(clone_state(engine.state), *plain_in)
+        r = engine.ping(spine, link.peer_pod, link.uid, seed=MGR_PING_SEED)
+        check(r["reachable"] and r["fwd_us"] == r["rev_us"] == 10_000.0
+              and r["fwd_us"] == float(plain.depart_us[ra])
+              and r["rev_us"] == float(plain.depart_us[rb]),
+              f"21(a): ping {r} (10 ms link; plain step "
+              f"{float(plain.depart_us[ra])})")
+        m["ping"] = r
+
+        def edit(pod: str, props: dict) -> float:
+            """A spec change of every link of `pod`, PUT to the apiserver;
+            seconds until the engine's rows hold it."""
+            path = (f"/apis/{GROUP_VERSION}/namespaces/default/"
+                    f"topologies/{pod}")
+            body = copy.deepcopy(api._request("GET", path))
+            body.pop("status", None)
+            for link in body["spec"]["links"]:
+                link["properties"] = dict(props)
+            want = LinkProperties(**props)
+            t0 = time.perf_counter()
+            api._request("PUT", path, body)
+
+            def landed():
+                t = store.get("default", pod)
+                return (t.spec.links[0].properties == want
+                        and t.status.links == t.spec.links)
+
+            wait_for(landed, MGR_WAIT_S, f"21(a) {pod}'s edit reconciled")
+            engine.flush()
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            rows = [engine.row_of(f"default/{pod}", l["uid"])
+                    for l in body["spec"]["links"]]
+            got = engine.state.props[rows]
+            check(bool((got == torch.as_tensor(
+                props_row(want.to_numeric()), device=got.device)).all()),
+                f"21(a): {pod}'s rows do not hold its edit")
+            return dt
+
+        edits = [(f"leaf{n_leaf // 3}", MGR_EDITS[0]),
+                 (f"leaf{2 * n_leaf // 3}", MGR_EDITS[1])]
+        m["watch_to_rows_s"] = edit(*edits[0])
+        series = mgr_series(leader.metrics_port, leader.identity)
+        check(series["leader_election_master_status"] == 1.0
+              and series["controller_synced"] == 1.0
+              and (series["controller_runtime_reconcile_total"] or 0) > 0
+              and series["controller_runtime_reconcile_errors_total"]
+              == 0.0, f"21(a): the leader's /metrics {series}")
+        m["leader_series"] = series
+        log(f"21(a) ping {spine}->{link.peer_pod}: one-way "
+            f"{r['fwd_us']} / {r['rev_us']} us == the 10 ms link, == the "
+            f"plain step (K1); {edits[0][0]}'s "
+            f"{len(store.get('default', edits[0][0]).spec.links)} links "
+            f"edited on the apiserver reach the rows in "
+            f"{m['watch_to_rows_s']:.3f} s; /metrics {series} ({card})")
+
+        # the takeover
+        t0 = time.perf_counter()
+        leader.stop()
+        wait_for(lambda: standby.status.is_leader, MGR_WAIT_S,
+                 "21(a) the standby's takeover")
+        m["takeover_s"] = time.perf_counter() - t0
+        check(m["takeover_s"] <= MGR_LEASE_S + MGR_RENEW_S
+              and holder() == standby.identity,
+              f"21(a): takeover {m['takeover_s']:.3f} s (bound "
+              f"{MGR_LEASE_S + MGR_RENEW_S} s), the Lease names {holder()}")
+        m["new_leader_synced_s"] = wait_for(
+            lambda: standby.status.synced, MGR_WAIT_S,
+            "21(a) the new leader's resync")
+        m["watch_to_rows_after_s"] = edit(*edits[1])
+        series = mgr_series(standby.metrics_port, standby.identity)
+        check(series["leader_election_master_status"] == 1.0
+              and series["controller_synced"] == 1.0,
+              f"21(a): the new leader's /metrics {series}")
+        log(f"21(a) {leader.identity} stopped: {standby.identity} holds the "
+            f"Lease {m['takeover_s']:.3f} s later (bound "
+            f"{MGR_LEASE_S + MGR_RENEW_S} s), resynced in "
+            f"{m['new_leader_synced_s']:.3f} s, reconciles "
+            f"{edits[1][0]}'s edit in {m['watch_to_rows_after_s']:.3f} "
+            f"s ({card})")
+
+        # the CNI shim's DEL for every pod
+        del_ms = []
+        t0 = time.perf_counter()
+        for t in crs:
+            rc, out, ms = cni_call(cni, "DEL", t.name, gport)
+            check(rc == 0 and out == "",
+                  f"21(a): CNI DEL {t.name}: rc {rc}, stdout {out[:200]}")
+            del_ms.append(ms)
+        engine.flush()
+        _sync(dev)
+        m["teardown_s"] = time.perf_counter() - t0
+        m["del_ms_median"] = statistics.median(del_ms)
+        check(engine.num_active == 0 and int(engine.state.active.sum()) == 0,
+              f"21(a): {engine.num_active} rows left after DEL")
+        m["bridge"] = dict(bridge.stats)
+        m["reconciles"] = {g.identity: g.status.reconciles for g in mgrs}
+        log(f"21(a) CNI DEL of {len(crs)} pods: 0 rows left after "
+            f"{m['teardown_s']:.3f} s, DEL {m['del_ms_median']:.3f} ms a "
+            f"pod (median); bridge {m['bridge']}, reconciles "
+            f"{m['reconciles']} ({card})")
+    finally:
+        if pending is not None:
+            pending.kill()
+        for g in mgrs:
+            g.stop()
+        if bridge is not None:
+            bridge.stop()
+        if server is not None:
+            server.stop(0)
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return m
+
+
+MGR_READY = re.compile(r"^kubedtn-tpu manager: probes on :(\d+) "
+                       r"\(healthz/readyz\), metrics on :(\d+)/metrics$")
+
+
+class ManagerVerb:
+    """Phase 21(b): `python -m kubedtn_tpu_torch.cli manager
+    --leader-elect --probe-port 0 --metrics-port 0` as a child process
+    (no --device: the card; `child_device` adds one for a CPU
+    rehearsal), spawned at construction (the card's compute processes
+    and free memory read just before); finish() checks its ready line,
+    healthz / readyz 200, /metrics, its memory on the card, SIGINT and
+    exit 0. Phase 21 spawns it while 21(a) pushes statuses, which moves
+    no memory on the card."""
+
+    def __init__(self, dev, card, child_device=None) -> None:
+        import os
+        import tempfile
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.dev, self.card = dev, card
+        self.tmp = tempfile.mkdtemp(prefix="kdt-p21b-")
+        args = ["--leader-elect", "--probe-port", "0", "--metrics-port",
+                "0"]
+        if child_device:
+            args += ["--device", child_device]
+        self.before = _card_apps(dev)
+        self.child = DaemonChild(args, os.path.join(self.tmp, "manager.err"),
+                                 root, verb="manager", ready=MGR_READY,
+                                 tag="21(b)")
+
+    def finish(self) -> dict:
+        import signal
+
+        child, m = self.child, {}
+        try:
+            m["ready_line_s"] = child.wait_ready(MGR_WAIT_S)
+            probe, metrics = child.ports
+            wait_for(lambda: http_get(probe, "/readyz")[0] == 200,
+                     MGR_WAIT_S, "21(b) readyz")
+            m["boot_to_ready_s"] = time.perf_counter() - child.t0
+            check(http_get(probe, "/healthz")[0] == 200, "21(b): healthz")
+            sc = dmn_scrape(metrics)
+            got = {name for name, _labels in sc}
+            check(set(MGR_SERIES) <= got and 1.0 in [
+                v for (name, _l), v in sc.items()
+                if name == "leader_election_master_status"],
+                f"21(b): /metrics lacks the manager's series: {sorted(got)}")
+            m["on_card"] = _child_on_card(child.proc.pid, self.dev,
+                                          self.before, tag="21(b)")
+            child.send_term(signal.SIGINT)
+            m["exit_s"] = child.wait_exit(MGR_WAIT_S)
+            log(f"21(b) `tpudtn-torch manager --leader-elect --probe-port 0 "
+                f"--metrics-port 0`: ready line {m['ready_line_s']:.1f} s, "
+                f"readyz 200 {m['boot_to_ready_s']:.1f} s after the spawn, "
+                f"healthz 200, /metrics with the manager's series; "
+                f"{m['on_card']}; SIGINT: exit 0 in {m['exit_s']:.2f} s "
+                f"({self.card})")
+        finally:
+            self.kill()
+        return m
+
+    def kill(self) -> None:
+        import shutil
+
+        self.child.kill()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def run_ladder_phase(dev, card, timer=None, sizes=None) -> tuple:
+    """Phase 21(c): scenarios.LADDER's six BASELINE rungs in this
+    process at their JAX defaults (`sizes` overrides their arguments
+    for a rehearsal), K1's launches counted from 0 around each; then
+    K1 over scale_1m's 2^21-row state against its plain version on the
+    rung's keyed draws, and timed (with `timer`) against its bound.
+    Returns (metrics, K1 launches by rung)."""
+    from kubedtn_tpu_torch import scenarios
+    from kubedtn_tpu_torch.ops import netem
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    sizes = sizes or {}
+    out, k1 = {}, {}
+    keep = {}
+    card_k1 = int(dev.type == "cuda")    # K1 launches only on the card
+    for name in LADDER_RUNGS:
+        kw = dict(sizes.get(name, {}))
+        if name == "scale_1m":
+            kw["keep"] = keep
+        shaping.reset_launches()
+        t0 = time.perf_counter()
+        r = scenarios.LADDER[name](device=dev, **kw)
+        _sync(dev)
+        k1[name] = shaping.LAUNCHES["shape_step_rows"]
+        r["phase_s"] = time.perf_counter() - t0
+        check(set(r) - {"phase_s"} == RUNG_KEYS[name] | {"device"},
+              f"21(c) {name}: keys {sorted(r)}")
+        out[name] = r
+        log(f"21(c) {name}: {json.dumps(r)}; K1 launches {k1[name]} "
+            f"({card})")
+    rs = out["3node"]
+    check(rs["reachable"] and rs["links"] == 4
+          and rs["pings"]["sat-a<->sat-b"] == 80_000.0
+          and k1["3node"] == card_k1 * len(rs["pings"]),
+          f"21(c) 3node: {rs}, K1 {k1['3node']}")
+    for name, k_slots in (("fat_tree_64", 8), ("clos_100k", 2)):
+        r = out[name]
+        steps = round(r["sim_time_s"] * 1e3)
+        check(r["tx_packets"] >= r["rx_packets"] > 0
+              and k1[name] == card_k1 * steps * k_slots,
+              f"21(c) {name}: tx {r['tx_packets']} rx {r['rx_packets']}, "
+              f"K1 {k1[name]} (want {steps * k_slots})")
+    r = out["churn_1k"]
+    check(k1["churn_1k"] == 0 and r["churn_links_total"] > 0,
+          f"21(c) churn_1k: {r}")
+    r = out["reconcile_100k"]
+    check(r["directed_rows"] == 2 * r["links"] and r["grpc_ok"]
+          and r["spot_check_latency_us"] == 20_000.0
+          and k1["reconcile_100k"] == card_k1,
+          f"21(c) reconcile_100k: {r}")
+    r = out["scale_1m"]
+    st = keep["state"]
+    check(int(st.active.sum()) == r["directed_rows"]
+          and st.capacity == r["capacity"]
+          and k1["scale_1m"] == card_k1 * 2 * sizes.get(
+              "scale_1m", {}).get("shape_iters", 10),
+          f"21(c) scale_1m: {r}, K1 {k1['scale_1m']}")
+    # K1 over the rung's state, the rung's keyed draws, vs plain
+    E = st.capacity
+    fill = torch.full((E,), 1500.0, dtype=torch.float32, device=dev)
+    t_arr = torch.zeros((E,), dtype=torch.float32, device=dev)
+    k_st, p_st = clone_state(st), clone_state(st)
+    for i in range(RUNG_CHECK_STEPS):
+        u = torch.rand((E, netem.NU), dtype=torch.float32, device=dev,
+                       generator=scenarios._keyed_generator(dev, 9, i))
+        k_st, dep, fl = shaping.shape_step_flags(k_st, fill, st.active,
+                                                 t_arr, u, donate=True)
+        p_st, p_res = netem._shape_step_from_u(p_st, fill, st.active,
+                                               t_arr, u)
+        _sync(dev)
+        same((dep, fl, k_st), (p_res.depart_us, shaping.pack_flags(p_res),
+                               p_st), f"21(c) K1 step {i} at {E} rows vs "
+                                      f"plain")
+    k1m = {"rows": E, "steps": RUNG_CHECK_STEPS, "max_abs_err": 0.0}
+    if timer is not None and dev.type == "cuda":
+        args = (st, fill, st.active, t_arr, u)
+        k1m["ms"] = timer.ms(lambda: shaping.shape_step_flags(
+            *args, donate=False))
+        k1m["plain_ms"] = timer.ms(lambda: netem._shape_step_from_u(*args),
+                                   reps=5)
+        moved = nbytes(st.props, st.corr, u, st.tokens, st.t_last,
+                       st.backlog_until, st.pkt_count, fill, t_arr,
+                       st.active, dep, fl, k_st.tokens, k_st.t_last,
+                       k_st.backlog_until, k_st.corr, k_st.pkt_count)
+        k1m["bound_ms"], k1m["bound_by"] = bound_ms(moved, OPS_K1 * E)
+        k1m["bytes"] = moved
+        log(f"21(c) K1 at {E} rows: {k1m['ms'] * 1e3:.2f} us against a "
+            f"bound of {k1m['bound_ms'] * 1e3:.2f} us ({k1m['bound_by']}); "
+            f"plain {k1m['plain_ms']:.3f} ms ({card})")
+    log(f"21(c) K1 over scale_1m's {E} rows == the plain step, bit for "
+        f"bit, {RUNG_CHECK_STEPS} steps on the rung's keyed draws ({card})")
+    out["k1_2m"] = k1m
+    return out, k1
+
+
 def _free_card(dev) -> None:
     import gc
 
@@ -7126,7 +7805,7 @@ def _card_apps(dev):
     return rows, torch.cuda.mem_get_info(dev)[0]
 
 
-def _child_on_card(pid: int, dev, before) -> str:
+def _child_on_card(pid: int, dev, before, tag: str = "20(b)") -> str:
     """Where the child holds memory on the card: its pid among
     nvidia-smi's compute processes, or, where a container's pid
     namespace shows other pids, one compute process more than before
@@ -7140,7 +7819,7 @@ def _child_on_card(pid: int, dev, before) -> str:
         return f"the child's pid {pid} holds {mine[0][1]} on the card"
     drop = free0 - free
     check(len(rows) == len(rows0) + 1 and drop >= 256 << 20,
-          f"20(b): the child (pid {pid}) holds no memory on the card: "
+          f"{tag}: the child (pid {pid}) holds no memory on the card: "
           f"compute processes {rows0} before, {rows} after, free memory "
           f"down {drop} bytes")
     return (f"nvidia-smi lists {len(rows)} compute processes, one more "
@@ -7148,7 +7827,7 @@ def _child_on_card(pid: int, dev, before) -> str:
             f"the card's free memory down {drop / 2**20:.0f} MiB")
 
 
-ALL_PHASES = tuple(range(1, 21))
+ALL_PHASES = tuple(range(1, 22))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
 NEEDS_MAIN_PATH = {3, 4, 10, 11, 14}
@@ -7382,6 +8061,26 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         detail["daemon"] = run_daemon_phase(dev, card)
         clock("20", t0)
+    if 21 in want:
+        t0 = time.perf_counter()
+        shaping.reset_launches()
+        mgr_m = run_manager_phase(dev, card,
+                                  verb=lambda: ManagerVerb(dev, card))
+        k1_paths["manager"] = shaping.LAUNCHES["shape_step_rows"]
+        check(k1_paths["manager"] == MGR_K1,
+              f"K1 launched {k1_paths['manager']} times on the manager's "
+              f"path, want {MGR_K1} (warm_kernels, ping)")
+        _free_card(dev)
+        mgr_m["ladder"], ladder_k1 = run_ladder_phase(dev, card, timer)
+        k1_paths["ladder"] = sum(ladder_k1.values())
+        mgr_m["ladder_k1_launches"] = ladder_k1
+        mgr_m["phase_s"] = time.perf_counter() - t0
+        log(f"21: phase {mgr_m['phase_s']:.1f} s; K1 launches: manager "
+            f"path {k1_paths['manager']} (warm_kernels, ping), rungs "
+            f"{ladder_k1}")
+        detail["k8s"] = mgr_m
+        _free_card(dev)
+        clock("21", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)
@@ -7412,6 +8111,12 @@ def main(argv=None) -> int:
             # and each
             kernels[-1].update(launches=sum(k1_paths.values()),
                                launches_by_path=k1_paths)
+            big = detail.get("k8s", {}).get("ladder", {}).get("k1_2m")
+            if big and "ms" in big:   # scale_1m's 2^21 rows (21(c))
+                kernels[-1]["at_rows"] = {
+                    big["rows"]: {k2: big[k2] for k2 in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "max_abs_err")}}
     if "K4" in results:
         r = results["K4"][K4_ROWS[0]]   # the live tick's mailbox shape
         kernels.append({

@@ -11,6 +11,8 @@ Usage:
   python -m kubedtn_tpu_torch.cli ping sat-a sat-b --file ring4.yaml
   python -m kubedtn_tpu_torch.cli daemon --port 51111 --metrics-port 51112
   python -m kubedtn_tpu_torch.cli daemon --device cpu --port 0
+  python -m kubedtn_tpu_torch.cli manager --leader-elect --probe-port 0 \\
+      --metrics-port 0
   python -m kubedtn_tpu_torch.cli physical-join link.yml \\
       --daemon 127.0.0.1:51111
   (installed: `tpudtn-torch ...`)
@@ -19,8 +21,9 @@ Port of kubedtn_tpu/cli.py: the same subcommands, positionals, flags,
 defaults and choices, and the same output (JSON keys, text tables, exit
 codes), with these differences:
 
-- Every verb that builds an engine, sweeps or serves (`daemon`, `apply
-  FILE`, `ping`, `trace --file`, `whatif --file`, `scenario`) takes
+- Every verb that builds an engine, sweeps or serves (`daemon`,
+  `manager`, `apply FILE`, `ping`, `trace --file`, `whatif --file`,
+  `scenario`) takes
   `--device {cuda,cpu}`, default cuda. Without a card and without
   `--device cpu` it prints why on stderr and exits 2 before it builds or
   binds anything; nothing falls back to the CPU by itself.
@@ -31,10 +34,11 @@ codes), with these differences:
   at first use into kubedtn_tpu_torch/_build/. The daemon launches
   kernel K1 once at boot (`warm_kernels`), so its first tick does not
   pay the kernels' load.
-- `manager` and `bench` are not ported (the controller manager comes
-  with the Kubernetes-facing slice; the port's benchmark is its own).
-  `scenario` runs scenarios.LADDER, the ported part of the JAX ladder;
-  a JAX scenario not ported yet is refused by name.
+- `manager` runs the controller manager (topology/manager.py) over a
+  SimEngine on --device, with the JAX verb's flags and ready line.
+- `bench` is not ported (the port's benchmark is its own). `scenario`
+  runs scenarios.LADDER, the ported part of the JAX ladder; a JAX
+  scenario not ported yet is refused by name.
 """
 
 from __future__ import annotations
@@ -1580,6 +1584,48 @@ def cmd_daemon(args) -> int:
     return 0
 
 
+def cmd_manager(args) -> int:
+    """Run the controller manager standalone — the reference's controller
+    binary (reference main.go:80-126): continuous reconcile with worker
+    pool, healthz/readyz probes, optional leader election. The engine
+    lives on --device (the card by default)."""
+    device = _device(args, "manager")
+    if device is None:
+        return 2
+    from kubedtn_tpu_torch.topology import SimEngine, TopologyStore
+    from kubedtn_tpu_torch.topology.manager import ControllerManager
+    from kubedtn_tpu_torch.utils.logging import fields, get_logger, setup
+
+    setup()
+    log = get_logger("manager")
+    store = TopologyStore()
+    engine = SimEngine(store, node_ip=args.node_ip, device=device)
+    mgr = ControllerManager(store, engine, identity=args.identity,
+                            workers=args.workers,
+                            leader_election=args.leader_elect,
+                            probe_port=args.probe_port,
+                            metrics_port=args.metrics_port)
+    mgr.start()
+    log.info("manager up %s", fields(identity=args.identity,
+                                     workers=args.workers,
+                                     probe_port=mgr.probe_port,
+                                     metrics_port=mgr.metrics_port,
+                                     leader_election=args.leader_elect,
+                                     device=str(device)))
+    print(f"kubedtn-tpu manager: probes on :{mgr.probe_port} "
+          f"(healthz/readyz), metrics on :{mgr.metrics_port}/metrics",
+          flush=True)
+    try:
+        # short sleeps: Python runs a signal's handler only in the main
+        # thread, and a SIGINT the kernel hands to another thread waits
+        # until this thread next runs (JAX's verb sleeps an hour here)
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        mgr.stop()
+    return 0
+
+
 def cmd_physical_join(args) -> int:
     """Join a physical host to the twin (reference cmd/main.go:26-101):
     read {link, remote_ip} YAML and ask the daemon to realize the
@@ -1932,7 +1978,7 @@ def _add_device(parser) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     """The JAX CLI's parser (kubedtn_tpu/cli.py main) under prog
-    `tpudtn-torch`, without `manager` and `bench`, with `--device` on
+    `tpudtn-torch`, without `bench`, with `--device` on
     the verbs that build an engine and `daemon --profile` (alias
     `--jax-profile`)."""
     p = argparse.ArgumentParser(prog="tpudtn-torch")
@@ -2251,6 +2297,26 @@ def build_parser() -> argparse.ArgumentParser:
     pcp.add_argument("-q", "--quiet", action="store_true",
                      help="totals only, no per-frame lines")
     pcp.set_defaults(fn=cmd_pcap)
+
+    mp = sub.add_parser("manager",
+                        help="run the topology controller manager "
+                             "(reconcile loop + probes + leader election)")
+    mp.add_argument("--workers", type=int, default=32,
+                    help="concurrent reconcile workers (reference: 32)")
+    mp.add_argument("--probe-port", type=int, default=8081,
+                    help="healthz/readyz port (reference probe-addr :8081)")
+    mp.add_argument("--metrics-port", type=int, default=8080,
+                    help="controller metrics port (reference "
+                         "metrics-bind-address :8080)")
+    mp.add_argument("--leader-elect", action="store_true",
+                    help="enable leader election (reference "
+                         "--leader-elect)")
+    mp.add_argument("--identity",
+                    default=os.environ.get("POD_NAME", "manager-0"))
+    mp.add_argument("--node-ip", default=os.environ.get("HOST_IP",
+                                                        "10.0.0.1"))
+    _add_device(mp)
+    mp.set_defaults(fn=cmd_manager)
 
     cp = sub.add_parser("crd", help="render the Topology CRD manifest")
     cp.set_defaults(fn=cmd_crd)

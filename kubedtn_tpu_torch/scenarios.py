@@ -1,16 +1,22 @@
 """Scenarios of the port, runnable functions returning a result dict.
 
-Port of kubedtn_tpu/scenarios.py, in part: `_tenant_plane_setup` (the
-multi-tenant plane harness), `burn_recovery` (the SLO autopilot's
+Port of kubedtn_tpu/scenarios.py, in part. Six of the BASELINE rungs:
+`three_node` ("3node", a sample through the control plane and a ping
+per link), `fat_tree_64`, `churn_1k`, `clos_100k`, `reconcile_100k`
+(reconcile-to-steady at 100k links through store, reconciler and
+engine) and `scale_1m` (UpdateLinks and a K1 step over 2M rows). Then
+`_tenant_plane_setup` (the multi-tenant plane harness),
+`burn_recovery` (the SLO autopilot's
 closed loop on one live plane), `migration_under_flap` (a live tenant
 migration between two gRPC daemons under a flapping peer), and the fleet
 supervisor's two: `plane_failover` (a plane killed mid-migration and
 evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
 daemons upgraded one at a time under load). Each takes a `device`, None
-meaning the CUDA card. `LADDER` holds these four in the order of the
-JAX module's ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED`
-names the rest of that ladder (the BASELINE rungs, the soaks,
-noisy_neighbor, whatif_sweep, ...), still to be ported.
+meaning the CUDA card, and returns the JAX scenario's keys (and
+"device"). `LADDER` holds these ten in the order of the JAX module's
+ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED` names the
+rest of that ladder (the routing rungs, the soaks, noisy_neighbor,
+whatif_sweep, ...), still to be ported.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import types
+from pathlib import Path
 
 from kubedtn_tpu_torch import resolve_device
 from kubedtn_tpu_torch.api.types import LinkProperties
@@ -30,6 +37,416 @@ def wire_def(pod: str, ns: str, uid: int):
         local_pod_name=pod, kube_ns=ns, link_uid=uid,
         intf_name_in_pod="eth1", veth_name_local_host="", peer_intf_id=0,
         peer_ip="")
+
+
+# -- the BASELINE rungs (kubedtn_tpu/scenarios.py:36-406) -----------------
+
+# the repo's own sample (four pods in a shaped ring), resolved from the
+# package's location
+RING4_YAML = str(Path(__file__).resolve().parent.parent / "config"
+                 / "samples" / "ring4.yaml")
+
+
+def _sync(dev) -> None:
+    """Wait for the card's queued work (the JAX rungs'
+    block_until_ready); nothing to wait for on the CPU."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _keyed_generator(dev, key: int, i: int):
+    """The generator of iteration `i` under `key`: seeded from one
+    Philox call with the iteration in the counter (the port's keyed
+    draws, where the JAX rung folds `i` into a threefry key; the bits
+    differ between the packages)."""
+    import torch
+
+    from kubedtn_tpu_torch.ops.cuda import philox
+
+    w = philox.philox4x32_words((i & philox.MASK32, 0, 0, 0),
+                                (key & philox.MASK32,
+                                 (key >> 32) & philox.MASK32))
+    return torch.Generator(device=dev).manual_seed(
+        (w[0] | (w[1] << 32)) & 0x7FFFFFFFFFFFFFFF)
+
+
+def three_node(yaml_path: str = RING4_YAML, device=None):
+    """Rung 1: a sample through the full control plane — store, setup
+    of every pod, one reconciler drain, a ping over every link (kernel
+    K1 on the card). The JAX rung reads the reference's
+    config/samples/3node.yml, which is not in this repo; the default
+    here is the repo's config/samples/ring4.yaml."""
+    from kubedtn_tpu_torch.api.types import load_yaml
+    from kubedtn_tpu_torch.topology import (Reconciler, SimEngine,
+                                            TopologyStore)
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=64, device=dev)
+    topos = load_yaml(yaml_path)
+    for t in topos:
+        store.create(t)
+    for t in topos:
+        engine.setup_pod(t.name, t.namespace)
+    rec = Reconciler(store, engine)
+    rec.drain()
+    pings = {}
+    uids = sorted({l.uid for t in topos for l in t.spec.links})
+    pairs = {}
+    for t in topos:
+        for l in t.spec.links:
+            pairs.setdefault(l.uid, (t.name, l.peer_pod))
+    for uid in uids:
+        a, b = pairs[uid]
+        pings[f"{a}<->{b}"] = engine.ping(a, b, uid)
+    return {
+        "scenario": "3node",
+        "device": str(dev),
+        "links": engine.num_active // 2,
+        "reachable": all(p["reachable"] for p in pings.values()),
+        "pings": {k: v["rtt_us"] for k, v in pings.items()},
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def fat_tree_64(k: int = 8, steps: int = 200, dt_us: float = 1000.0,
+                device=None):
+    """Rung 2: k=8 fat-tree (80 switches), static latency+bw shaping,
+    CBR traffic on every link, through the K-slot simulator (each
+    shaping slot one launch of K1 on the card)."""
+    from kubedtn_tpu_torch import sim as S
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.models.traffic import cbr_everywhere
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.fat_tree(k, LinkProperties(latency="50us", rate="10Gbit"))
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    sim = S.init_sim(state)
+    spec = cbr_everywhere(state.capacity, len(rows), rate_bps=1e9,
+                          device=dev)
+    sim = S.run(sim, spec, steps=steps, dt_us=dt_us, k_slots=8)
+    c = sim.counters
+    return {
+        "scenario": "fat_tree_64",
+        "device": str(dev),
+        "nodes": el.n_nodes,
+        "links": el.n_links,
+        "sim_time_s": steps * dt_us / 1e6,
+        "tx_packets": float(c.tx_packets.sum()),
+        "rx_packets": float(c.rx_packets.sum()),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def churn_1k(n_nodes: int = 1000, n_links: int = 3000,
+             churn_frac_per_s: float = 0.10, seconds: float = 5.0,
+             device=None):
+    """Rung 3: 1k-node random mesh with 10%-of-links-per-second property
+    churn through the batched UpdateLinks path (in place on the
+    state's tensors)."""
+    import numpy as np
+
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.ops import edge_state as es
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.random_mesh(n_nodes, n_links, seed=7,
+                       props=LinkProperties(latency="1ms"))
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    rng = np.random.default_rng(0)
+    batch = int(n_links * churn_frac_per_s)
+    n_batches = int(seconds)
+    lat_choices = np.array([1_000, 5_000, 10_000, 50_000], np.float32)
+    # warmup: one all-padding batch (no row changes) before timing
+    wp = np.zeros((batch, es.NPROP), np.float32)
+    state = es.update_links(state, np.arange(batch, dtype=np.int32), wp,
+                            np.zeros(batch, dtype=bool))
+    _sync(dev)
+    # enqueue every churn batch, sync once
+    tb = time.perf_counter()
+    for i in range(n_batches):
+        pick = rng.choice(n_links, batch, replace=False).astype(np.int32)
+        props = np.zeros((batch, es.NPROP), np.float32)
+        props[:, es.P_LATENCY_US] = rng.choice(lat_choices, batch)
+        state = es.update_links(state, pick, props,
+                                np.ones(batch, dtype=bool))
+    _sync(dev)
+    upd_time = time.perf_counter() - tb
+    return {
+        "scenario": "churn_1k",
+        "device": str(dev),
+        "nodes": n_nodes,
+        "links": n_links,
+        "churn_links_total": batch * n_batches,
+        "updates_per_sec": round(batch * n_batches / upd_time, 1),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def clos_100k(steps: int = 50, dt_us: float = 1000.0, device=None):
+    """Rung 5: 100k-link Clos with per-link loss+jitter and packet queues
+    — the full data plane at BASELINE scale (each shaping slot one
+    launch of K1 on the card)."""
+    from kubedtn_tpu_torch import sim as S
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.models.traffic import cbr_everywhere
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.clos(100, 500, 0,
+                props=LinkProperties(latency="10us", jitter="5us",
+                                     loss="0.01", rate="100Gbit"),
+                links_per_pair=2)
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    sim = S.init_sim(state, q=8)
+    spec = cbr_everywhere(state.capacity, len(rows), rate_bps=1e9,
+                          device=dev)
+    tb = time.perf_counter()
+    sim = S.run(sim, spec, steps=steps, dt_us=dt_us, k_slots=2)
+    _sync(dev)
+    step_time = time.perf_counter() - tb
+    c = sim.counters
+    tx = float(c.tx_packets.sum())
+    rx = float(c.rx_packets.sum())
+    lost = float(c.dropped_loss.sum())
+    return {
+        "scenario": "clos_100k",
+        "device": str(dev),
+        "links": el.n_links,
+        "directed_edges": 2 * el.n_links,
+        "sim_time_s": steps * dt_us / 1e6,
+        "tx_packets": tx,
+        "rx_packets": rx,
+        "loss_rate": round(lost / max(tx, 1), 6),
+        "packet_events_per_sec": round(tx / step_time, 1),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def reconcile_100k(n_spine: int = 100, n_leaf: int = 500,
+                   links_per_pair: int = 2, workers: int = 1,
+                   grpc_batch: int = 1000, device=None):
+    """Rung 6: reconcile-to-steady at 100k links through the REAL control
+    path — store → reconciler → engine (BASELINE "reconcile-to-steady <5s
+    @100k links"; reference contract controllers/topology_controller.go:
+    61-156). Every link enters as a Link in a Topology CR, is diffed by
+    the reconciler, allocated a row by the engine, and lands on the card
+    via the engine's coalesced flush.
+
+    Four measured phases (the whole lifecycle):
+    - reconcile_s: 600 CRs / 100k links / 200k directed rows from empty
+      status to fully realized + status copied back;
+    - churn_s:   every link's properties replaced through spec updates,
+      re-reconciled (the UpdateLinks path end to end);
+    - grpc_update_s: one live-daemon Local.UpdateLinks round trip for a
+      `grpc_batch`-link batch over real gRPC (wire-serialization cost);
+    - teardown_s: every pod destroyed (CNI cmdDel → DestroyPod path,
+      reference handler.go:538-590) back to zero active rows.
+    """
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.topology import (Reconciler, SimEngine,
+                                            TopologyStore)
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=1 << 18, node_ip="10.0.0.1",
+                       device=dev)
+    props = LinkProperties(latency="10ms", rate="10Gbit")
+    spines = [[] for _ in range(n_spine)]
+    leaves = [[] for _ in range(n_leaf)]
+    uid = 0
+    for s in range(n_spine):
+        for l in range(n_leaf):
+            for k in range(links_per_pair):
+                uid += 1
+                spines[s].append(Link(
+                    local_intf=f"e{l}-{k}", peer_intf=f"e{s}-{k}",
+                    peer_pod=f"leaf{l}", uid=uid, properties=props))
+                leaves[l].append(Link(
+                    local_intf=f"e{s}-{k}", peer_intf=f"e{l}-{k}",
+                    peer_pod=f"spine{s}", uid=uid, properties=props))
+    n_links = uid
+
+    def mk(name, links):
+        t = Topology(name=name, spec=TopologySpec(links=links))
+        # placement known (CNI ran), links not yet realized
+        t.status.src_ip, t.status.net_ns = "10.0.0.1", f"/run/netns/{name}"
+        t.status.links = []
+        store.create(t)
+
+    for s in range(n_spine):
+        mk(f"spine{s}", spines[s])
+    for l in range(n_leaf):
+        mk(f"leaf{l}", leaves[l])
+    setup_s = time.perf_counter() - t0
+
+    # kernel K1 built and loaded before timing: a steady-state controller
+    # reconciles with warm kernels
+    engine.warm_kernels()
+
+    rec = Reconciler(store, engine)
+    t0 = time.perf_counter()
+    rec.drain(workers=workers)
+    _sync(engine.state.device)  # includes the device flush
+    realize_s = time.perf_counter() - t0
+    assert engine.num_active == 2 * n_links, engine.num_active
+
+    # churn: replace every link's properties through the spec
+    new_props = LinkProperties(latency="20ms", jitter="1ms", rate="1Gbit")
+    t0 = time.perf_counter()
+    for t in store.list():
+        t.spec.links = [l.with_properties(new_props) for l in t.spec.links]
+        store.update(t)
+    rec.drain(workers=workers)
+    _sync(engine.state.device)
+    churn_s = time.perf_counter() - t0
+
+    # spot-check BEFORE the gRPC phase re-applies old props to spine0
+    lat_col = es.PROP_NAMES.index("latency_us")
+    churned = float(engine.state.props[0, lat_col])
+    assert churned == 20_000.0, churned
+
+    # gRPC surface: one live UpdateLinks round trip for a big batch
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    daemon = Daemon(engine)
+    server, port = make_server(daemon, port=0, host="127.0.0.1")
+    server.start()
+    client = DaemonClient(f"127.0.0.1:{port}")
+    batch = [pb.link_to_proto(l) for l in spines[0][:grpc_batch]]
+    q = pb.LinksBatchQuery(
+        local_pod=pb.Pod(name="spine0", kube_ns="default"),
+        links=batch)
+    client.UpdateLinks(q)  # warm the path once...
+    engine.flush()         # ...including the small-batch device ops
+    _sync(dev)
+    t0 = time.perf_counter()
+    resp = client.UpdateLinks(q)
+    engine.flush()
+    _sync(dev)
+    grpc_update_s = time.perf_counter() - t0
+    client.close()
+    server.stop(0)
+
+    # teardown: every pod destroyed through the real path (CNI cmdDel →
+    # DestroyPod, reference handler.go:538-590) back to an empty fabric
+    t0 = time.perf_counter()
+    for t in store.list():
+        engine.destroy_pod(t.name, t.namespace)
+    engine.flush()
+    _sync(dev)
+    teardown_s = time.perf_counter() - t0
+    assert engine.num_active == 0, engine.num_active
+
+    return {
+        "scenario": "reconcile_100k",
+        "device": str(dev),
+        "topologies": n_spine + n_leaf,
+        "links": n_links,
+        "directed_rows": 2 * n_links,
+        "setup_s": round(setup_s, 3),
+        "reconcile_s": round(realize_s, 3),
+        "churn_s": round(churn_s, 3),
+        "teardown_s": round(teardown_s, 3),
+        "grpc_update_s": round(grpc_update_s, 4),
+        "grpc_update_links": len(batch),
+        "grpc_ok": bool(resp.response),
+        "device_calls": engine.stats.device_calls,
+        "spot_check_latency_us": churned,
+        "target_s": 5.0,
+        "meets_target": realize_s < 5.0,
+    }
+
+
+def scale_1m(n_spine: int = 200, n_leaf: int = 2500,
+             links_per_pair: int = 2, update_iters: int = 10,
+             shape_iters: int = 10, device=None, *, keep=None):
+    """Rung 7: ONE MILLION links — 10× the BASELINE ladder's top rung.
+
+    A 1M-link Clos loads into edge state as 2M directed rows (capacity
+    2^21), then the two data-plane primitives run at full fabric width:
+    a whole-fabric UpdateLinks each iteration (in place, the contiguous
+    form) and one netem → TBF step over every active row each iteration
+    (kernel K1 on the card, netem.shape_step_auto). Each timed loop runs
+    once untimed first, as the JAX rung compiles and warms its scans.
+    The shaping draws of iteration i come from a generator keyed by
+    (9, i) (`_keyed_generator`), where the JAX rung folds i into
+    key(9). With `keep` (a dict), the final EdgeState is left in it
+    under "state" for a caller's own checks.
+    """
+    import numpy as np
+    import torch
+
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import netem
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.clos(n_spine, n_leaf, 0,
+                props=LinkProperties(latency="10ms", rate="10Gbit"),
+                links_per_pair=links_per_pair)
+    L = el.n_links
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+
+    uprops = torch.as_tensor(T.random_link_props(L, seed=5), device=dev)
+    urows = np.arange(L, dtype=np.int32)  # every local end, one batch
+    valid = torch.ones((L,), dtype=torch.bool, device=dev)
+
+    def run_updates(st, iters):
+        for _ in range(iters):
+            st = es.update_links(st, urows, uprops, valid, True)
+        return st
+
+    state = run_updates(state, update_iters)  # warm
+    _sync(dev)
+    tb = time.perf_counter()
+    state = run_updates(state, update_iters)
+    _sync(dev)
+    updates_per_s = L * update_iters / (time.perf_counter() - tb)
+
+    E = state.capacity
+    sizes = torch.full((E,), 1500.0, dtype=torch.float32, device=dev)
+    t_arr = torch.zeros((E,), dtype=torch.float32, device=dev)
+
+    def run_shape(st, iters):
+        for i in range(iters):
+            st, _res = netem.shape_step_auto(
+                st, sizes, st.active, t_arr, _keyed_generator(dev, 9, i))
+        return st
+
+    n_active = int(state.active.sum())
+    state = run_shape(state, shape_iters)  # warm
+    _sync(dev)
+    tb = time.perf_counter()
+    state = run_shape(state, shape_iters)
+    _sync(dev)
+    shape_pkts_per_s = n_active * shape_iters / (time.perf_counter() - tb)
+    if keep is not None:
+        keep["state"] = state
+
+    return {
+        "scenario": "scale_1m",
+        "device": str(dev),
+        "links": L,
+        "directed_rows": 2 * L,
+        "capacity": E,
+        "load_s": round(load_s, 3),
+        "updates_per_sec": round(updates_per_s, 1),
+        "shape_pkts_per_sec": round(shape_pkts_per_s, 1),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
 
 
 def _tenant_plane_setup(tenants: dict, latency: str, dt_us: float,
@@ -1113,14 +1530,19 @@ def fleet_rolling_upgrade(pairs: int = 1, steady_s: float = 1.5,
 # The JAX module's ladder (kubedtn_tpu/scenarios.py LADDER), in its
 # order: the ported scenarios, and the names still to be ported.
 LADDER = {
+    "3node": three_node,
+    "fat_tree_64": fat_tree_64,
+    "churn_1k": churn_1k,
+    "clos_100k": clos_100k,
+    "reconcile_100k": reconcile_100k,
+    "scale_1m": scale_1m,
     "burn_recovery": burn_recovery,
     "migration_under_flap": migration_under_flap,
     "plane_failover": plane_failover,
     "fleet_rolling_upgrade": fleet_rolling_upgrade,
 }
 NOT_PORTED = (
-    "3node", "fat_tree_64", "churn_1k", "routes_10k", "clos_100k",
-    "reconcile_100k", "scale_1m", "chaos_flaps", "live_plane",
+    "routes_10k", "chaos_flaps", "live_plane",
     "live_plane_soak", "reconverge_10k", "chaos_soak", "whatif_sweep",
     "telemetry_overhead", "slo_overhead", "pause_observability",
     "sharded_soak", "staged_update_soak", "update_under_flap",

@@ -3,9 +3,9 @@
 with capsys.
 
 - The parser: every JAX subcommand, positional, flag, default and choice
-  is the port's too; the port lacks `manager` and `bench` and adds
-  `--device` (the verbs that build an engine) and `--profile` (the
-  daemon's, with `--jax-profile` its alias): exactly those four names.
+  is the port's too; the port lacks `bench` and adds `--device` (the
+  verbs that build an engine, `manager` among them) and `--profile` (the
+  daemon's, with `--jax-profile` its alias): exactly those three names.
 - The local verbs print the same bytes and exit with the same codes;
   `whatif --file` ranks the same and its floats agree within the
   results tolerance (rtol 1e-5 / atol 1e-2).
@@ -146,10 +146,10 @@ def test_parser_differs_from_jax_by_exactly_four_names():
             assert t[verb][k]["choices"] == ("cuda", "cpu")
             assert t[verb][k]["default"] == "cuda"
             diff.add("--device")
-    assert diff == {"manager", "bench", "--device", "--profile"}
+    assert diff == {"bench", "--device", "--profile"}
     with_device = {v for v in t if ("--device",) in t[v]}
-    assert with_device == {"daemon", "apply", "ping", "trace", "whatif",
-                           "scenario"}
+    assert with_device == {"daemon", "manager", "apply", "ping", "trace",
+                           "whatif", "scenario"}
 
 
 def test_jax_profile_is_the_profile_flag():
@@ -716,7 +716,7 @@ def test_coerce_params_equal_jax(params):
     from kubedtn_tpu_torch.models import topologies as tt
 
     for name in tsc.LADDER:
-        fj, ft = getattr(jsc, name), getattr(tsc, name)
+        fj, ft = jsc.LADDER[name], tsc.LADDER[name]
         known = inspect.signature(fj).parameters
         ok = [p for p in params if p.partition("=")[0] in known]
         assert tcli._coerce_params(ft, ok) == jcli._coerce_params(fj, ok)
@@ -742,14 +742,17 @@ def test_ladder_is_jax_order_restricted_to_the_ported():
     from kubedtn_tpu_torch import scenarios as tsc
 
     assert list(tsc.LADDER) == [k for k in jsc.LADDER if k in tsc.LADDER]
-    assert list(tsc.LADDER) == ["burn_recovery", "migration_under_flap",
+    assert list(tsc.LADDER) == ["3node", "fat_tree_64", "churn_1k",
+                                "clos_100k", "reconcile_100k", "scale_1m",
+                                "burn_recovery", "migration_under_flap",
                                 "plane_failover", "fleet_rolling_upgrade"]
     assert sorted([*tsc.LADDER, *tsc.NOT_PORTED]) == sorted(jsc.LADDER)
     assert list(tsc.NOT_PORTED) == [k for k in jsc.LADDER
                                     if k not in tsc.LADDER]
 
 
-@pytest.mark.parametrize("name", ["3node", "noisy_neighbor", "clos_100k"])
+@pytest.mark.parametrize("name", ["routes_10k", "noisy_neighbor",
+                                  "chaos_soak"])
 def test_scenario_not_ported_yet_is_refused(capsys, name):
     rc, out, err = run(capsys, tcli, ["scenario", name, *CPU])
     assert rc == 1 and out == ""
@@ -759,7 +762,7 @@ def test_scenario_not_ported_yet_is_refused(capsys, name):
 def test_unknown_scenario_and_bad_params_are_refused(capsys):
     rc, _out, err = run(capsys, tcli, ["scenario", "nope", *CPU])
     assert rc == 1 and err.startswith("unknown scenario nope; choices: "
-                                      "burn_recovery, migration_under_flap")
+                                      "3node, fat_tree_64, churn_1k")
     rc, _out, err = run(capsys, tcli, ["scenario", "plane_failover", "-p",
                                        "bogus=1", *CPU])
     assert rc == 1 and "no parameter 'bogus'" in err

@@ -1273,3 +1273,49 @@ def test_k4_on_an_evacuation_survivor_mailbox_equals_plain(dev, tmp_path):
     for a, b in zip(pex.ring_right_shift(blocks, mesh),
                     pex.ring_right_shift_plain(blocks)):
         assert torch.equal(a, b)
+
+
+# -- the Kubernetes-facing control plane and the BASELINE rungs ---------------
+
+def test_k1_equals_plain_at_2_21_rows(dev):
+    """K1 over 2^21 rows (scale_1m's capacity) equals the plain step bit
+    for bit, two chained steps, one launch each."""
+    E = 1 << 21
+    state = random_state(E, 21, dev)
+    k_state, p_state = state, state
+    for step in range(2):
+        sizes, have, t_arr, u = inputs(E, 30 + step, dev)
+        before = shaping.LAUNCHES["shape_step_rows"]
+        k_state, k_res = shaping.shape_step(k_state, sizes, have, t_arr, u,
+                                            donate=False)
+        p_state, p_res = netem._shape_step_from_u(p_state, sizes, have,
+                                                  t_arr, u)
+        torch.cuda.synchronize()
+        assert shaping.LAUNCHES["shape_step_rows"] == before + 1
+        for f in dataclasses.fields(netem.ShapeResult):
+            assert_bitwise(getattr(k_res, f.name), getattr(p_res, f.name),
+                           f"step {step} {f.name}")
+        for name in ("tokens", "t_last", "backlog_until", "corr",
+                     "pkt_count"):
+            assert_bitwise(getattr(k_state, name), getattr(p_state, name),
+                           f"step {step} {name}")
+
+
+def test_manager_on_card_reconciles_a_small_clos_from_the_apiserver(dev):
+    """chip_smoke.py's phase 21(a) on the card at a 4 x 10 Clos: the CRs
+    on the port's fake apiserver, a K8sBridge, two ControllerManagers
+    electing a leader through the Lease, the CNI shim's ADD for every
+    pod to 160 rows on the card, equal per link end to the store ->
+    Reconciler engine, statuses pushed and listed back, ping (K1) on a
+    10 ms link, spec edits through the watch, the takeover, DEL to 0
+    rows (the phase checks each and raises SystemExit on a failure)."""
+    import chip_smoke
+
+    card = torch.cuda.get_device_name(0)
+    before = shaping.LAUNCHES["shape_step_rows"]
+    m = chip_smoke.run_manager_phase(dev, card, n_spine=4, n_leaf=10,
+                                     lpp=2, capacity=1 << 10)
+    assert shaping.LAUNCHES["shape_step_rows"] == before + chip_smoke.MGR_K1
+    assert m["ping"]["fwd_us"] == 10_000.0
+    assert m["takeover_s"] <= chip_smoke.MGR_LEASE_S + chip_smoke.MGR_RENEW_S
+    assert m["bridge"]["status_pushed"] == 14

@@ -93,6 +93,10 @@ LIVE_PLANE_MODULES = (
     # the operator CLI, the tracer and the CRD rendering
     "kubedtn_tpu_torch.cli", "kubedtn_tpu_torch.utils.tracing",
     "kubedtn_tpu_torch.api.crd",
+    # the Kubernetes-facing control plane: the controller manager, the
+    # CR bridge and the CNI shim
+    "kubedtn_tpu_torch.topology.manager", "kubedtn_tpu_torch.topology.k8s",
+    "kubedtn_tpu_torch.cni",
 )
 
 # the fleet supervisor's surfaces: (module, attribute path)
@@ -148,7 +152,7 @@ def test_import_loads_no_jax_in_a_fresh_process():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tests/_torch_fake_apiserver.py"]))
 def test_no_jax_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     for node in ast.walk(tree):
@@ -165,7 +169,7 @@ def test_no_jax_import_in_source(path):
 # what `python -m kubedtn_tpu_torch.cli` loads: the module run as
 # __main__ with these arguments (each exits through argparse or a verb)
 CLI_RUNS = (["--help"], ["daemon", "--help"], ["whatif", "--help"],
-            ["crd"])
+            ["crd"], ["manager", "--help"])
 
 
 @pytest.mark.parametrize("argv", CLI_RUNS, ids=" ".join)
@@ -199,4 +203,45 @@ def test_python_m_cli_help():
     assert out.stdout.startswith("usage: tpudtn-torch")
     for verb in ("daemon", "top", "slo", "whatif", "scenario"):
         assert verb in out.stdout
-    assert "manager" not in out.stdout and "bench" not in out.stdout
+    assert "manager" in out.stdout and "bench" not in out.stdout
+
+
+def test_fake_apiserver_loads_no_jax_in_a_fresh_process():
+    """tests/_torch_fake_apiserver.py (which chip_smoke.py loads by path
+    on the card's machine) imports neither jax nor the JAX package, and
+    serves a LIST."""
+    code = (
+        "import importlib.util, json, sys, urllib.request\n"
+        "spec = importlib.util.spec_from_file_location('fa', "
+        "'tests/_torch_fake_apiserver.py')\n"
+        "fa = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(fa)\n"
+        "srv = fa.FakeApiServer()\n"
+        "host, port = srv.start()\n"
+        "url = f'http://{host}:{port}/apis/{fa.GROUP}/{fa.VERSION}/"
+        "topologies'\n"
+        "body = json.load(urllib.request.urlopen(url, timeout=10))\n"
+        "srv.stop()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'kubedtn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'kubedtn_tpu.')))\n"
+        "print(body['kind'], 'BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "TopologyList BAD []", out.stdout
+
+
+def test_manager_help_in_a_fresh_process():
+    """`tpudtn-torch manager --help` (python -m kubedtn_tpu_torch.cli):
+    the JAX verb's flags and the port's --device."""
+    out = subprocess.run([sys.executable, "-m", "kubedtn_tpu_torch.cli",
+                          "manager", "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage: tpudtn-torch manager")
+    for flag in ("--workers", "--probe-port", "--metrics-port",
+                 "--leader-elect", "--identity", "--node-ip",
+                 "--device {cuda,cpu}"):
+        assert flag in out.stdout, flag
