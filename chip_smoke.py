@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 1-4,19  # some phases (1 always runs;
-                                           # 3 and 4, 10, 11 and 14 bring
-                                           # 2 and 3; 6, 7 and 8 go
-                                           # together)
+                                           # 3 and 4, 10, 11, 14 and 22
+                                           # bring 2 and 3; 6, 7 and 8
+                                           # go together)
     python3 chip_smoke.py --phases 20 --daemon-rate  # + the daemon's rate
 
 Drives kubedtn_tpu_torch's main path at the BASELINE size — the
@@ -201,8 +201,9 @@ Phases, each fatal on failure:
      ticks, t1 and t2 never; (e) a one-topology shape candidate through
      guardrails that reject it, and (f) the same in dry run: the SoA
      columns and the engine's registries unchanged; (c) one
-     Autopilot.poll (seed 0, width 2, 100 steps, the gate cut to 100
-     ticks; 200 and 200 until phase 21 joined): ONE sweep, K1 launches == steps x slots, each over (1 +
+     Autopilot.poll (seed 0, width 2, 50 steps, the gate cut to 50
+     ticks; 200 and 200 until phase 21 joined, 100 and 100 until phase
+     22 did): ONE sweep, K1 launches == steps x slots, each over (1 +
      candidates) x 2^18 rows; the same snapshot, seed and verdict rank
      the same; 2 steps of the grid's rows through K1 == the plain
      version; (d) one gate per touched topology, then the stage: rows
@@ -382,16 +383,48 @@ Phases, each fatal on failure:
      JAX keys, tx >= rx, K1 launched once per ping, per slot and step,
      by warm_kernels and per shaping iteration; K1 over scale_1m's
      2^21-row state == the plain step bit for bit on the rung's keyed
-     draws for 2 steps, and timed against its bound.
+     draws for 2 steps, and timed against its bound;
+ 22. the scale path, K1's launches counted from 0 around each part: (a)
+     the sharded simulation step (parallel/sharded.py) on the churned
+     Clos (200,000 rows in 2^18) at 2, 4 and 8 virtual shards of the
+     card, 3 steps each of a 1,000-row scattered UpdateLinks batch and
+     the drop-in step on every active row: state, ShapeResult and
+     NodeStats == update_links + K1 + the node sums on the whole state
+     on the same uniforms, bit for bit; tx_packets sums to the packets
+     delivered; K1 S times a step; ms per step sharded and unsharded;
+     (b) the sharded router (parallel/router.py) on phase 11's routed
+     fabric (k_slots 4, k_fwd 8; built the same way when phase 11 did
+     not run) on 4 virtual shards for 10 steps (20 before the phase's
+     first card run, PERF.md §4), fed run_routed's draws
+     sliced per shard, at a budget of 2^16 transit packets per shard
+     pair and step: every leaf == run_routed's and == the same steps
+     over the plain step, bit for bit; K1 4 x 12 x 10 times; the
+     fabric's transit books close; packets through the all-to-all a
+     step, ms per step sharded and unsharded; (c) JAX's default budget
+     (64) for 5 steps: the overflow counted in fwd_dropped, the books
+     closed; (d) entry.dryrun_multichip(8) on 8 virtual shards: its
+     checks and JAX's OK line; (e) the routing rungs routes_10k, chaos_
+     flaps and reconverge_10k at JAX's default widths, their events cut
+     to 2 each (PERF.md §4): the JAX keys and
+     "device", reconverge_10k's incremental routes == a full recompute,
+     chaos_flaps' K1 launches == its slots x steps, routes_10k and
+     reconverge_10k launch no kernel; (f) inside phase 12(c): the
+     sharded plane's sampled exchange probe ran (exchange_seconds > 0),
+     its output == the plain ring on a 4,096-row mailbox, bit for bit,
+     one K4 launch a ring step; every sharded plane's K4 count (12(c),
+     16(c), 18, 19) is its own launches plus its probes', a term of its
+     own, each probe run (S - 1) x len(ring_plan) launches.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
 saturating InjectBulk feed, booted with phase 20's flags, without
 --profile, and without --profile and telemetry (run_daemon_rate).
 
-The line before the last lists the kernels with their launches, errors,
-times and bounds (with --phases, the kernels whose checks ran: K1-K3
-with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
+The line before the last lists the kernels with their launches by path
+(K1's sharded_step and sharded_router from phase 22, its rungs path
+with chaos_flaps; K4's probe path, the sharded planes' exchange probes),
+errors, times and bounds (with --phases, the kernels whose checks ran:
+K1-K3 with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
 {...}}. It exits non-zero, printing neither, when there is no CUDA
 device or the package is missing.
 """
@@ -1281,9 +1314,11 @@ def realises(state, dist, nh, name: str) -> None:
           f"{name}: next hops and reachable pairs differ")
 
 
-def run_routed_phase(el, fresh, dev, card):
+def run_routed_phase(el, fresh, dev, card, keep=None):
     """Phase 11: routes, a link event and the routed fabric on the
-    churned Clos. Returns (metrics, K1 launches of the path)."""
+    churned Clos. Returns (metrics, K1 launches of the path); with
+    `keep`, keep["routed"] = the fabric's (rs, spec, flow_dst) for phase
+    22."""
     from kubedtn_tpu_torch import convert, entry, router, sim
     from kubedtn_tpu_torch.ops import edge_state as es
     from kubedtn_tpu_torch.ops import queues, routing
@@ -1298,6 +1333,8 @@ def run_routed_phase(el, fresh, dev, card):
                                                    **build)
     rs_e, _, _, dist_e = entry.build_routed(el, fresh, leaves,
                                             k_paths=ROUTE_K_PATHS, **build)
+    if keep is not None:
+        keep["routed"] = (rs, spec, flow_dst)
     nh4, nh_e = rs.next_edge, rs_e.next_edge
     m["recompute_ms"] = host_ms(lambda: routing.recompute_routes(
         fresh, n, ROUTE_HOPS))
@@ -1950,23 +1987,61 @@ def run_live_plane_phase(dev, card, n_spine=None, n_leaf=None,
     if n_cards >= 2:
         meshes.append(("cuda:0 + cuda:1", make_mesh(
             [torch.device("cuda", 0), torch.device("cuda", 1)])))
+    probes = []
     for name, mesh in meshes:
         sh = plane_run(built, win, wout, state0, seed, depth=2, mesh=mesh)
         same_egress(sh, d1, f"12(c) sharded on {name} vs unsharded")
         summ = sh["plane"].shard_summary()
+        runs = sh["plane"].shard_exchange_runs
+        # 22(f): the sampled exchange probe ran on dispatches 1, 65, ...
+        check(summ["exchange_seconds"] > 0 and runs >= 1,
+              f"22(f) {name}: exchange_seconds {summ['exchange_seconds']} "
+              f"after {runs} probe runs")
+        probes.append((sh["plane"]._exchange_probe, mesh))
         m[f"sharded {name}"] = {
             "wall_ms_per_tick": sh["wall_ms_per_tick"],
             "xshard_frames": summ["xshard_frames"],
-            "mailbox_hwm": summ["mailbox_hwm"]}
+            "mailbox_hwm": summ["mailbox_hwm"],
+            "exchange_seconds": summ["exchange_seconds"],
+            "exchange_probe_runs": runs}
         log(f"12(c) sharded plane on {name}: per-wire egress == unsharded; "
             f"{summ['xshard_frames']} cross-shard frames; wall "
-            f"{sh['wall_ms_per_tick']:.3f} ms/tick ({card})")
+            f"{sh['wall_ms_per_tick']:.3f} ms/tick; 22(f) exchange probe "
+            f"{runs} runs, exchange_seconds {summ['exchange_seconds']} "
+            f"({card})")
     if n_cards < 2:
         log(f"12(c) sharded plane on two cards: not run, {n_cards} CUDA "
             f"device visible and it needs 2")
     k4 = pex.LAUNCHES["ring_step"]
-    log(f"12(c) K4 launches on the sharded plane: {k4}")
+    log(f"12(c) K4 launches on the sharded planes and their probes: {k4}")
     check(k4 > 0 or dev.type != "cuda", "K4 never launched on the plane")
+    # 22(f): the probe's output once against the plain ring, on a
+    # mailbox whose rows every shard owns (these launches only compare)
+    from kubedtn_tpu_torch import runtime as rt
+    from kubedtn_tpu_torch.ops.edge_state import NCORR, NPROP
+
+    probe_fn, mesh = probes[0]
+    g = torch.Generator(device=dev).manual_seed(12)
+    fm = torch.randn((PLANE_ROWS, NPROP + 3 + NCORR), generator=g,
+                     device=dev)
+    im = torch.randint(-9, 9, (PLANE_ROWS, 3), generator=g, device=dev,
+                       dtype=torch.int32)
+    im[:, pex.OWNER_COL] = 1
+    k0 = pex.LAUNCHES["ring_step"]
+    got = probe_fn(fm, im)
+    _sync(dev)
+    probe_launches = pex.LAUNCHES["ring_step"] - k0
+    cpu_mesh = make_mesh([torch.device("cpu")] * len(mesh))
+    same(got, rt.exchange_probe(cpu_mesh)(fm.cpu(), im.cpu()),
+         "22(f) the exchange probe vs the plain ring")
+    want_launches = ((len(mesh) - 1) * len(pex.ring_plan(mesh))
+                     if dev.type == "cuda" else 0)
+    check(probe_launches == want_launches,
+          f"22(f): a probe run launched K4 {probe_launches} times, want "
+          f"{want_launches}")
+    log(f"22(f) the exchange probe on {len(mesh)} virtual shards == the "
+        f"plain ring, bit for bit, on a {PLANE_ROWS}-row mailbox; "
+        f"{probe_launches} K4 launches a run ({card})")
 
     # (e) gRPC, where it imports
     try:
@@ -4263,9 +4338,10 @@ AP_PAGE_POLLS = 30          # bound on (b)'s polls to the page
 AP_GREEN_POLLS = 40         # bound on (d)'s polls to green
 AP_LOSS = "25"
 AP_SEED = 0
-AP_STEPS = 100             # the search's steps (200 until phase 21)
-AP_GATE_TICKS = 100         # the gate's horizon, cut from 400 (200 until
-#                             phase 21 joined, PERF.md §4)
+AP_STEPS = 50              # the search's steps (200 until phase 21,
+#                             100 until phase 22 joined, PERF.md §4)
+AP_GATE_TICKS = 50          # the gate's horizon, cut from 400 (200 until
+#                             phase 21 joined, 100 until phase 22)
 AP_CHECK_STEPS = 2          # (c): K1 vs the plain version
 AP_EVAL_REPS = 3            # (a): timed evaluate() passes
 AP_SIDECAR_S = 4.0          # (g): seconds of the real-time plane
@@ -6909,8 +6985,15 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
               == tenants0, "20(c): tenant list")
         check(verbs["tenant stats"]["out"]["links"] == n_rows,
               "20(c): tenant stats")
-        check(verbs["top"]["out"]["windows_closed"] > 0,
-              "20(c): top: no telemetry window closed")
+        top = verbs["top"]
+        check(top["out"]["windows_closed"] > 0,
+              f"20(c): top: no telemetry window closed (its answer "
+              f"{top['s']:.1f} s after the feed ended, covered_seconds "
+              f"{top['out']['covered_seconds']}; after the drain the "
+              f"scrape read kubedtn_link_windows_closed "
+              f"{sc.get(('kubedtn_link_windows_closed_total', ''))} and "
+              f"kubedtn_dataplane_ticks "
+              f"{sc.get(('kubedtn_dataplane_ticks_total', ''))})")
         check(verbs["trace latest"]["out"]["events"], "20(c): no trace")
         ranked = verbs["whatif"]["out"]["ranked"]
         check(sorted(r["name"] for r in ranked) == sorted(
@@ -7195,6 +7278,17 @@ RUNG_KEYS = {
     "scale_1m": {"scenario", "links", "directed_rows", "capacity",
                  "load_s", "updates_per_sec", "shape_pkts_per_sec",
                  "wall_s"},
+    "routes_10k": {"scenario", "nodes", "links", "recompute_s_first",
+                   "recompute_s_steady", "reachable_frac", "wall_s"},
+    "chaos_flaps": {"scenario", "nodes", "links", "events", "baseline_rx",
+                    "baseline_no_route", "event_results",
+                    "recompute_s_median", "traffic_survived_every_outage",
+                    "wall_s"},
+    "reconverge_10k": {"scenario", "nodes", "links", "initial_full_s",
+                       "full_recompute_s", "events", "reconverge_s_steady",
+                       "speedup_vs_full", "matches_full_recompute",
+                       "flap10_down_s", "flap10_up_s", "flap10_cells",
+                       "wall_s"},
 }
 RUNG_CHECK_STEPS = 2        # 21(c): K1 vs the plain version at 2^21 rows
 
@@ -7827,10 +7921,319 @@ def _child_on_card(pid: int, dev, before, tag: str = "20(b)") -> str:
             f"the card's free memory down {drop / 2**20:.0f} MiB")
 
 
-ALL_PHASES = tuple(range(1, 22))
+# -- phase 22: the scale path: the sharded step and the sharded router -------
+
+SH_SHARDS = (2, 4, 8)       # 22(a): virtual shards of the one card
+SH_STEPS = 3                # 22(a): sharded steps per shard count
+SH_BATCH = 1000             # 22(a): scattered UpdateLinks rows a step
+SR_SHARDS = 4               # 22(b): virtual shards of the sharded router
+SR_STEPS = 10               # 22(b): routed steps, sharded and unsharded
+#                             (20 until its first card run, PERF.md §4)
+SR_BUDGET = 1 << 16         # 22(b): transit packets one (source,
+#                             destination) shard pair may carry a step: a
+#                             [4, 2^16, 4] f32 send buffer a shard (4 MiB),
+#                             above a step's transit packets of a shard
+SR_OVERFLOW_STEPS = 5       # 22(c): steps at JAX's default budget
+SR_OVERFLOW_BUDGET = None   # 22(c): None = JAX's max(8 k_fwd, 16) = 64
+DRYRUN_SHARDS = 8           # 22(d)
+SCALE_RUNGS = ("routes_10k", "chaos_flaps", "reconverge_10k")
+# 22(e): the rungs' events cut to 2 each (from JAX's 3, 4 and 4) to pay
+# for the phase (PERF.md §4)
+SCALE_RUNG_KW = {"routes_10k": {"events": 2}, "chaos_flaps": {"events": 2},
+                 "reconverge_10k": {"events": 2}}
+
+
+def scale_step_part(el, fresh, dev, card) -> tuple:
+    """22(a): the sharded simulation step (parallel/sharded.py) on the
+    churned Clos at S = 2, 4 and 8 virtual shards of the card, each step
+    a 1,000-row scattered UpdateLinks batch and the drop-in step on every
+    active row, against update_links + shape_step_auto's K1 route + the
+    node counters on the whole state, on the same uniforms. Returns
+    (metrics, K1 launches of the sharded steps)."""
+    from kubedtn_tpu_torch import convert
+    from kubedtn_tpu_torch.models.topologies import random_link_props
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import netem
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh, shard_edge_state
+    from kubedtn_tpu_torch.parallel.sharded import (make_node_stats_fn,
+                                                    make_sharded_step)
+
+    E, n_rows, n = fresh.capacity, 2 * el.n_links, el.n_nodes
+    card_k1 = int(dev.type == "cuda")
+    rng = np.random.default_rng(22)
+    sizes = torch.full((E,), 1500.0, dtype=torch.float32, device=dev)
+    t_arr = torch.zeros((E,), dtype=torch.float32, device=dev)
+    stats_whole = make_node_stats_fn(make_mesh([dev]), n)
+    out, launches = {}, 0
+    for S in SH_SHARDS:
+        mesh = make_mesh([dev] * S)
+        step = make_sharded_step(mesh, n)
+        shards = shard_edge_state(fresh, mesh)
+        whole = clone_state(fresh)
+        gen = torch.Generator(device=dev).manual_seed(220 + S)
+        walls_s, walls_u, delivered = [], [], 0
+        for i in range(SH_STEPS):
+            rows = np.sort(rng.choice(n_rows, SH_BATCH, replace=False)
+                           ).astype(np.int32)
+            props = random_link_props(SH_BATCH, 100 * S + i)
+            valid = np.ones(SH_BATCH, dtype=bool)
+            have = whole.active.clone()
+            u = torch.rand((E, netem.NU), generator=gen, device=dev)
+            _sync(dev)
+            k0 = shaping.LAUNCHES["shape_step_rows"]
+            t0 = time.perf_counter()
+            shards, res, stats = step(shards, rows, props, valid, sizes,
+                                      have, t_arr, u=u)
+            _sync(dev)
+            walls_s.append(time.perf_counter() - t0)
+            k = shaping.LAUNCHES["shape_step_rows"] - k0
+            check(k == card_k1 * S, f"22(a) S={S}: {k} K1 launches a step, "
+                                    f"want {S}")
+            launches += k
+            t0 = time.perf_counter()
+            whole = es.update_links(whole, rows, props, valid)
+            whole, res_u = shaping.shape_step(whole, sizes, have, t_arr, u,
+                                              donate=True)
+            stats_u = stats_whole([whole.src], [whole.dst],
+                                  [res_u.delivered], [sizes],
+                                  [res_u.dropped_loss | res_u.dropped_queue])
+            _sync(dev)
+            walls_u.append(time.perf_counter() - t0)
+            name = f"22(a) S={S} step {i}"
+            same(convert.unshard(shards), whole, f"{name} state")
+            same(convert.unshard(res), res_u, f"{name} ShapeResult")
+            same(stats, stats_u, f"{name} NodeStats")
+            d = int(res_u.delivered.sum())
+            check(d > 0 and float(stats.tx_packets.double().sum()) == d,
+                  f"{name}: tx_packets {float(stats.tx_packets.sum())} vs "
+                  f"{d} delivered")
+            delivered += d
+        out[S] = {"ms_per_step_sharded": 1e3 * statistics.median(walls_s),
+                  "ms_per_step_unsharded": 1e3 * statistics.median(walls_u),
+                  "delivered": delivered}
+        log(f"22(a) sharded step on {S} virtual shards: state, ShapeResult "
+            f"and NodeStats == update_links + K1 + node sums on the whole "
+            f"state, bit for bit, {SH_STEPS} steps of a {SH_BATCH}-row "
+            f"scattered batch ({delivered} packets delivered); K1 {S} a "
+            f"step; ms per step sharded "
+            f"{out[S]['ms_per_step_sharded']:.3f}, unsharded "
+            f"{out[S]['ms_per_step_unsharded']:.3f} ({card})")
+    return out, launches
+
+
+def transit_books(o, spec, steps: int, name: str) -> dict:
+    """The routed fabric's per-edge books and transit balance (as phase
+    11): every packet delivered out of an edge reached its node, was
+    re-injected, waits in a pending lane or was dropped by cause."""
+    from kubedtn_tpu_torch import sim
+
+    check(not bool(sim.conservation_residual(o.sim).any()),
+          f"{name}: an edge's books do not close")
+    c = o.sim.counters
+    sourced = steps * int((spec.mode == 1).sum())
+    reinjected = float(c.tx_packets.double().sum()) - sourced
+    pending = int((o.pend_dst >= 0).sum())
+    balance = (float(o.node_rx_packets.double().sum()) + reinjected
+               + pending + float(o.fwd_dropped) + float(o.no_route_dropped))
+    check(float(c.rx_packets.double().sum()) == balance,
+          f"{name}: transit packets are unaccounted for")
+    return {"reinjected": reinjected, "pending": pending,
+            "fwd_dropped": float(o.fwd_dropped),
+            "no_route_dropped": float(o.no_route_dropped),
+            "node_rx_packets": float(o.node_rx_packets.double().sum())}
+
+
+def scale_router_part(el, fresh, dev, card, routed=None) -> tuple:
+    """22(b)-(c): the sharded router (parallel/router.py) on phase 11's
+    routed fabric (`routed` = its (rs, spec, flow_dst), else built the
+    same way) on SR_SHARDS virtual shards, fed the unsharded run's draws
+    sliced per shard: every leaf == run_routed's, bit for bit, and so
+    does the same over the plain step; then JAX's default budget, which
+    overflows. Returns (metrics, K1 launches of the sharded steps)."""
+    from kubedtn_tpu_torch import entry, router, sim
+    from kubedtn_tpu_torch.models import traffic
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import router as prouter
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    if routed is None:
+        leaves = np.arange(entry.N_SPINE, el.n_nodes)
+        rs, spec, flow_dst, _ = entry.build_routed(
+            el, fresh, leaves, seed=31, rate_bps=ROUTED_RATE_BPS, q=SIM_Q,
+            k_fwd=ROUTED_K_FWD, max_hops=ROUTE_HOPS)
+    else:
+        rs, spec, flow_dst = routed
+    m = {}
+    n = el.n_nodes
+    k_shape = SIM_K + ROUTED_K_FWD
+    card_k1 = int(dev.type == "cuda")
+    gen = torch.Generator(device=dev).manual_seed(222)
+    dt = sim.as_dt(SIM_DT_US, dev)
+    draws = [sim.StepDraws(
+        traffic=traffic.draw(spec, dt, SIM_K, gen),
+        shape_u=queues.draw_shape_uniforms(rs.sim.edges, k_shape, gen))
+        for _ in range(SR_STEPS)]
+    mesh = make_mesh([dev] * SR_SHARDS)
+    per_shard = [prouter.shard_draws(d, mesh) for d in draws]
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    want = router.run_routed(rs, spec, flow_dst, SR_STEPS, SIM_DT_US, SIM_K,
+                             ROUTED_K_FWD, draws=draws)
+    _sync(dev)
+    m["ms_per_step_unsharded"] = 1e3 * (time.perf_counter() - t0) / SR_STEPS
+
+    def sharded(budget, steps, shape_fn=queues.shape_packets):
+        step = prouter.make_sharded_router_step(
+            mesh, n, k_slots=SIM_K, k_fwd=ROUTED_K_FWD, budget=budget)
+        shards = prouter.shard_router_state(rs, mesh)
+        for i in range(steps):
+            shards = step(shards, spec, flow_dst, None, SIM_DT_US,
+                          draws=per_shard[i], shape_fn=shape_fn)
+        return prouter.gather_router_state(shards)
+
+    k0 = shaping.LAUNCHES["shape_step_rows"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = sharded(SR_BUDGET, SR_STEPS)
+    _sync(dev)
+    m["ms_per_step_sharded"] = 1e3 * (time.perf_counter() - t0) / SR_STEPS
+    launches = shaping.LAUNCHES["shape_step_rows"] - k0
+    check(launches == card_k1 * SR_SHARDS * k_shape * SR_STEPS,
+          f"22(b): {launches} K1 launches, want {SR_SHARDS} x {k_shape} x "
+          f"{SR_STEPS}")
+    same(got, want, f"22(b) sharded router on {SR_SHARDS} virtual shards "
+                    f"vs run_routed")
+    k1 = shaping.LAUNCHES["shape_step_rows"]
+    plain = sharded(SR_BUDGET, SR_STEPS, shape_fn=queues.shape_packets_plain)
+    check(shaping.LAUNCHES["shape_step_rows"] == k1,
+          "22(b): the plain sharded router launched K1")
+    same(plain, got, "22(b) sharded router over the plain step vs K1")
+    books = transit_books(got, spec, SR_STEPS, "22(b) sharded router")
+    want_books = transit_books(want, spec, SR_STEPS, "22(b) run_routed")
+    check(books == want_books, "22(b): the books differ from run_routed's")
+    exchanged = books["reinjected"] + books["pending"] + books["fwd_dropped"]
+    check(exchanged > 0, "22(b): no packet crossed the all-to-all")
+    m.update(books=books, budget=SR_BUDGET,
+             send_bytes_per_shard=SR_SHARDS * SR_BUDGET * 4 * 4,
+             exchanged_per_step=exchanged / SR_STEPS)
+    log(f"22(b) sharded router, {SR_STEPS} steps x {k_shape} slots on "
+        f"{SR_SHARDS} virtual shards, budget {SR_BUDGET} "
+        f"({m['send_bytes_per_shard']} B of send buffer a shard): every "
+        f"leaf == run_routed on the same draws, and == the same over the "
+        f"plain step, bit for bit; {launches} K1 launches; transit books "
+        f"closed; {m['exchanged_per_step']:.1f} packets through the "
+        f"all-to-all a step, {books['fwd_dropped']:.0f} lane overflows "
+        f"(as run_routed); ms per step sharded "
+        f"{m['ms_per_step_sharded']:.3f}, unsharded "
+        f"{m['ms_per_step_unsharded']:.3f} ({card})")
+
+    # (c) JAX's default budget: the exchange overflows, counted
+    default = (max(ROUTED_K_FWD * 8, 16) if SR_OVERFLOW_BUDGET is None
+               else SR_OVERFLOW_BUDGET)
+    k0 = shaping.LAUNCHES["shape_step_rows"]
+    over = sharded(default, SR_OVERFLOW_STEPS)
+    launches += shaping.LAUNCHES["shape_step_rows"] - k0
+    ob = transit_books(over, spec, SR_OVERFLOW_STEPS,
+                       "22(c) sharded router at budget 64")
+    ref = router.run_routed(rs, spec, flow_dst, SR_OVERFLOW_STEPS,
+                            SIM_DT_US, SIM_K, ROUTED_K_FWD,
+                            draws=draws[:SR_OVERFLOW_STEPS])
+    lane_drops = float(ref.fwd_dropped)
+    check(ob["fwd_dropped"] > lane_drops,
+          f"22(c): budget {default} dropped {ob['fwd_dropped']} packets, "
+          f"no more than the lanes' {lane_drops}")
+    m["overflow"] = dict(ob, budget=default, steps=SR_OVERFLOW_STEPS,
+                         lane_drops_unsharded=lane_drops)
+    log(f"22(c) at JAX's default budget {default}: {ob['fwd_dropped']:.0f} "
+        f"packets counted in fwd_dropped over {SR_OVERFLOW_STEPS} steps "
+        f"(run_routed's lanes drop {lane_drops:.0f}); the books close "
+        f"({card})")
+    return m, launches
+
+
+def run_scale_phase(el, fresh, dev, card, routed=None,
+                    rung_kw=None) -> tuple:
+    """Phase 22: the scale path. (a) the sharded step, (b)-(c) the
+    sharded router, (d) entry.dryrun_multichip, (e) the routing rungs
+    (`rung_kw` overrides their arguments for a rehearsal). K1's launches
+    are counted from 0 around each part. Returns (metrics, K1 launches
+    by path: sharded_step, sharded_router, rungs)."""
+    import contextlib
+    import io
+
+    from kubedtn_tpu_torch import entry, scenarios
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    m, k1 = {}, {}
+    t0 = time.perf_counter()
+    m["a"], k1["sharded_step"] = scale_step_part(el, fresh, dev, card)
+    m["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m["b"], k1["sharded_router"] = scale_router_part(el, fresh, dev, card,
+                                                     routed)
+    m["b_s"] = time.perf_counter() - t0
+
+    # (d) the dryrun on 8 virtual shards of the card
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dr = entry.dryrun_multichip(DRYRUN_SHARDS, device=dev)
+    line = buf.getvalue().strip()
+    check(dr["delivered"] > 0 and dr["tx_packets"] == dr["delivered"]
+          and line == f"dryrun_multichip({DRYRUN_SHARDS}): OK — "
+                      f"{dr['delivered']} packets shaped across "
+                      f"{DRYRUN_SHARDS} shards, psum'd node counters "
+                      f"consistent", f"22(d): {dr}, {line!r}")
+    m["d"] = dict(dr, s=time.perf_counter() - t0)
+    log(f"22(d) {line} ({card})")
+
+    # (e) the routing rungs at JAX's default widths
+    rung_kw = SCALE_RUNG_KW if rung_kw is None else rung_kw
+    card_k1 = int(dev.type == "cuda")
+    m["e"], rung_k1 = {}, {}
+    for name in SCALE_RUNGS:
+        shaping.reset_launches()
+        t0 = time.perf_counter()
+        r = scenarios.LADDER[name](device=dev, **rung_kw.get(name, {}))
+        _sync(dev)
+        rung_k1[name] = shaping.LAUNCHES["shape_step_rows"]
+        r["phase_s"] = time.perf_counter() - t0
+        check(set(r) - {"phase_s"} == RUNG_KEYS[name] | {"device"},
+              f"22(e) {name}: keys {sorted(r)}")
+        m["e"][name] = r
+        log(f"22(e) {name}: {json.dumps(r)}; K1 launches {rung_k1[name]} "
+            f"({card})")
+    r = m["e"]["routes_10k"]
+    check(rung_k1["routes_10k"] == 0 and 0 < r["reachable_frac"] <= 1,
+          f"22(e) routes_10k: {r}, K1 {rung_k1['routes_10k']}")
+    r = m["e"]["reconverge_10k"]
+    check(rung_k1["reconverge_10k"] == 0
+          and r["matches_full_recompute"] is True,
+          f"22(e) reconverge_10k: {r}, K1 {rung_k1['reconverge_10k']}")
+    r = m["e"]["chaos_flaps"]
+    kw = rung_kw.get("chaos_flaps", {})
+    events = kw.get("events", 4)
+    steps = kw.get("steps_per_event", 30) * (1 + 2 * events)
+    slots = 2 + ROUTED_K_FWD     # the rung's k_slots at 2 Mbit/s, k_fwd
+    check(rung_k1["chaos_flaps"] == card_k1 * slots * steps
+          and r["traffic_survived_every_outage"] and r["baseline_rx"] > 0,
+          f"22(e) chaos_flaps: {r}, K1 {rung_k1['chaos_flaps']} (want "
+          f"{slots} x {steps})")
+    log(f"22(e) routes_10k and reconverge_10k launch no kernel (route "
+        f"recomputes only); chaos_flaps K1 {rung_k1['chaos_flaps']} = "
+        f"{slots} slots x {steps} steps ({card})")
+    k1["rungs"] = rung_k1["chaos_flaps"]
+    m["rung_k1_launches"] = rung_k1
+    return m, k1
+
+
+ALL_PHASES = tuple(range(1, 23))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
-NEEDS_MAIN_PATH = {3, 4, 10, 11, 14}
+NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22}
 LIVE_TICK_PHASES = {6, 7, 8}   # one run of run_live_tick
 
 
@@ -7870,6 +8273,47 @@ def parse_phases(argv) -> tuple[set, bool]:
     return want, args.daemon_rate
 
 
+class ProbeK4:
+    """The K4 launches of the sharded planes' sampled exchange probes
+    (runtime.WireDataPlane._run_exchange_probe), counted while installed:
+    each run must make (S - 1) ring steps of len(ring_plan(mesh))
+    launches on the card. Each phase's sharded-plane K4 count is the
+    planes' own launches plus this term, read around the phase."""
+
+    def __init__(self) -> None:
+        self.runs = 0
+        self.launches = 0
+        self._real = None
+
+    def install(self) -> "ProbeK4":
+        from kubedtn_tpu_torch import runtime
+        from kubedtn_tpu_torch.parallel import exchange as pex
+
+        real = self._real = runtime.WireDataPlane._run_exchange_probe
+        counter = self
+
+        def counted(plane, rows: int) -> None:
+            k0 = pex.LAUNCHES["ring_step"]
+            real(plane, rows)
+            got = pex.LAUNCHES["ring_step"] - k0
+            mesh = plane._shard_mesh
+            want = ((len(mesh) - 1) * len(pex.ring_plan(mesh))
+                    if mesh[0].type == "cuda" else 0)
+            check(got == want, f"the exchange probe launched K4 {got} "
+                               f"times on a mesh of {len(mesh)}, want "
+                               f"{want}")
+            counter.runs += 1
+            counter.launches += got
+
+        runtime.WireDataPlane._run_exchange_probe = counted
+        return self
+
+    def uninstall(self) -> None:
+        from kubedtn_tpu_torch import runtime
+
+        runtime.WireDataPlane._run_exchange_probe = self._real
+
+
 def main(argv=None) -> int:
     want, daemon_rate = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -7907,9 +8351,23 @@ def main(argv=None) -> int:
     detail = {"card": card, "build_s": build_s, "phases": sorted(want)}
     results = {}
     k1_paths = {}
-    k4_paths = {}
+    k4_paths = {"probe": 0}
     launches = {}
     phase_s = {}
+    keep = {}
+    probe = ProbeK4().install()
+
+    def plane_k4(path: str, total: int, probe0: int) -> None:
+        """A sharded-plane path's K4 count: its planes' own launches
+        (which must be there) and the probes' launches, a term of its
+        own (counted from probe0)."""
+        probe_k4 = probe.launches - probe0
+        k4_paths[path] = total - probe_k4
+        k4_paths["probe"] += probe_k4
+        log(f"{path}: K4 {total} launches = {k4_paths[path]} by the "
+            f"sharded planes + {probe_k4} by their exchange probes")
+        check(k4_paths[path] > 0, f"K4 never launched on the {path} path's "
+                                  f"sharded planes (probes aside)")
 
     def clock(name, t0):
         phase_s[name] = time.perf_counter() - t0
@@ -7964,14 +8422,16 @@ def main(argv=None) -> int:
     if 11 in want:
         t0 = time.perf_counter()
         detail["routed"], k1_paths["routed"] = run_routed_phase(
-            el, fresh, dev, card)
+            el, fresh, dev, card, keep=keep)
         clock("11", t0)
     plane_m = None
     if 12 in want:
         t0 = time.perf_counter()
         shaping.reset_launches()
-        plane_m, k4_paths["plane"] = run_live_plane_phase(dev, card)
+        p0 = probe.launches
+        plane_m, k4_plane = run_live_plane_phase(dev, card)
         k1_paths["plane"] = shaping.LAUNCHES["shape_step_rows"]
+        plane_k4("plane", k4_plane, p0)
         log(f"live plane path launches: K1 {k1_paths['plane']}, K4 "
             f"{k4_paths['plane']}")
         check(k1_paths["plane"] > 0,
@@ -8010,10 +8470,12 @@ def main(argv=None) -> int:
         clock("15", t0)
     if 16 in want:
         t0 = time.perf_counter()
-        ten_m, k1_paths["tenancy"], k4_paths["tenancy"] = run_tenancy_phase(
+        p0 = probe.launches
+        ten_m, k1_paths["tenancy"], k4_ten = run_tenancy_phase(
             dev, card, plane_d1_drain_share=(
                 plane_m["plane"]["stage_depth1"]["share"]["drain"]
                 if plane_m else None))
+        plane_k4("tenancy", k4_ten, p0)
         ten_m["phase_s"] = time.perf_counter() - t0
         log(f"16: phase {ten_m['phase_s']:.1f} s; tenancy path launches: "
             f"K1 {k1_paths['tenancy']}, K4 {k4_paths['tenancy']}")
@@ -8037,8 +8499,10 @@ def main(argv=None) -> int:
     kept = {} if 19 in want else None
     if 18 in want:
         t0 = time.perf_counter()
-        mig_m, k1_paths["migration"], k4_paths["migration"] = \
+        p0 = probe.launches
+        mig_m, k1_paths["migration"], k4_mig = \
             run_migration_phase(dev, card, keep=kept)
+        plane_k4("migration", k4_mig, p0)
         log(f"18: phase {mig_m['phase_s']:.1f} s; migration path launches: "
             f"K1 {k1_paths['migration']} (warm_kernels), K4 "
             f"{k4_paths['migration']}")
@@ -8048,8 +8512,10 @@ def main(argv=None) -> int:
         clock("18", t0)
     if 19 in want:
         t0 = time.perf_counter()
-        fl_m, k1_paths["fleet"], k4_paths["fleet"] = run_fleet_phase(
+        p0 = probe.launches
+        fl_m, k1_paths["fleet"], k4_fleet = run_fleet_phase(
             dev, card, reuse=kept or None)
+        plane_k4("fleet", k4_fleet, p0)
         kept = None
         log(f"19: fleet path launches: K1 {k1_paths['fleet']} "
             f"(warm_kernels, fallback rows), K4 {k4_paths['fleet']}")
@@ -8081,10 +8547,26 @@ def main(argv=None) -> int:
         detail["k8s"] = mgr_m
         _free_card(dev)
         clock("21", t0)
+    if 22 in want:
+        t0 = time.perf_counter()
+        scale_m, scale_k1 = run_scale_phase(el, fresh, dev, card,
+                                            routed=keep.pop("routed", None))
+        k1_paths["sharded_step"] = scale_k1["sharded_step"]
+        k1_paths["sharded_router"] = scale_k1["sharded_router"]
+        k1_paths["ladder"] = k1_paths.get("ladder", 0) + scale_k1["rungs"]
+        scale_m["phase_s"] = time.perf_counter() - t0
+        log(f"22: phase {scale_m['phase_s']:.1f} s; K1 launches: sharded "
+            f"step {scale_k1['sharded_step']}, sharded router "
+            f"{scale_k1['sharded_router']}, chaos_flaps {scale_k1['rungs']}")
+        detail["scale"] = scale_m
+        clock("22", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)
         clock("daemon-rate", t0)
+    probe.uninstall()
+    if k4_paths["probe"] == 0:
+        del k4_paths["probe"]
     if plane_m is not None and ckpt_m is not None:
         release = plane_m["plane"]["stage_depth1"]["share"]["release"]
         log(f"12(b) depth-1 release share {release} with kdt_ext "

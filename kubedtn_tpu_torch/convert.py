@@ -127,11 +127,17 @@ def shard(x, mesh) -> list:
     """Split along the edge axis into len(mesh) contiguous blocks, block
     s on mesh[s]: a tensor gives a list of tensors, a tuple of tensors
     (the dynamic columns) a list of per-shard tuples, an EdgeState a
-    list of per-shard EdgeStates."""
+    list of per-shard EdgeStates, any other dataclass of [E, ...]
+    tensors (an InFlight, a TrafficSpec) a list of its blocks."""
     from kubedtn_tpu_torch.parallel.mesh import shard_edge_state
 
     if isinstance(x, es.EdgeState):
         return shard_edge_state(x, mesh)
+    if dataclasses.is_dataclass(x):
+        parts = {f.name: shard(getattr(x, f.name), mesh)
+                 for f in dataclasses.fields(x)}
+        return [type(x)(**{k: v[s] for k, v in parts.items()})
+                for s in range(len(mesh))]
     if isinstance(x, torch.Tensor):
         n = len(mesh)
         if x.shape[0] % n:
@@ -145,12 +151,13 @@ def shard(x, mesh) -> list:
 
 def unshard(blocks, device=None):
     """The inverse of `shard`: blocks joined on `device` (None = the
-    device of block 0)."""
+    device of block 0). A dataclass of [E, ...] tensors (an EdgeState, a
+    ShapeResult) is joined field by field."""
     first = blocks[0]
-    if isinstance(first, es.EdgeState):
-        return es.EdgeState(**{
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
             f.name: unshard([getattr(b, f.name) for b in blocks], device)
-            for f in dataclasses.fields(es.EdgeState)})
+            for f in dataclasses.fields(first)})
     if isinstance(first, torch.Tensor):
         dev = first.device if device is None else torch.device(device)
         return torch.cat([b.to(dev) for b in blocks])

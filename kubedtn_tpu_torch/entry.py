@@ -5,6 +5,9 @@ and the class groups of one live tick.
 `entry()` returns the drop-in shaping step over a k=8 fat-tree edge
 state (80 switches, 256 links -> 512 directed rows in capacity 1024)
 plus example arguments. On the card the step runs kernel K1.
+`dryrun_multichip(n)` runs one sharded simulation step of that state
+over n virtual shards (parallel/sharded.py), as the JAX entry's
+multi-device dryrun does.
 `build_live_tick` packs the groups that runtime.fused_tick (and its
 sharded form, whose ring steps run kernel K4) shapes in one tick.
 `build_sim` and `build_routed` assemble the K-slot simulator and the
@@ -81,6 +84,49 @@ def entry(device=None):
                                          generator)
 
     return fwd, (state, sizes, have, t_arr, generator)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """One full sharded simulation step — batched link updates, per-edge
+    shaping (kernel K1 per shard on the card), cross-shard per-node
+    counters — over `n_devices` virtual shards of one device, the
+    counterpart of __graft_entry__.dryrun_multichip: the fat-tree of
+    `entry()` (80 switches, 512 directed rows in capacity 1024) and one
+    64-row "20ms / 100Mbit" UpdateLinks batch. `device` None means the
+    CUDA card. Checks that packets were delivered and that the
+    cross-shard tx_packets total equals them, prints the JAX entry's OK
+    line and returns {"n_devices", "device", "delivered",
+    "tx_packets"}."""
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh, shard_edge_state
+    from kubedtn_tpu_torch.parallel.sharded import make_sharded_step
+
+    dev = resolve_device(device)
+    mesh = make_mesh([dev] * n_devices)
+    _, state, sizes, have, t_arr = _build(dev)
+    n_nodes = 80  # fat_tree(8) switch count
+    shards = shard_edge_state(state, mesh)
+    step = make_sharded_step(mesh, n_nodes=n_nodes)
+    B = 64
+    urows = np.arange(B, dtype=np.int32)
+    uprops = np.stack(
+        [es.props_row(LinkProperties(latency="20ms", rate="100Mbit")
+                      .to_numeric())] * B)
+    uvalid = np.ones(B, dtype=bool)
+    generator = torch.Generator(device=mesh[0]).manual_seed(0)
+    _, res, stats = step(shards, urows, uprops, uvalid, sizes, have, t_arr,
+                         generator)
+    delivered = sum(int(r.delivered.sum()) for r in res)
+    if delivered <= 0:
+        raise RuntimeError("sharded step delivered no packets")
+    total_tx = float(stats.tx_packets.sum())
+    if total_tx != delivered:
+        raise RuntimeError(f"cross-shard tx_packets {total_tx} != "
+                           f"{delivered} delivered")
+    print(f"dryrun_multichip({n_devices}): OK — {delivered} packets shaped "
+          f"across {n_devices} shards, psum'd node counters consistent")
+    return {"n_devices": n_devices, "device": str(dev),
+            "delivered": delivered, "tx_packets": total_tx}
 
 
 def link_key_id(row: int) -> int:

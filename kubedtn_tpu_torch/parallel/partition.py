@@ -1,9 +1,9 @@
 """Edge partitioner of the sharded live tick: block sharding along the
 edge axis.
 
-Port of kubedtn_tpu/parallel/partition.py's `shard_ranges`,
-`shard_of_rows`, `pick_pair_rows`, `tenant_blocks` / `tenant_block` and
-`colocation_stats`. Shard s owns the contiguous row range
+Port of kubedtn_tpu/parallel/partition.py: `shard_ranges`,
+`shard_of_rows`, `pick_pair_rows`, `tenant_blocks` / `tenant_block`,
+`colocation_stats` and `mailbox_layout`. Shard s owns the contiguous row range
 [s*E/S, (s+1)*E/S). A row is CROSS-SHARD for a tick when the shard that
 owns it is not the shard that shapes its peer direction; its state rides
 the mailbox ring (parallel/exchange.py) to every shard.
@@ -12,6 +12,10 @@ the mailbox ring (parallel/exchange.py) to every shard.
 from __future__ import annotations
 
 import numpy as np
+
+__all__ = ["shard_ranges", "shard_of_rows", "colocation_stats",
+           "mailbox_layout", "pick_pair_rows", "tenant_block",
+           "tenant_blocks"]
 
 
 def shard_ranges(capacity: int, n_shards: int) -> list[tuple[int, int]]:
@@ -165,4 +169,28 @@ def colocation_stats(engine, n_shards: int) -> dict:
         "links_paired": pairs,
         "links_colocated": colocated,
         "colocated_frac": round(colocated / pairs, 4) if pairs else 1.0,
+    }
+
+
+def mailbox_layout(src_rows, dst_rows, capacity: int,
+                   n_shards: int) -> dict:
+    """Per-ordered-neighbor-pair mailbox slot counts for one tick's
+    busy rows: src_rows are the rows with traffic, dst_rows the peer
+    (destination) edge rows (-1 = unknown/none). Returns the non-zero
+    (src_shard, dst_shard) -> slot-count map plus the bound the ring
+    exchange actually allocates (every busy row rides the mailbox once
+    per ring step, so the per-step block size is len(src_rows))."""
+    src_sh = shard_of_rows(src_rows, capacity, n_shards)
+    dst = np.asarray(dst_rows, np.int64)
+    known = dst >= 0
+    dst_sh = np.full_like(src_sh, -1)
+    dst_sh[known] = shard_of_rows(dst[known], capacity, n_shards)
+    pairs: dict[tuple[int, int], int] = {}
+    for s, t in zip(src_sh.tolist(), dst_sh.tolist()):
+        if t >= 0 and s != t:
+            pairs[(s, t)] = pairs.get((s, t), 0) + 1
+    return {
+        "pairs": pairs,
+        "cross_rows": int(sum(pairs.values())),
+        "mailbox_slots": int(len(src_sh)),
     }

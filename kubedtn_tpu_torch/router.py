@@ -33,8 +33,8 @@ import torch
 
 from kubedtn_tpu_torch.models.traffic import TrafficSpec, generate
 from kubedtn_tpu_torch.ops import netem
-from kubedtn_tpu_torch.ops.queues import (insert_inflight, pop_due,
-                                          shape_packets)
+from kubedtn_tpu_torch.ops.queues import (InFlight, insert_inflight,
+                                          pop_due, shape_packets)
 from kubedtn_tpu_torch.sim import (SimState, StepDraws, _add, _count, as_dt,
                                    init_sim, replica_count, replica_inputs)
 
@@ -132,6 +132,19 @@ def _node_sums(values: torch.Tensor, node: torch.Tensor,
     multiple of that unit, so for whole bytes and counts), then rounded
     to f32 once. With `n_rep` replicas of E / n_rep rows the sums are
     f32[n_rep * n], replica-major."""
+    return fixed_to_f32(node_sums_fixed(values, node, n_nodes, n_rep))
+
+
+def fixed_to_f32(acc: torch.Tensor) -> torch.Tensor:
+    """An int64 sum in units of 2^-16 rounded to f32 once."""
+    return (acc.double() / _FIXED_ONE).to(F32)
+
+
+def node_sums_fixed(values: torch.Tensor, node: torch.Tensor,
+                    n_nodes: int, n_rep: int = 1) -> torch.Tensor:
+    """`_node_sums` before its rounding: the exact int64 sums in units of
+    2^-16. Sums of disjoint edge blocks add up to the sum of their union
+    in any order (the sharded step's and router's cross-shard sums)."""
     total = n_rep * n_nodes
     acc = torch.zeros(total + 1, dtype=I64, device=values.device)
     # a node outside [0, n) lands on the cut-off row, as a scatter drops it
@@ -142,7 +155,7 @@ def _node_sums(values: torch.Tensor, node: torch.Tensor,
                                    dtype=node.dtype) // rows * n_nodes
     row = torch.where(ok, node, total).long()
     acc.index_add_(0, row, (values.double() * _FIXED_ONE).to(I64))
-    return (acc[:total].double() / _FIXED_ONE).to(F32)
+    return acc[:total]
 
 
 def _ecmp_pick(group: torch.Tensor, ingress: torch.Tensor,
@@ -179,31 +192,45 @@ def router_step(rs: RouterState, spec: TrafficSpec, flow_dst: torch.Tensor,
         shape_fn=shape_fn)
 
 
-def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
-                        sizes_t, valid_t, t_arr_t, generator, k_fwd: int,
-                        dt_us, *, shape_u=None, shape_fn=shape_packets):
-    """Everything after traffic generation — split out so a replica
-    sweep can generate the (replica-independent) traffic once.
+@dataclasses.dataclass(frozen=True)
+class Hop:
+    """What one routed step leaves on a block of rows before forwarding:
+    the next SimState, the pre-pop delay line `fl` and its `due` mask,
+    the packets due at their destination, and for each flat (edge, slot)
+    cell of the transit packets its final destination, liveness, and the
+    flat index of its (here, destination) pair in the routing table."""
 
-    `rs` may hold N replicas of the E traffic rows, laid out
-    replica-major as in sim._finish_step: edges, delay line, counters and
-    pending lanes with N x E rows, node counters f32[N * n_nodes] and the
-    forwarding drops f32[N]; the routing table, traffic state, flow
-    destinations and the step's uniforms are shared. A replica's packets
-    forward onto its own rows only. With 0-dim drop counters this is the
-    one-state step."""
+    sim: SimState
+    fl: InFlight         # the delay line before the pop
+    due: torch.Tensor    # bool[E, Q]
+    at_dest: torch.Tensor
+    flat_fd: torch.Tensor
+    flat_live: torch.Tensor
+    safe_fd: torch.Tensor
+    pair: torch.Tensor
+    n_nodes: int
+
+    def rx_p_fixed(self, n_rep: int = 1) -> torch.Tensor:
+        """Packets delivered to each node this step, exact int64 in
+        units of 2^-16 (node_sums_fixed)."""
+        return node_sums_fixed(_count(self.at_dest), self.sim.edges.dst,
+                               self.n_nodes, n_rep)
+
+    def rx_b_fixed(self, n_rep: int = 1) -> torch.Tensor:
+        """Bytes delivered to each node this step, the same way."""
+        return node_sums_fixed(
+            torch.where(self.at_dest, self.fl.size, 0.0).sum(dim=1),
+            self.sim.edges.dst, self.n_nodes, n_rep)
+
+
+def hop(rs: RouterState, flow_dst: torch.Tensor, tstate, sizes_t, valid_t,
+        t_arr_t, generator, dt_us, shape_u, shape_fn, n_nodes: int) -> Hop:
+    """Steps 2-4 of a routed step on `rs`'s rows (the whole state, a
+    replica sweep's N x E rows, or one shard's block): the sourced
+    packets and the pending lanes shaped (shape_fn: K1 per slot on the
+    card), into the delay lines, the due deliveries popped, the counters
+    added and the epoch rolled; forwarding is the caller's."""
     sim = rs.sim
-    E = sim.edges.capacity
-    dev = sim.edges.device
-    batched = rs.fwd_dropped.dim() == 1
-    n = replica_count(E, sizes_t.shape[0])
-    e_rep = E // n
-    n_nodes = rs.node_rx_packets.shape[0] // n
-    if n > 1:
-        sizes_t, valid_t, t_arr_t, shape_u = replica_inputs(
-            n, sizes_t, valid_t, t_arr_t, sizes_t.shape[1] + k_fwd,
-            generator, shape_u)
-        flow_dst = flow_dst.repeat(n)
     valid_t = valid_t & sim.edges.active[:, None]
     sizes_t = torch.where(valid_t, sizes_t, 0.0)  # keep byte counters honest
     fd = torch.where(flow_dst >= 0, flow_dst, sim.edges.dst)
@@ -239,16 +266,6 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
     here = sim.edges.dst[:, None].expand(due.shape)
     at_dest = due & (fl.final_dst == here)
     in_transit = due & ~at_dest
-
-    # 4a. final deliveries -> per-node counters: each edge's own total
-    #     first (a fixed-order reduction), then edges into nodes
-    node = sim.edges.dst
-    node_rx_p = rs.node_rx_packets + _node_sums(_count(at_dest), node,
-                                                n_nodes, n)
-    node_rx_b = rs.node_rx_bytes + _node_sums(
-        torch.where(at_dest, fl.size, 0.0).sum(dim=1), node, n_nodes, n)
-
-    # 4b. transit packets -> next-hop edge, re-inject next step
     flat_fd = fl.final_dst.reshape(-1)
     flat_live = in_transit.reshape(-1)
     safe_here = torch.where(flat_live, here.reshape(-1), 0).long()
@@ -256,6 +273,65 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
     # a gather clamps an out-of-range node, as the reference's does
     pair = (safe_here.clamp_max(n_nodes - 1) * n_nodes
             + safe_fd.clamp_max(n_nodes - 1))
+
+    counters = _add(
+        sim.counters,
+        tx_packets=_count(valid),
+        tx_bytes=sizes.sum(dim=1),
+        rx_packets=_count(due),
+        rx_bytes=torch.where(due, fl.size, 0.0).sum(dim=1),
+        rx_corrupted=_count(due & fl.corrupted),
+        dropped_loss=_count(res.dropped_loss),
+        dropped_queue=_count(res.dropped_queue),
+        dropped_ring=dropped_ring,
+        duplicated=_count(res.duplicated),
+        reordered=_count(res.reordered),
+    )
+    edges = netem.roll_epoch(edges, dt_us)
+    sim2 = SimState(edges=edges, inflight=fl_after, counters=counters,
+                    traffic=tstate, clock_us=sim.clock_us + dt_us)
+    return Hop(sim=sim2, fl=fl, due=due, at_dest=at_dest, flat_fd=flat_fd,
+               flat_live=flat_live, safe_fd=safe_fd, pair=pair,
+               n_nodes=n_nodes)
+
+
+def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
+                        sizes_t, valid_t, t_arr_t, generator, k_fwd: int,
+                        dt_us, *, shape_u=None, shape_fn=shape_packets):
+    """Everything after traffic generation — split out so a replica
+    sweep can generate the (replica-independent) traffic once.
+
+    `rs` may hold N replicas of the E traffic rows, laid out
+    replica-major as in sim._finish_step: edges, delay line, counters and
+    pending lanes with N x E rows, node counters f32[N * n_nodes] and the
+    forwarding drops f32[N]; the routing table, traffic state, flow
+    destinations and the step's uniforms are shared. A replica's packets
+    forward onto its own rows only. With 0-dim drop counters this is the
+    one-state step."""
+    sim = rs.sim
+    E = sim.edges.capacity
+    dev = sim.edges.device
+    batched = rs.fwd_dropped.dim() == 1
+    n = replica_count(E, sizes_t.shape[0])
+    e_rep = E // n
+    n_nodes = rs.node_rx_packets.shape[0] // n
+    if n > 1:
+        sizes_t, valid_t, t_arr_t, shape_u = replica_inputs(
+            n, sizes_t, valid_t, t_arr_t, sizes_t.shape[1] + k_fwd,
+            generator, shape_u)
+        flow_dst = flow_dst.repeat(n)
+    h = hop(rs, flow_dst, tstate, sizes_t, valid_t, t_arr_t, generator,
+            dt_us, shape_u, shape_fn, n_nodes)
+    fl, due = h.fl, h.due
+
+    # 4a. final deliveries -> per-node counters: each edge's own total
+    #     first (a fixed-order reduction), then edges into nodes
+    node_rx_p = rs.node_rx_packets + fixed_to_f32(h.rx_p_fixed(n))
+    node_rx_b = rs.node_rx_bytes + fixed_to_f32(h.rx_b_fixed(n))
+
+    # 4b. transit packets -> next-hop edge, re-inject next step
+    flat_fd, flat_live, safe_fd, pair = (h.flat_fd, h.flat_live, h.safe_fd,
+                                         h.pair)
     if rs.next_edge.dim() == 3:
         group = rs.next_edge.reshape(n_nodes * n_nodes, -1).index_select(
             0, pair)
@@ -277,26 +353,8 @@ def _finish_router_step(rs: RouterState, flow_dst: torch.Tensor, tstate,
         n if batched else None)
     no_route_n = (no_route.view(n, -1).sum(dim=1) if batched
                   else no_route.sum()).to(F32)
-
-    counters = _add(
-        sim.counters,
-        tx_packets=_count(valid),
-        tx_bytes=sizes.sum(dim=1),
-        rx_packets=_count(due),
-        rx_bytes=torch.where(due, fl.size, 0.0).sum(dim=1),
-        rx_corrupted=_count(due & fl.corrupted),
-        dropped_loss=_count(res.dropped_loss),
-        dropped_queue=_count(res.dropped_queue),
-        dropped_ring=dropped_ring,
-        duplicated=_count(res.duplicated),
-        reordered=_count(res.reordered),
-    )
-
-    edges = netem.roll_epoch(edges, dt_us)
-    sim2 = SimState(edges=edges, inflight=fl_after, counters=counters,
-                    traffic=tstate, clock_us=sim.clock_us + dt_us)
     return RouterState(
-        sim=sim2,
+        sim=h.sim,
         next_edge=rs.next_edge,
         pend_size=torch.where(p_ok, p_sz, 0.0),
         pend_dst=torch.where(p_ok, p_dst, -1),

@@ -1393,6 +1393,14 @@ class WireDataPlane:
         self.shard_xfrm = 0            # cumulative cross-shard frames
         self.shard_xfrm_last = 0       # cross-shard frames, last tick
         self.shard_mailbox_hwm = 0     # mailbox rows high-water mark
+        # the sampled exchange probe behind `exchange_seconds`: the ring
+        # rides inside the sharded dispatch, so its cost is measured by
+        # running it alone on a mailbox of the dispatch's padded rows,
+        # on dispatches 1, 65, 129, ... (K4 on the card)
+        self.shard_exchange_s = 0.0    # sampled exchange-probe seconds
+        self.shard_exchange_runs = 0   # probe runs since enable_sharding
+        self._exchange_probe = None
+        self._exchange_count = 0       # dispatches since enable_sharding
 
     def enable_sharding(self, mesh=None, n_devices: int | None = None):
         """Run the plane's tick as the sharded program of
@@ -1439,10 +1447,33 @@ class WireDataPlane:
                 engine.shard_count = S
             self._shard_mesh = mesh
             self._sharded_fused = make_sharded_fused(mesh)
+            self._exchange_probe = exchange_probe(mesh) if S > 1 else None
             self.shard_xfrm = 0
             self.shard_xfrm_last = 0
             self.shard_mailbox_hwm = 0
+            self.shard_exchange_s = 0.0
+            self.shard_exchange_runs = 0
+            self._exchange_count = 0
         return mesh
+
+    def _run_exchange_probe(self, rows: int) -> None:
+        """One run of the exchange probe on zero mailboxes of `rows`
+        padded rows (a [rows, NPROP + 3 + NCORR] f32 payload and a
+        [rows, 3] i32 one), its synchronised wall time added to
+        shard_exchange_s."""
+        fm = torch.zeros((rows, NPROP + 3 + NCORR), dtype=torch.float32,
+                         device=self.device)
+        im = torch.zeros((rows, 3), dtype=torch.int32, device=self.device)
+        cards = [d for d in dict.fromkeys(self._shard_mesh)
+                 if d.type == "cuda"]
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        self._exchange_probe(fm, im)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        self.shard_exchange_s += time.perf_counter() - t0
+        self.shard_exchange_runs += 1
 
     def shard_summary(self) -> dict:
         """Sharding posture + partition quality + mailbox counters."""
@@ -1462,6 +1493,7 @@ class WireDataPlane:
             "xshard_frames": int(self.shard_xfrm),
             "xshard_frames_last": int(self.shard_xfrm_last),
             "mailbox_hwm": int(self.shard_mailbox_hwm),
+            "exchange_seconds": round(self.shard_exchange_s, 6),
         })
         return out
 
@@ -2420,6 +2452,11 @@ class WireDataPlane:
                 state, dyn_in, self._key, elapsed_us,
                 args.get("seq"), args.get("tbf"), args.get("ind"),
                 tel_in)
+        if self._exchange_probe is not None and args:
+            self._exchange_count += 1
+            if self._exchange_count % 64 == 1:
+                self._run_exchange_probe(
+                    max(a[1].shape[0] for a in host_args.values()))
         if job.has_tel:
             self.telemetry.set_acc(tel_out)
         self._key = key

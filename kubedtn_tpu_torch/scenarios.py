@@ -1,10 +1,13 @@
 """Scenarios of the port, runnable functions returning a result dict.
 
-Port of kubedtn_tpu/scenarios.py, in part. Six of the BASELINE rungs:
+Port of kubedtn_tpu/scenarios.py, in part. Nine of the BASELINE rungs:
 `three_node` ("3node", a sample through the control plane and a ping
-per link), `fat_tree_64`, `churn_1k`, `clos_100k`, `reconcile_100k`
-(reconcile-to-steady at 100k links through store, reconciler and
-engine) and `scale_1m` (UpdateLinks and a K1 step over 2M rows). Then
+per link), `fat_tree_64`, `churn_1k`, `routes_10k` (route recomputes
+on link events), `clos_100k`, `reconcile_100k` (reconcile-to-steady at
+100k links through store, reconciler and engine), `scale_1m`
+(UpdateLinks and a K1 step over 2M rows), `chaos_flaps` (link flaps
+under routed traffic) and `reconverge_10k` (incremental reconvergence
+on a three-tier fabric). Then
 `_tenant_plane_setup` (the multi-tenant plane harness),
 `burn_recovery` (the SLO autopilot's
 closed loop on one live plane), `migration_under_flap` (a live tenant
@@ -13,10 +16,10 @@ supervisor's two: `plane_failover` (a plane killed mid-migration and
 evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
 daemons upgraded one at a time under load). Each takes a `device`, None
 meaning the CUDA card, and returns the JAX scenario's keys (and
-"device"). `LADDER` holds these ten in the order of the JAX module's
-ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED` names the
-rest of that ladder (the routing rungs, the soaks, noisy_neighbor,
-whatif_sweep, ...), still to be ported.
+"device"). `LADDER` holds these thirteen in the order of the JAX
+module's ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED` names
+the rest of that ladder (the soaks, noisy_neighbor, whatif_sweep, ...),
+still to be ported.
 """
 
 from __future__ import annotations
@@ -184,6 +187,50 @@ def churn_1k(n_nodes: int = 1000, n_links: int = 3000,
         "links": n_links,
         "churn_links_total": batch * n_batches,
         "updates_per_sec": round(batch * n_batches / upd_time, 1),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def routes_10k(n_nodes: int = 10_000, n_links: int = 30_000,
+               events: int = 3, dst_chunk: int = 1000, device=None):
+    """Rung 4: 10k-node shortest-path recompute on link up/down events —
+    the BGP-convergence analogue as batched min-plus relaxation on the
+    device (no shaping: no kernel of the port is launched)."""
+    import numpy as np
+
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import routing as R
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.random_mesh(n_nodes, n_links, seed=11,
+                       props=LinkProperties(latency="1ms"))
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    recompute_times = []
+    rng = np.random.default_rng(1)
+    for _ in range(events):
+        # link event: take a random link down (both directions)
+        pick = int(rng.integers(0, el.n_links))
+        state = es.delete_links(
+            state, np.array([pick, pick + el.n_links], np.int32),
+            np.ones(2, dtype=bool))
+        _sync(dev)
+        tb = time.perf_counter()
+        dist, nh = R.recompute_routes(state, n_nodes, max_hops=12,
+                                      dst_chunk=dst_chunk)
+        _sync(dev)
+        recompute_times.append(time.perf_counter() - tb)
+    finite = int(dist.isfinite().sum()) / dist.numel()
+    return {
+        "scenario": "routes_10k",
+        "device": str(dev),
+        "nodes": n_nodes,
+        "links": n_links,
+        "recompute_s_first": round(recompute_times[0], 3),
+        "recompute_s_steady": round(float(np.mean(recompute_times[1:])), 3)
+        if len(recompute_times) > 1 else None,
+        "reachable_frac": round(finite, 4),
         "wall_s": round(time.perf_counter() - t0, 3),
     }
 
@@ -445,6 +492,233 @@ def scale_1m(n_spine: int = 200, n_leaf: int = 2500,
         "load_s": round(load_s, 3),
         "updates_per_sec": round(updates_per_s, 1),
         "shape_pkts_per_sec": round(shape_pkts_per_s, 1),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def chaos_flaps(n_nodes: int = 500, n_links: int = 1500, events: int = 4,
+                flaps_per_event: int = 10, steps_per_event: int = 30,
+                dt_us: float = 1000.0, rate_bps: float = 2e6,
+                seed: int = 3, device=None):
+    """Rung 8: fault-injection chaos — random link flaps under live
+    routed traffic.
+
+    Per event, `flaps_per_event` random links go down (both directions),
+    routes reconverge as one batched recompute, routed CBR traffic keeps
+    flowing (each shaping slot one launch of K1 on the card), then the
+    links come back and routes reconverge again. Reports per-event
+    recompute times, delivery continuity and packets lost to dead
+    routes. The links are 1 ms latency-only and the traffic CBR, so no
+    outcome depends on a draw."""
+    import numpy as np
+
+    from kubedtn_tpu_torch import router as RT
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.models.traffic import cbr_everywhere
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import routing as R
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.random_mesh(n_nodes, n_links, seed=seed,
+                       props=LinkProperties(latency="1ms"))
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    n_dir = len(rows)
+    _, nh = R.recompute_routes(state, n_nodes, max_hops=12)
+
+    # slot budget sized to the offered load (generate() clamps emissions
+    # to k_slots per step: too few would silently cap rate_bps)
+    k_slots = min(8, max(2, int(np.ceil(rate_bps * dt_us / 8e6 / 1500.0))
+                         + 1))
+    k_fwd = 8
+    rs = RT.init_router(state, nh, n_nodes, q=16, k_fwd=k_fwd)
+    spec = cbr_everywhere(state.capacity, n_dir, rate_bps=rate_bps,
+                          device=dev)
+    # every edge-sourced flow targets a random far node: multi-hop load
+    rng = np.random.default_rng(seed + 1)
+    fdst = np.full((state.capacity,), -1, np.int32)
+    fdst[:n_dir] = rng.integers(0, n_nodes, n_dir)
+
+    # original (uid, src, dst, props) of each directed row, for restore
+    src0, dst0, uid0, props0 = el.directed()
+    phase = [0]
+
+    def run(rs, steps):
+        before_rx = float(rs.node_rx_packets.sum())
+        before_tx = float(rs.sim.counters.tx_packets.sum())
+        before_nr = float(rs.no_route_dropped)
+        phase[0] += 1
+        rs = RT.run_routed(rs, spec, fdst, steps=steps, dt_us=dt_us,
+                           k_slots=k_slots, k_fwd=k_fwd,
+                           seed=seed * 1000 + phase[0])
+        return rs, {
+            "tx": float(rs.sim.counters.tx_packets.sum()) - before_tx,
+            "rx": float(rs.node_rx_packets.sum()) - before_rx,
+            "no_route": float(rs.no_route_dropped) - before_nr,
+        }
+
+    def reroute(rs):
+        _sync(dev)
+        tb = time.perf_counter()
+        _, nh = R.recompute_routes(rs.sim.edges, n_nodes, max_hops=12)
+        _sync(dev)
+        return dataclasses.replace(rs, next_edge=nh), \
+            time.perf_counter() - tb
+
+    rs, baseline = run(rs, steps_per_event)
+    event_rows = []
+    for _ in range(events):
+        flap = rng.choice(el.n_links, flaps_per_event, replace=False)
+        both = np.concatenate([flap, flap + el.n_links]).astype(np.int32)
+        # in place on the state's edges, which the next steps read
+        es.delete_links(rs.sim.edges, both, np.ones(len(both), bool))
+        rs, down_recompute_s = reroute(rs)
+        rs, down = run(rs, steps_per_event)
+
+        # restore: re-apply the original rows, reconverge
+        es.apply_links(rs.sim.edges, both, uid0[both], src0[both],
+                       dst0[both], props0[both], np.ones(len(both), bool))
+        rs, up_recompute_s = reroute(rs)
+        rs, up = run(rs, steps_per_event)
+        event_rows.append({
+            "flapped_links": int(len(flap)),
+            "down_recompute_s": round(down_recompute_s, 4),
+            "up_recompute_s": round(up_recompute_s, 4),
+            "rx_during_outage": down["rx"],
+            "no_route_during_outage": down["no_route"],
+            "rx_after_restore": up["rx"],
+        })
+
+    return {
+        "scenario": "chaos_flaps",
+        "device": str(dev),
+        "nodes": n_nodes,
+        "links": n_links,
+        "events": events,
+        "baseline_rx": baseline["rx"],
+        "baseline_no_route": baseline["no_route"],
+        "event_results": event_rows,
+        "recompute_s_median": round(float(np.median(
+            [e["down_recompute_s"] for e in event_rows])), 4),
+        "traffic_survived_every_outage": all(
+            e["rx_during_outage"] > 0 for e in event_rows),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def reconverge_10k(events: int = 4, seed: int = 0, dst_chunk: int = 1004,
+                   pods: int = 100, leaves_per_pod: int = 96, device=None):
+    """Flap reconvergence latency at the 10k-node rung: a three-tier DC
+    fabric (models.topologies.three_tier — 10,040 nodes / 23,200 links
+    at the default `pods` and `leaves_per_pod`), one link down per
+    event, routes re-derived with the incremental delta path
+    (ops.routing.update_routes_incremental) and verified against a
+    converged full recompute on the first event; plus one 10-link flap
+    processed as a single batched event (down and up), after a warm-up
+    flap of other links. No shaping: no kernel of the port is
+    launched."""
+    import numpy as np
+    import torch
+
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.ops import edge_state as es
+    from kubedtn_tpu_torch.ops import routing as R
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.three_tier(pods=pods, leaves_per_pod=leaves_per_pod, seed=seed)
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    n_nodes = el.n_nodes
+
+    def full_exact(st):
+        seed_d = torch.full((n_nodes, n_nodes), torch.inf,
+                            dtype=torch.float32, device=dev)
+        d = R.refine_dist(st, n_nodes, seed_d, 64, dst_chunk)
+        return d, R.next_hop_edges(st, d, n_nodes, dst_chunk)
+
+    def timed(fn, *args, **kwargs):
+        _sync(dev)
+        tb = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _sync(dev)
+        return out, time.perf_counter() - tb
+
+    (dist, nh), initial_s = timed(full_exact, state)
+
+    rng = np.random.default_rng(seed + 1)
+
+    def event_edges(state, both):
+        """(w_old, src, dst) of the directed rows `both`, on the host."""
+        rows_t = torch.as_tensor(both, device=dev).long()
+        return (R.edge_weights_latency(state)[rows_t].cpu().numpy(),
+                state.src[rows_t].cpu().numpy(),
+                state.dst[rows_t].cpu().numpy())
+
+    event_rows = []
+    full_s_ref = None
+    agrees = None
+    for ev in range(events):
+        link = int(rng.integers(0, el.n_links))
+        both = np.array([link, link + el.n_links], np.int32)
+        w_old, s_k, d_k = event_edges(state, both)
+        state = es.delete_links(state, both, np.ones(2, bool))
+        if ev == 0:
+            # one full recompute for the reference time + agreement check
+            (dist_f, _), full_s_ref = timed(full_exact, state)
+        (dist, nh, cells), inc_s = timed(
+            R.update_routes_incremental, state, n_nodes, dist, nh, s_k,
+            d_k, w_old, np.full(2, np.inf, np.float32),
+            dst_chunk=dst_chunk)
+        if ev == 0:
+            agrees = bool(np.allclose(dist.cpu().numpy(),
+                                      dist_f.cpu().numpy(), rtol=1e-5,
+                                      atol=1e-1, equal_nan=True))
+        event_rows.append({"link": link, "reconverge_s": round(inc_s, 3),
+                           "cells": int(cells)})
+    steady = [e["reconverge_s"] for e in event_rows[1:]] or \
+        [event_rows[0]["reconverge_s"]]
+
+    src0, dst0, uid0, props0 = el.directed()
+
+    def flap_event(state, dist, nh):
+        """One 10-link flap: delete all links (timed), restore all links
+        (timed); returns the new state and tables, the timings and the
+        cells. The warm-up and the measured flap run this same code."""
+        links = rng.choice(el.n_links, 10, replace=False)
+        both = np.concatenate([links, links + el.n_links]).astype(np.int32)
+        inf = np.full(len(both), np.inf, np.float32)
+        ones = np.ones(len(both), bool)
+        w_old, s_k, d_k = event_edges(state, both)
+        state = es.delete_links(state, both, ones)
+        (dist, nh, cells_dn), down_s = timed(
+            R.update_routes_incremental, state, n_nodes, dist, nh, s_k,
+            d_k, w_old, inf, dst_chunk=dst_chunk)
+        state = es.apply_links(state, both, uid0[both], src0[both],
+                               dst0[both], props0[both], ones)
+        w_new, _, _ = event_edges(state, both)
+        (dist, nh, cells_up), up_s = timed(
+            R.update_routes_incremental, state, n_nodes, dist, nh, s_k,
+            d_k, inf, w_new, dst_chunk=dst_chunk)
+        return state, dist, nh, down_s, up_s, cells_dn + cells_up
+
+    state, dist, nh, _, _, _ = flap_event(state, dist, nh)  # warm-up
+    state, dist, nh, flap10_down_s, flap10_up_s, flap10_cells = \
+        flap_event(state, dist, nh)
+
+    return {
+        "scenario": "reconverge_10k",
+        "device": str(dev),
+        "nodes": n_nodes,
+        "links": el.n_links,
+        "initial_full_s": round(initial_s, 3),
+        "full_recompute_s": round(full_s_ref, 3),
+        "events": event_rows,
+        "reconverge_s_steady": round(float(np.mean(steady)), 3),
+        "speedup_vs_full": round(full_s_ref / float(np.mean(steady)), 1),
+        "matches_full_recompute": agrees,
+        "flap10_down_s": round(flap10_down_s, 3),
+        "flap10_up_s": round(flap10_up_s, 3),
+        "flap10_cells": int(flap10_cells),
         "wall_s": round(time.perf_counter() - t0, 3),
     }
 
@@ -1533,17 +1807,19 @@ LADDER = {
     "3node": three_node,
     "fat_tree_64": fat_tree_64,
     "churn_1k": churn_1k,
+    "routes_10k": routes_10k,
     "clos_100k": clos_100k,
     "reconcile_100k": reconcile_100k,
     "scale_1m": scale_1m,
+    "chaos_flaps": chaos_flaps,
+    "reconverge_10k": reconverge_10k,
     "burn_recovery": burn_recovery,
     "migration_under_flap": migration_under_flap,
     "plane_failover": plane_failover,
     "fleet_rolling_upgrade": fleet_rolling_upgrade,
 }
 NOT_PORTED = (
-    "routes_10k", "chaos_flaps", "live_plane",
-    "live_plane_soak", "reconverge_10k", "chaos_soak", "whatif_sweep",
+    "live_plane", "live_plane_soak", "chaos_soak", "whatif_sweep",
     "telemetry_overhead", "slo_overhead", "pause_observability",
     "sharded_soak", "staged_update_soak", "update_under_flap",
     "noisy_neighbor", "shm_producer_crash", "shm_soak", "tenant_soak",

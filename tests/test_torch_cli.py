@@ -743,7 +743,8 @@ def test_ladder_is_jax_order_restricted_to_the_ported():
 
     assert list(tsc.LADDER) == [k for k in jsc.LADDER if k in tsc.LADDER]
     assert list(tsc.LADDER) == ["3node", "fat_tree_64", "churn_1k",
-                                "clos_100k", "reconcile_100k", "scale_1m",
+                                "routes_10k", "clos_100k", "reconcile_100k",
+                                "scale_1m", "chaos_flaps", "reconverge_10k",
                                 "burn_recovery", "migration_under_flap",
                                 "plane_failover", "fleet_rolling_upgrade"]
     assert sorted([*tsc.LADDER, *tsc.NOT_PORTED]) == sorted(jsc.LADDER)
@@ -751,7 +752,7 @@ def test_ladder_is_jax_order_restricted_to_the_ported():
                                     if k not in tsc.LADDER]
 
 
-@pytest.mark.parametrize("name", ["routes_10k", "noisy_neighbor",
+@pytest.mark.parametrize("name", ["live_plane", "noisy_neighbor",
                                   "chaos_soak"])
 def test_scenario_not_ported_yet_is_refused(capsys, name):
     rc, out, err = run(capsys, tcli, ["scenario", name, *CPU])

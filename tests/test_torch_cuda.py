@@ -681,7 +681,9 @@ def test_sharded_plane_on_card_equals_unsharded(dev):
     g1, p1, c1, _ = _drive_plane("cuda", 2)
     pex.reset_launches()
     g2, p2, c2, _ = _drive_plane("cuda", 2, shards=2)
-    assert pex.LAUNCHES["ring_step"] > 0
+    # the plane's own ring steps, beyond its exchange probe's (one K4
+    # launch a probe run on 2 virtual shards)
+    assert pex.LAUNCHES["ring_step"] > p2.shard_exchange_runs >= 1
     assert g1 == g2
     assert (p1.shaped, p1.dropped) == (p2.shaped, p2.dropped)
     for k in c1:
@@ -1319,3 +1321,83 @@ def test_manager_on_card_reconciles_a_small_clos_from_the_apiserver(dev):
     assert m["ping"]["fwd_us"] == 10_000.0
     assert m["takeover_s"] <= chip_smoke.MGR_LEASE_S + chip_smoke.MGR_RENEW_S
     assert m["bridge"]["status_pushed"] == 14
+
+
+# -- the scale path: the sharded step, the sharded router, the probe ----------
+
+def test_scale_phase_on_the_card_at_a_small_clos(dev, monkeypatch):
+    """chip_smoke.py's phase 22 on the card at an 8 x 40 Clos (1,280
+    rows in 2,048) with small rung arguments: the sharded step at 2, 4
+    and 8 virtual shards and the sharded router on 4 == their unsharded
+    runs bit for bit (and the router == the same over the plain step),
+    with K1 launched exactly S a step and 4 x 12 a routed step."""
+    import chip_smoke as cs
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.models.topologies import (
+        clos, load_edge_list_into_state, random_link_props)
+
+    monkeypatch.setattr(cs, "SH_BATCH", 200)
+    monkeypatch.setattr(cs, "SR_BUDGET", 1 << 12)
+    monkeypatch.setattr(cs, "SR_OVERFLOW_BUDGET", 2)
+    el = clos(8, 40, 0, props=LinkProperties(latency="10ms",
+                                              rate="10Gbit"),
+              links_per_pair=2)
+    state, _ = load_edge_list_into_state(el, device=dev)
+    n = 2 * el.n_links
+    es.update_links(state, np.arange(n, dtype=np.int32),
+                    random_link_props(n, 1), np.ones(n, bool),
+                    contiguous=True)
+    routed = entry.build_routed(
+        el, state, np.arange(8, el.n_nodes), seed=31,
+        rate_bps=cs.ROUTED_RATE_BPS, q=cs.SIM_Q, k_fwd=cs.ROUTED_K_FWD,
+        max_hops=cs.ROUTE_HOPS)[:3]
+    m, k1 = cs.run_scale_phase(el, state, dev, "test", routed=routed,
+                               rung_kw={
+        "routes_10k": dict(n_nodes=200, n_links=600, dst_chunk=40),
+        "chaos_flaps": dict(n_nodes=60, n_links=180, events=2,
+                            steps_per_event=10),
+        "reconverge_10k": dict(pods=3, leaves_per_pod=8)})
+    assert k1["sharded_step"] == sum(cs.SH_SHARDS) * cs.SH_STEPS
+    assert k1["sharded_router"] == cs.SR_SHARDS * 12 * (
+        cs.SR_STEPS + cs.SR_OVERFLOW_STEPS)
+    assert k1["rungs"] == 10 * 10 * 5
+    assert m["b"]["overflow"]["fwd_dropped"] > 0
+
+
+def test_dryrun_multichip_on_the_card(dev, capsys):
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    shaping.reset_launches()
+    out = entry.dryrun_multichip(8)
+    assert out["device"].startswith("cuda")
+    assert out["tx_packets"] == out["delivered"] > 0
+    assert shaping.LAUNCHES["shape_step_rows"] == 8   # K1 once a shard
+    assert "dryrun_multichip(8): OK" in capsys.readouterr().out
+
+
+def test_exchange_probe_of_a_sharded_plane_on_the_card(dev):
+    """The sampled exchange probe on the card: it runs on the first
+    dispatch, each run one K4 launch (2 virtual shards, 1 ring step),
+    and its output == the plain ring's on an owned mailbox."""
+    from kubedtn_tpu_torch import runtime
+    from kubedtn_tpu_torch.ops.edge_state import NCORR, NPROP
+    from kubedtn_tpu_torch.parallel import exchange as pex
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh
+
+    _g, plane, _c, _e = _drive_plane("cuda", 2, shards=2, ticks=2)
+    assert plane.shard_exchange_runs == 1
+    assert plane.shard_summary()["exchange_seconds"] > 0
+    fm = torch.randn((64, NPROP + 3 + NCORR), device=dev)
+    im = torch.randint(-5, 5, (64, 3), device=dev, dtype=torch.int32)
+    im[:, pex.OWNER_COL] = 1
+    before = pex.LAUNCHES["ring_step"]
+    got = plane._exchange_probe(fm, im)
+    torch.cuda.synchronize()
+    assert pex.LAUNCHES["ring_step"] == before + 1
+    want = runtime.exchange_probe(make_mesh(["cpu"] * 2))(fm.cpu(),
+                                                          im.cpu())
+    assert_bitwise(got[0].cpu(), want[0], "probe f32 payload")
+    assert_bitwise(got[1].cpu(), want[1], "probe i32 payload")
+

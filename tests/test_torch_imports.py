@@ -97,6 +97,8 @@ LIVE_PLANE_MODULES = (
     # CR bridge and the CNI shim
     "kubedtn_tpu_torch.topology.manager", "kubedtn_tpu_torch.topology.k8s",
     "kubedtn_tpu_torch.cni",
+    # the scale path: the edge-sharded step and the sharded router
+    "kubedtn_tpu_torch.parallel.sharded", "kubedtn_tpu_torch.parallel.router",
 )
 
 # the fleet supervisor's surfaces: (module, attribute path)
@@ -148,6 +150,36 @@ def test_import_loads_no_jax_in_a_fresh_process():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["kubedtn_tpu_torch.parallel.sharded",
+                                    "kubedtn_tpu_torch.parallel.router"])
+def test_scale_path_module_alone_loads_no_jax(module):
+    """The sharded step and the sharded router imported on their own in
+    a fresh process (with entry.dryrun_multichip run on 2 CPU shards):
+    neither jax nor the JAX package is loaded, and neither source names
+    them in an import."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from kubedtn_tpu_torch import entry\n"
+        "entry.dryrun_multichip(2, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'kubedtn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'kubedtn_tpu.')))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout and "OK" in out.stdout
+    path = ROOT / (module.replace(".", "/") + ".py")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert not _forbidden(node.module or ""), node.module
+        elif isinstance(node, ast.Import):
+            assert not any(_forbidden(a.name) for a in node.names)
 
 
 @pytest.mark.parametrize("path", sorted(
