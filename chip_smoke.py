@@ -413,7 +413,30 @@ Phases, each fatal on failure:
      its output == the plain ring on a 4,096-row mailbox, bit for bit,
      one K4 launch a ring step; every sharded plane's K4 count (12(c),
      16(c), 18, 19) is its own launches plus its probes', a term of its
-     own, each probe run (S - 1) x len(ring_plan) launches.
+     own, each probe run (S - 1) x len(ring_plan) launches;
+ 23. the live-plane soaks, through scenarios.LADDER on the card at JAX's
+     widths, only their durations cut (SOAK_CUTS, PERF.md §4): (a)
+     live_plane, 8 pairs at 5 ms, 40,000 frames a wire from an injector
+     child over InjectBulk (2 rounds of JAX's 5): every frame of the
+     whole chunks delivered, none dropped, the median and best frames/s
+     and the injector's; (b) live_plane_soak at 5 ms (chunk 1,024) and
+     over 2 Gbit TBF wires (chunk 512), 5 s of 1 s windows (JAX's 20 s
+     of 2.5 s) after a settle of at most 15 s (90): every window
+     alive, nothing dropped; the windows, sustained rate, flatness,
+     backlog, GC and steal seconds, the stage shares; (c) chaos_soak, 4
+     pairs, 20,000 frames/s, the peer flapped at 1 Hz, 50 % down, for
+     4 s (12): zero frames lost, no buffer or shaping drop, a breaker
+     cycle, a sampled trace ingress -> outage-buffered -> retried ->
+     peer-sent -> received on both nodes; (d) staged_update_soak, 4
+     pairs, 8,000 frames/s, 1.5 s steady and 1.5 s staging (3 and 3):
+     zero loss, the 4 clean plans verified and staged, the loss=70
+     delta rejected with the props column untouched; (e)
+     update_under_flap, 2 pairs, 6,000 frames/s, 3 s (5): zero loss,
+     every stage clean, a breaker cycle; (f) K1's launches, counted
+     from 0 around (d) and (e) == the gates that ran x their ticks x 4
+     slots (5 x 120 + 2 x 100), and the regressing gate's own snapshot
+     of (d)'s plane swept again through K1 and through the plain
+     version on the same seed: every metric equal, bit for bit.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
@@ -422,8 +445,8 @@ saturating InjectBulk feed, booted with phase 20's flags, without
 
 The line before the last lists the kernels with their launches by path
 (K1's sharded_step and sharded_router from phase 22, its rungs path
-with chaos_flaps; K4's probe path, the sharded planes' exchange probes),
-errors, times and bounds (with --phases, the kernels whose checks ran:
+with chaos_flaps, its soaks path from 23(d) and (e); K4's probe path,
+the sharded planes' exchange probes), errors, times and bounds (with --phases, the kernels whose checks ran:
 K1-K3 with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
 {...}}. It exits non-zero, printing neither, when there is no CUDA
 device or the package is missing.
@@ -432,6 +455,7 @@ device or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import logging
 import re
@@ -439,6 +463,7 @@ import statistics
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -1760,45 +1785,13 @@ def run_grpc_phase(dev, card) -> dict:
     after one warm-up round."""
     import os
     import subprocess
-    import types
 
-    from kubedtn_tpu_torch import entry
-    from kubedtn_tpu_torch.api.types import (Link, LinkProperties,
-                                             Topology, TopologySpec)
-    from kubedtn_tpu_torch.topology.engine import SimEngine
-    from kubedtn_tpu_torch.topology.reconciler import Reconciler
-    from kubedtn_tpu_torch.topology.store import TopologyStore
-    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+    from kubedtn_tpu_torch import scenarios
 
-    store = TopologyStore()
-    engine = SimEngine(store, capacity=4 * GRPC_PAIRS + 8, device=dev)
-    props = LinkProperties(latency="5ms")
-    for i in range(GRPC_PAIRS):
-        a, b = f"lp-a{i}", f"lp-b{i}"
-        for x, y in ((a, b), (b, a)):
-            store.create(Topology(name=x, spec=TopologySpec(links=[
-                Link(local_intf="eth1", peer_intf="eth1", peer_pod=y,
-                     uid=i + 1, properties=props)])))
-        engine.setup_pod(a)
-        engine.setup_pod(b)
-    Reconciler(store, engine).drain()
-    daemon = Daemon(engine)
-    server, port = make_server(daemon, port=0, host="127.0.0.1",
-                               log_rpcs=False)
-    server.start()
-    plane = entry.build_plane(daemon, dt_us=2_000.0)
-
-    def wd(pod, uid):
-        return types.SimpleNamespace(
-            local_pod_name=pod, kube_ns="default", link_uid=uid,
-            intf_name_in_pod="eth1", veth_name_local_host="",
-            peer_intf_id=0, peer_ip="")
-
-    win = [daemon._add_wire(wd(f"lp-a{i}", i + 1))
-           for i in range(GRPC_PAIRS)]
-    wout = [daemon._add_wire(wd(f"lp-b{i}", i + 1))
-            for i in range(GRPC_PAIRS)]
-    plane.start()
+    # the live-plane scenarios' set-up: GRPC_PAIRS pairs of 5 ms links
+    # on a real gRPC daemon, the runner started
+    _daemon, server, port, plane, win, wout = scenarios._live_plane_setup(
+        GRPC_PAIRS, "5ms", 2_000.0, "lp", device=dev)
     root = os.path.dirname(os.path.abspath(__file__))
     wids = ",".join(str(w.wire_id) for w in win)
     total = GRPC_PAIRS * GRPC_FRAMES
@@ -8230,7 +8223,242 @@ def run_scale_phase(el, fresh, dev, card, routed=None,
     return m, k1
 
 
-ALL_PHASES = tuple(range(1, 23))
+
+# Phase 23: the live-plane soaks at JAX's widths; only their durations
+# are cut (JAX's defaults in the comments, PERF.md §4).
+SOAK_CUTS = {
+    "live_plane": dict(rounds=2),                        # 5 rounds
+    "live_plane_soak": dict(seconds=5.0, window_s=1.0,   # 20 s, 2.5 s,
+                            settle_s=15.0),              # settle <= 90 s
+    "chaos_soak": dict(seconds=4.0),                     # 12 s
+    "staged_update_soak": dict(steady_s=1.5,             # 3 s
+                               staging_s=1.5),           # 3 s
+    "update_under_flap": dict(seconds=3.0),              # 5 s
+}
+SOAK_TBF = dict(rate="2Gbit", chunk=512)    # bench.py's TBF soak
+
+
+class GateLog:
+    """While installed, records every update gate's inputs and verdict:
+    updates.gate.verify_plan, which verify_plan_live calls with the
+    snapshot it took of the running plane."""
+
+    def __enter__(self) -> "GateLog":
+        from kubedtn_tpu_torch.updates import gate
+
+        real = self._real = gate.verify_plan
+        self.calls = []
+
+        def recorded(plan, snapshot, **kw):
+            verdict = real(plan, snapshot, **kw)
+            self.calls.append(types.SimpleNamespace(
+                plan=plan, snapshot=snapshot, kw=kw, verdict=verdict))
+            return verdict
+
+        gate.verify_plan = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from kubedtn_tpu_torch.updates import gate
+
+        gate.verify_plan = self._real
+
+
+def _gate_launches(calls, gate_ticks: int, label: str) -> int:
+    """K1 launches the gates of `calls` make: one sweep each of
+    `gate_ticks` steps, one launch a shaping slot and step."""
+    from kubedtn_tpu_torch.updates import Guardrails
+
+    k_slots = Guardrails().k_slots
+    for c in calls:
+        check(c.verdict.ticks == gate_ticks and c.verdict.replicas > 0,
+              f"{label}: a gate swept {c.verdict.replicas} replicas for "
+              f"{c.verdict.ticks} ticks, want a sweep of {gate_ticks}")
+    return len(calls) * gate_ticks * k_slots
+
+
+def replay_gate_sweep(call, on_card: bool, label: str) -> dict:
+    """Sweep a recorded gate's scenarios (GateLog) on its own snapshot
+    again, through K1 (queues.shape_packets) and through the plain
+    version (shape_packets_plain) on the same seed: every metric of
+    both equal bit for bit, the baseline equal to the gate's own, K1
+    launched once a shaping slot and step on the card."""
+    from kubedtn_tpu_torch.ops import queues
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.twin import run_sweep
+    from kubedtn_tpu_torch.updates.gate import gate_scenarios
+
+    pod_ids = call.kw["pod_ids"]
+    scen, _adds, _edits = gate_scenarios(call.plan, call.snapshot,
+                                         pod_ids=pod_ids)
+    g = call.kw["guardrails"]
+    kw = dict(steps=g.ticks, dt_us=g.dt_us, seed=g.seed, k_slots=g.k_slots,
+              pod_ids=pod_ids)
+    k0 = shaping.LAUNCHES["shape_step_rows"]
+    kern = run_sweep(call.snapshot, scen, shape_fn=queues.shape_packets,
+                     **kw)
+    launches = shaping.LAUNCHES["shape_step_rows"] - k0
+    plain = run_sweep(call.snapshot, scen,
+                      shape_fn=queues.shape_packets_plain, **kw)
+    check(launches == on_card * g.ticks * g.k_slots,
+          f"{label}: the replayed sweep launched K1 {launches} times")
+    same_m = [json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+              for a, b in zip(kern.metrics, plain.metrics)]
+    check(kern.names == plain.names and all(same_m),
+          f"{label}: the gate sweep through K1 != the plain version "
+          f"(replicas equal: {same_m})")
+    check(kern.metrics[0]["p99_us"] == call.verdict.baseline["p99_us"],
+          f"{label}: the replayed baseline p99 {kern.metrics[0]['p99_us']} "
+          f"!= the gate's {call.verdict.baseline['p99_us']}")
+    return {"replicas": kern.replicas, "ticks": g.ticks,
+            "k_slots": g.k_slots,
+            "rows": int(call.snapshot.sim.edges.capacity),
+            "k1_compare_launches": launches}
+
+
+def run_soak_phase(dev, card) -> tuple:
+    """Phase 23: the five live-plane scenarios through their entry
+    points (scenarios.LADDER) on `dev` at JAX's widths, SOAK_CUTS
+    cutting their durations; then K1 on the update gates'
+    sweeps, counted from 0 around (d) and (e), and the regressing gate's
+    sweep replayed through K1 and through its plain version. Returns
+    (metrics, K1 launches of (d) and (e))."""
+    from kubedtn_tpu_torch import scenarios
+    from kubedtn_tpu_torch.ops.cuda import shaping
+
+    on_card = dev.type == "cuda"
+    m = {}
+
+    def run(name, **kw):
+        t0 = time.perf_counter()
+        r = scenarios.LADDER[name](device=dev, **SOAK_CUTS[name], **kw)
+        r["phase_s"] = time.perf_counter() - t0
+        check(r["device"] == str(dev), f"23 {name} ran on {r['device']}")
+        return r
+
+    # (a) rounds of frames from the injector child over InjectBulk
+    r = m["a"] = run("live_plane")
+    want = r["pairs"] * -(-r["frames_per_wire"] // scenarios.INJECTOR_CHUNK) \
+        * scenarios.INJECTOR_CHUNK
+    check(r["dropped"] == 0 and r["tick_errors"] == 0
+          and r["frames_delivered"] == want,
+          f"23(a) live_plane: delivered {r['frames_delivered']} of {want}, "
+          f"dropped {r['dropped']}, tick errors {r['tick_errors']}")
+    log(f"23(a) live_plane {r['pairs']} pairs x {r['frames_per_wire']} "
+        f"frames at {r['latency']}: median {r['frames_per_s']:.1f} "
+        f"frames/s, best {r['frames_per_s_best']:.1f}, rounds "
+        f"{r['rounds_frames_per_s']}, injector "
+        f"{r['inject_frames_per_s']:.1f} frames/s; {r['ticks']} ticks, "
+        f"{r['phase_s']:.1f} s ({card})")
+
+    # (b) the sustained soak, over latency wires and over TBF wires
+    for key, kw in (("b_latency", {}), ("b_tbf", SOAK_TBF)):
+        r = m[key] = run("live_plane_soak", **kw)
+        check(r["windows_frames_per_s"]
+              and all(w > 0 for w in r["windows_frames_per_s"])
+              and r["dropped"] == 0 and r["tick_errors"] == 0,
+              f"23(b) live_plane_soak {r['shaping']}: windows "
+              f"{r['windows_frames_per_s']}, dropped {r['dropped']}, tick "
+              f"errors {r['tick_errors']}")
+        log(f"23(b) live_plane_soak {r['shaping']} chunk "
+            f"{r['injector_chunk']}: windows {r['windows_frames_per_s']} "
+            f"frames/s, sustained {r['sustained_frames_per_s']:.1f}, "
+            f"flatness {r['flatness']}, end backlog "
+            f"{r['end_ingress_backlog']}, settle {r['settle_s']} s, gc "
+            f"{r['gc_pause_s']} s, steal {r['host_steal_s']} s, stage "
+            f"shares {r['stage_breakdown']['share']}, "
+            f"{r['stage_breakdown']['ticks']} ticks; {r['phase_s']:.1f} s "
+            f"({card})")
+
+    # (c) zero loss and a cross-node trace under a flapping peer
+    r = m["c"] = run("chaos_soak")
+    check(r["frames_lost"] == 0 and r["peer_buffer_dropped"] == 0
+          and r["shaping_dropped"] == 0 and r["tick_errors"] == 0,
+          f"23(c) chaos_soak lost frames: {json.dumps(r)}")
+    check(r["breaker_cycles"] >= 1
+          and r["injected_faults"]["peer_blackhole"] > 0,
+          f"23(c) chaos_soak: breaker {r['breaker']}, faults "
+          f"{r['injected_faults']}")
+    check(r["trace_ok"] and len(r["trace_nodes"]) == 2
+          and all(s in r["trace_stages"] for s in (
+              "ingress", "outage-buffered", "retried", "peer-sent",
+              "received")),
+          f"23(c) chaos_soak trace: {r['trace_stages']} on "
+          f"{r['trace_nodes']}, sampled {r['sampled_frames']}, breaker "
+          f"{r['breaker']}")
+    log(f"23(c) chaos_soak {r['pairs']} pairs, "
+        f"{r['offered_frames_per_s']} frames/s offered, "
+        f"{r['flap_hz']} Hz at {r['duty_down']:.0%} down: "
+        f"{r['frames_fed']} fed, {r['frames_delivered']} delivered, 0 "
+        f"lost; windows {r['windows_frames_per_s']}, sustained "
+        f"{r['sustained_under_flap_frames_per_s']:.1f} frames/s; breaker "
+        f"cycles {r['breaker_cycles']}, retries {r['peer_retries']}; "
+        f"trace {r['trace_id']} {r['trace_hops']} hops; "
+        f"{r['phase_s']:.1f} s ({card})")
+
+    # (d), (e): the update gates' sweeps launch K1, one launch a shaping
+    # slot and step; nothing else on these planes does
+    shaping.reset_launches()
+    with GateLog() as gates_d:
+        r = m["d"] = run("staged_update_soak")
+    with GateLog() as gates_e:
+        r_e = m["e"] = run("update_under_flap")
+    k1 = shaping.LAUNCHES["shape_step_rows"]
+    check(r["frames_lost"] == 0
+          and r["clean_plans_verified"] == r["clean_plans"] == r["pairs"]
+          and r["rounds_staged"] > 0 and r["regressing_rejected"]
+          and r["gate_left_plane_untouched"] and r["tick_errors"] == 0,
+          f"23(d) staged_update_soak: {json.dumps(r)}")
+    log(f"23(d) staged_update_soak {r['pairs']} pairs, "
+        f"{r['offered_frames_per_s']} frames/s: {r['frames_fed']} fed, 0 "
+        f"lost; {r['clean_plans_verified']}/{r['clean_plans']} clean plans "
+        f"verified, {r['rounds_staged']} rounds staged, {r['rollbacks']} "
+        f"rollbacks; gate {r['gate_s']} s, stage {r['stage_s']} s; "
+        f"staging / steady {r['staging_over_steady']} "
+        f"({r['staging_frames_per_s']:.1f} / "
+        f"{r['steady_frames_per_s']:.1f} frames/s); regressing delta "
+        f"rejected ({r['regressing_reason']}), plane untouched; "
+        f"{r['phase_s']:.1f} s ({card})")
+    check(r_e["frames_lost"] == 0 and r_e["stages_clean"]
+          and r_e["stage_results"] and r_e["breaker_cycles"] >= 1
+          and r_e["tick_errors"] == 0,
+          f"23(e) update_under_flap: {json.dumps(r_e)}")
+    log(f"23(e) update_under_flap {r_e['pairs']} pairs at "
+        f"{r_e['flap_hz']} Hz: {r_e['frames_fed']} fed, 0 lost; stages "
+        f"{r_e['stage_results']}, breaker cycles "
+        f"{r_e['breaker_cycles']}; {r_e['phase_s']:.1f} s ({card})")
+
+    # (f) the gates that ran: (d)'s one per pair (the clean latency bump)
+    # and the regressing loss=70 delta, (e)'s one per pair mid-flap
+    ticks_d, ticks_e = (
+        SOAK_CUTS[name].get("gate_ticks", inspect.signature(
+            scenarios.LADDER[name]).parameters["gate_ticks"].default)
+        for name in ("staged_update_soak", "update_under_flap"))
+    check(len(gates_d.calls) == r["clean_plans"] + 1
+          and len(gates_e.calls) == len(r_e["stage_results"]),
+          f"23(f): {len(gates_d.calls)} gates in (d), "
+          f"{len(gates_e.calls)} in (e)")
+    want = on_card * (_gate_launches(gates_d.calls, ticks_d, "23(d)")
+                      + _gate_launches(gates_e.calls, ticks_e, "23(e)"))
+    check(k1 == want, f"23(f): K1 launched {k1} times in (d) and (e), want "
+                      f"{want} ({len(gates_d.calls)} x {ticks_d} + "
+                      f"{len(gates_e.calls)} x {ticks_e} ticks x the "
+                      f"slots)")
+    bad = gates_d.calls[-1]
+    check(not bad.verdict.ok, "23(f): the last gate of (d) passed")
+    replay = replay_gate_sweep(bad, on_card, "23(f)")
+    m["f"] = dict(replay, k1_launches_d_e=k1, gates_d=len(gates_d.calls),
+                  gates_e=len(gates_e.calls))
+    log(f"23(f) K1 {k1} launches in (d) and (e) = ({len(gates_d.calls)} x "
+        f"{ticks_d} + {len(gates_e.calls)} x {ticks_e}) ticks x "
+        f"{replay['k_slots']} slots; the regressing gate's sweep "
+        f"({replay['replicas']} replicas x {replay['ticks']} ticks, "
+        f"{replay['rows']} rows) through K1 == plain, every metric bit "
+        f"for bit ({card})")
+    return m, k1
+
+
+ALL_PHASES = tuple(range(1, 24))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
 NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22}
@@ -8560,6 +8788,16 @@ def main(argv=None) -> int:
             f"{scale_k1['sharded_router']}, chaos_flaps {scale_k1['rungs']}")
         detail["scale"] = scale_m
         clock("22", t0)
+    if 23 in want:
+        t0 = time.perf_counter()
+        soak_m, k1_paths["soaks"] = run_soak_phase(dev, card)
+        soak_m["phase_s"] = time.perf_counter() - t0
+        log(f"23: phase {soak_m['phase_s']:.1f} s; K1 launches: the "
+            f"soaks' update gates {k1_paths['soaks']}")
+        check(k1_paths["soaks"] > 0, "K1 never launched on the soaks' path")
+        detail["soaks"] = soak_m
+        _free_card(dev)
+        clock("23", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)

@@ -1075,6 +1075,41 @@ class _GCTuner:
                 pass
 
 
+class _CPUThreadCap:
+    """One torch intra-op thread while ANY runner of a CPU plane is
+    live. A CPU plane's tick is many small ops; the default intra-op
+    pool (a thread per core, and one OpenMP team per calling thread)
+    buys nothing on them, and where several such processes share a host
+    a parallel op waits for threads that the others hold: the runner
+    then misses whole seconds (a live_plane_soak window of 0 frames
+    beside five other busy pytest workers on 8 cores). The cap is set
+    before the runner thread starts, so the runner and the threads it
+    starts take it; refcounted like _GCTuner, the count in force before
+    the first acquire comes back when the LAST one releases. CUDA
+    planes never take it."""
+
+    _lock = threading.Lock()
+    _count = 0
+    _saved = 0
+
+    @classmethod
+    def acquire(cls) -> None:
+        with cls._lock:
+            cls._count += 1
+            if cls._count == 1:
+                cls._saved = torch.get_num_threads()
+                torch.set_num_threads(1)
+
+    @classmethod
+    def release(cls) -> None:
+        with cls._lock:
+            if cls._count == 0:
+                return
+            cls._count -= 1
+            if cls._count == 0:
+                torch.set_num_threads(cls._saved)
+
+
 def _stage_in(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on `dev`. On the card it goes through a pinned
     staging buffer and a non-blocking copy, so the host never waits for
@@ -3119,6 +3154,8 @@ class WireDataPlane:
         self._stop.clear()
         if not self._gc_held:
             _GCTuner.acquire()
+            if self.device.type == "cpu":
+                _CPUThreadCap.acquire()
             self._gc_held = True
 
         def loop():
@@ -3236,6 +3273,8 @@ class WireDataPlane:
         if self._gc_held:
             self._gc_held = False
             _GCTuner.release()
+            if self.device.type == "cpu":
+                _CPUThreadCap.release()
         # senders are one-shot threads: drop them so a stop()/start()
         # restart creates fresh ones instead of enqueueing into queues
         # whose consumer has exited (silent cross-node black hole).

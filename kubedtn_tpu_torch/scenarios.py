@@ -7,7 +7,13 @@ on link events), `clos_100k`, `reconcile_100k` (reconcile-to-steady at
 100k links through store, reconciler and engine), `scale_1m`
 (UpdateLinks and a K1 step over 2M rows), `chaos_flaps` (link flaps
 under routed traffic) and `reconverge_10k` (incremental reconvergence
-on a three-tier fabric). Then
+on a three-tier fabric). The live-plane soaks: `live_plane` (rounds of
+frames from an injector child over InjectBulk through a real gRPC
+daemon), `live_plane_soak` (the same load without end, windowed
+delivery rates), `chaos_soak` (zero loss and a cross-node trace under a
+flapping peer), `staged_update_soak` (a planned update through the
+twin gate and the stager under load, a regressing delta rejected) and
+`update_under_flap` (a staged update landing mid-flap). Then
 `_tenant_plane_setup` (the multi-tenant plane harness),
 `burn_recovery` (the SLO autopilot's
 closed loop on one live plane), `migration_under_flap` (a live tenant
@@ -16,10 +22,11 @@ supervisor's two: `plane_failover` (a plane killed mid-migration and
 evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
 daemons upgraded one at a time under load). Each takes a `device`, None
 meaning the CUDA card, and returns the JAX scenario's keys (and
-"device"). `LADDER` holds these thirteen in the order of the JAX
+"device"). `LADDER` holds these eighteen in the order of the JAX
 module's ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED` names
-the rest of that ladder (the soaks, noisy_neighbor, whatif_sweep, ...),
-still to be ported.
+the nine left of that ladder (whatif_sweep, the overhead probes,
+sharded_soak, noisy_neighbor, the shm and tenant soaks), still to be
+ported.
 """
 
 from __future__ import annotations
@@ -956,6 +963,401 @@ def burn_recovery(pairs: int = 2, loss_pct: float = 25.0,
     return out
 
 
+# -- the live-plane soaks (kubedtn_tpu/scenarios.py:652-1064) -------------
+
+# The load generator, run as `python -c _INJECTOR_SRC PORT WIDS N_PER
+# REPO CHUNK`: it streams InjectBulk PacketBatch messages of CHUNK
+# frames to each wire in WIDS (N_PER frames a wire rounded up to whole
+# chunks, or without end when N_PER < 0) and prints the stream's
+# seconds. It imports grpc and the port's wire schema only, never torch:
+# a child on the card's host must not open a CUDA context.
+_INJECTOR_SRC = r"""
+import sys, time
+import grpc
+port, wids, n_per = sys.argv[1], sys.argv[2], int(sys.argv[3])
+repo = sys.argv[4]
+chunk = int(sys.argv[5])
+sys.path.insert(0, repo)
+from kubedtn_tpu_torch.wire import proto as pb
+wids = [int(w) for w in wids.split(",")]
+ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+call = ch.stream_unary("/proto.v1.WireProtocol/InjectBulk",
+                       request_serializer=lambda b: b,
+                       response_deserializer=pb.BoolResponse.FromString)
+frame = b"\xab" * 200
+blobs = []
+for wid in wids:
+    pkt = pb.Packet(remot_intf_id=wid, frame=frame)
+    blobs.append(pb.PacketBatch(packets=[pkt] * chunk).SerializeToString())
+def gen():
+    if n_per < 0:  # soak mode: stream until the parent kills us
+        while True:
+            for b in blobs:
+                yield b
+    left = [n_per] * len(wids)
+    while any(left):
+        for i in range(len(wids)):
+            if left[i] > 0:
+                yield blobs[i]
+                left[i] = max(0, left[i] - chunk)
+t0 = time.perf_counter()
+call(gen())
+print(f"{time.perf_counter() - t0:.3f}", flush=True)
+"""
+
+# frames per PacketBatch message from the injector; live_plane rounds
+# its budgets UP to whole chunks. live_plane_soak(chunk=...) overrides
+# it: bigger chunks cost the host less transport CPU (a capacity
+# measurement), smaller ones keep the offered rate under the plane's
+# capacity (a keep-up measurement with a bounded backlog; the TBF soak
+# runs at 512).
+INJECTOR_CHUNK = 1024
+
+_REPO_ROOT = str(Path(__file__).resolve().parent.parent)
+
+
+def _injector(port: int, wires_in, n_per: int, chunk: int, stdout):
+    """Start the injector child on `wires_in` (stderr discarded)."""
+    import subprocess
+    import sys
+
+    wids = ",".join(str(w.wire_id) for w in wires_in)
+    return subprocess.Popen(
+        [sys.executable, "-c", _INJECTOR_SRC, str(port), wids, str(n_per),
+         _REPO_ROOT, str(chunk)],
+        stdout=stdout, stderr=subprocess.DEVNULL, text=True)
+
+
+def _stop_child(proc) -> None:
+    import subprocess
+
+    proc.kill()
+    try:
+        proc.wait(timeout=5)
+    except subprocess.TimeoutExpired:
+        pass
+
+
+def _live_plane_setup(pairs: int, latency: str, dt_us: float,
+                      prefix: str, rate: str = "", device=None):
+    """`pairs` shaped pod pairs on a real gRPC daemon whose engine lives
+    on `device`, with the real-time runner started: the live-plane
+    scenarios' shared set-up. `rate` makes the wires TBF rate limits
+    instead of latency links. Returns (daemon, server, port, plane,
+    wires_in, wires_out)."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.topology import (Reconciler, SimEngine,
+                                            TopologyStore)
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=4 * pairs + 8,
+                       device=resolve_device(device))
+    props = (LinkProperties(rate=rate) if rate
+             else LinkProperties(latency=latency))
+    for i in range(pairs):
+        a, b = f"{prefix}-a{i}", f"{prefix}-b{i}"
+        store.create(Topology(name=a, spec=TopologySpec(links=[
+            Link(local_intf="eth1", peer_intf="eth1", peer_pod=b,
+                 uid=i + 1, properties=props)])))
+        store.create(Topology(name=b, spec=TopologySpec(links=[
+            Link(local_intf="eth1", peer_intf="eth1", peer_pod=a,
+                 uid=i + 1, properties=props)])))
+        engine.setup_pod(a)
+        engine.setup_pod(b)
+    Reconciler(store, engine).drain()
+    daemon = Daemon(engine)
+    server, port = make_server(daemon, port=0, host="127.0.0.1",
+                               log_rpcs=False)
+    server.start()
+    plane = WireDataPlane(daemon, dt_us=dt_us)
+    wires_in, wires_out = [], []
+    for i in range(pairs):
+        wires_in.append(daemon._add_wire(
+            wire_def(f"{prefix}-a{i}", "default", i + 1)))
+        wires_out.append(daemon._add_wire(
+            wire_def(f"{prefix}-b{i}", "default", i + 1)))
+    plane.start()
+    return daemon, server, port, plane, wires_in, wires_out
+
+
+def live_plane(pairs: int = 8, frames_per_wire: int = 40_000,
+               latency: str = "5ms", rounds: int = 5,
+               dt_us: float = 2_000.0, timeout_s: float = 180.0,
+               device=None):
+    """End-to-end LIVE data-plane throughput: a real gRPC daemon with the
+    real-time runner, `pairs` shaped pod pairs on `device` (None = the
+    CUDA card), and an out-of-process load generator streaming frames
+    over the coalesced InjectBulk transport. Every frame crosses the
+    whole pipeline — gRPC ingress → drain → native bypass decision →
+    batched shaping on the device → timing-wheel delay → egress — under
+    the wall clock (the reference's VXLAN + veth + eBPF forwarding,
+    reference daemon/vxlan/vxlan.go:31-151, grpcwire.go:386-462). After
+    an untimed warm-up, the MEDIAN of `rounds` rounds is the headline
+    (frames_per_s), with the best round and every sample beside it; a
+    round's window opens at its first delivery."""
+    import statistics
+    import subprocess
+
+    dev = resolve_device(device)
+    daemon, server, port, plane, wires_in, wires_out = _live_plane_setup(
+        pairs, latency, dt_us, "lp", device=dev)
+
+    def run_round(n_per: int) -> tuple[float, int, float]:
+        for w in wires_out:
+            w.egress.clear()
+        # the chunked injector rounds n_per UP to whole chunks
+        total = pairs * (-(-n_per // INJECTOR_CHUNK) * INJECTOR_CHUNK)
+        proc = _injector(port, wires_in, n_per, INJECTOR_CHUNK,
+                         subprocess.PIPE)
+        try:
+            # the window opens at the FIRST delivery, so the child's
+            # interpreter and grpc start-up never count against the plane
+            deadline = time.monotonic() + timeout_s
+            done, t_first = 0, None
+            while time.monotonic() < deadline:
+                done = sum(len(w.egress) for w in wires_out)
+                if done and t_first is None:
+                    t_first = time.perf_counter()
+                if done >= total:
+                    break
+                if proc.poll() not in (None, 0):
+                    raise RuntimeError(f"live_plane injector exited "
+                                       f"rc={proc.returncode}")
+                time.sleep(0.005)
+            elapsed = (time.perf_counter() - t_first) if t_first else 0.0
+            inject_s = 0.0
+            try:
+                out, _ = proc.communicate(timeout=30)
+                inject_s = float(out.strip().splitlines()[-1])
+            except (subprocess.TimeoutExpired, ValueError, IndexError):
+                pass
+        finally:
+            _stop_child(proc)
+        rate = done / elapsed if elapsed > 0 else 0.0
+        return rate, done, inject_s
+
+    t0 = time.perf_counter()
+    try:
+        # UNTIMED warm-up: each drain size once, then one full-size
+        # round, so the measured rounds see a settled plane. A round
+        # counts every frame its egress receives, so the warm-up's
+        # frames must all have landed before the first round clears the
+        # egress: else that round closes on them before its own have
+        # landed, and each later round counts the one before's
+        warm = _warm_drain_buckets(plane, wires_in)
+        deadline = time.monotonic() + timeout_s
+        while sum(len(w.egress) for w in wires_out) < warm:
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"live_plane warm-up delivered "
+                    f"{sum(len(w.egress) for w in wires_out)} of {warm}")
+            time.sleep(0.005)
+        run_round(frames_per_wire)
+        results = [run_round(frames_per_wire) for _ in range(rounds)]
+    finally:
+        plane.stop()
+        server.stop(0)
+    rates = sorted(r[0] for r in results)
+    median = statistics.median(rates)
+    inject_rates = [
+        round(pairs * (-(-frames_per_wire // INJECTOR_CHUNK)
+                       * INJECTOR_CHUNK) / r[2], 1)
+        for r in results if r[2] > 0]
+    shard = plane.shard_summary()
+    return {
+        "scenario": "live_plane",
+        "device": str(dev),
+        "pairs": pairs,
+        "frames_per_wire": frames_per_wire,
+        "latency": latency,
+        "mesh_shape": shard.get("mesh_shape", [1]),
+        "shard_imbalance": shard.get("imbalance", 0.0),
+        "frames_delivered": results[-1][1],
+        "warmup_rounds": 1,  # full-size, untimed, excluded below
+        "rounds_frames_per_s": [round(r[0], 1) for r in results],
+        "frames_per_s": round(median, 1),
+        "frames_per_s_best": round(max(rates), 1),
+        "inject_frames_per_s": max(inject_rates) if inject_rates else 0.0,
+        "ticks": plane.ticks,
+        "dropped": plane.dropped,
+        "tick_errors": plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def _warm_drain_buckets(plane, wires_in, timeout_s: float = 40.0) -> int:
+    """Before load starts, push exactly k frames a wire for each rung k
+    of the drain-size ladder (1, 4, ... 4096, capped at max_slots), on
+    one wire and then on all, and wait for each to drain: a measured
+    window must never hold a drain size's first use (its first
+    allocations on the card). Returns the frames pushed (their delivery
+    is not awaited)."""
+    ladder = [k for k in (1, 4, 16, 64, 256, 1024, 4096)
+              if k <= plane.max_slots]
+    frame = b"\x00" * 60
+    pushed = 0
+    for targets in ([wires_in[0]], wires_in):
+        for k in ladder:
+            for w in targets:
+                w.ingress.extend([frame] * k)
+            pushed += k * len(targets)
+            deadline = time.monotonic() + timeout_s
+            while any(len(w.ingress) for w in targets) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+    return pushed
+
+
+def live_plane_soak(pairs: int = 8, seconds: float = 20.0,
+                    latency: str = "5ms", dt_us: float = 2_000.0,
+                    window_s: float = 2.5, rate: str = "",
+                    settle_s: float = 90.0, chunk: int | None = None,
+                    device=None):
+    """SUSTAINED live-plane throughput under continuous load: one
+    injector child streams InjectBulk without a budget for `seconds`,
+    and the delivered frames are drained and counted per `window_s`
+    window, so any decay over time (state piling up, GC, queues) shows
+    instead of averaging away. flatness = worst window / median window.
+    `chunk` sets the injector's frames per message (INJECTOR_CHUNK by
+    default): the offered-load dial. `rate` soaks TBF wires instead of
+    latency wires. The plane runs on `device` (None = the CUDA card)."""
+    import gc as _gc
+    import os
+    import statistics
+
+    from kubedtn_tpu_torch.runtime import _GCTuner
+
+    dev = resolve_device(device)
+    chunk = INJECTOR_CHUNK if chunk is None else int(chunk)
+    daemon, server, port, plane, wires_in, wires_out = _live_plane_setup(
+        pairs, latency, dt_us, "sk", rate=rate, device=dev)
+    proc = None
+    gc_s = [0.0]
+    _t0 = [0.0]
+
+    # window dips are attributed to GC pauses inside this process and
+    # to CPU steal by the hypervisor (a read of /proc/stat)
+    def _gc_cb(phase, info):  # noqa: ARG001
+        if phase == "start":
+            _t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - _t0[0]
+
+    def _steal() -> float:
+        try:
+            with open("/proc/stat") as f:
+                parts = f.readline().split()
+            return float(parts[8]) / os.sysconf("SC_CLK_TCK")
+        except (OSError, IndexError, ValueError):
+            return 0.0
+
+    def drain_count() -> int:
+        return _drain_wires(wires_out)
+
+    try:
+        _warm_drain_buckets(plane, wires_in)
+        t0 = time.perf_counter()
+        proc = _injector(port, wires_in, -1, chunk, None)
+        # flush the warm-up's deliveries FIRST: the gate below must see
+        # the injector's frames, not warm residue
+        time.sleep(0.3)
+        drain_count()
+        # window 0 opens at the first delivery; a dead injector fails
+        # fast and loudly instead of banking an all-zero record
+        deadline = time.monotonic() + 60.0
+        while drain_count() == 0:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"soak injector exited rc={proc.returncode} before "
+                    f"first delivery")
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    "soak saw no delivery within 60s (injector alive)")
+            time.sleep(0.01)
+        # settle: drain until two consecutive 1 s probes agree within
+        # 15 %, at most settle_s, so no window holds a first use
+        t_settle_max = time.monotonic() + settle_s
+        prev_rate = -1.0
+        t_s0 = time.monotonic()
+        while time.monotonic() < t_settle_max:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"soak injector died during settle "
+                    f"rc={proc.returncode}")
+            p0 = time.monotonic()
+            time.sleep(1.0)
+            r = drain_count() / (time.monotonic() - p0)
+            if r > 0 and prev_rate > 0 and \
+                    min(r, prev_rate) / max(r, prev_rate) > 0.85:
+                break
+            prev_rate = r
+        settle_used = round(time.monotonic() - t_s0, 1)
+        # fold what the settle allocated into the frozen generation, so
+        # no full collection walks it mid-window
+        _GCTuner.refreeze()
+        _gc.callbacks.append(_gc_cb)
+        steal0 = _steal()
+        windows: list[float] = []
+        t_end = time.monotonic() + seconds
+        while time.monotonic() < t_end:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"soak injector died mid-run rc={proc.returncode} "
+                    f"after {len(windows)} windows")
+            w0 = time.monotonic()
+            time.sleep(window_s)
+            got = drain_count()
+            windows.append(got / (time.monotonic() - w0))
+        steal_s = _steal() - steal0
+        # ingress is unbounded: a too-fast injector shows as BACKLOG,
+        # not as a rate dip
+        backlog = sum(len(w.ingress) for w in wires_in)
+        stage_breakdown = plane.stage_breakdown()
+    finally:
+        # the GC callback is process-global: never leave it behind
+        try:
+            _gc.callbacks.remove(_gc_cb)
+        except ValueError:
+            pass
+        if proc is not None:
+            _stop_child(proc)
+        plane.stop()
+        server.stop(0)
+    rates = sorted(windows)
+    med = statistics.median(rates) if rates else 0.0
+    shard = plane.shard_summary()
+    return {
+        "scenario": "live_plane_soak",
+        "device": str(dev),
+        "pairs": pairs,
+        "shaping": f"rate={rate}" if rate else f"latency={latency}",
+        "mesh_shape": shard.get("mesh_shape", [1]),
+        "shard_imbalance": shard.get("imbalance", 0.0),
+        "injector_chunk": chunk,
+        "settle_s": settle_used,
+        "seconds": seconds,
+        "window_s": window_s,
+        "windows_frames_per_s": [round(w, 1) for w in windows],
+        "sustained_frames_per_s": round(med, 1),
+        "worst_window_frames_per_s": round(rates[0], 1) if rates else 0.0,
+        "flatness": round(rates[0] / med, 3) if med else 0.0,
+        "end_ingress_backlog": int(backlog),
+        "gc_pause_s": round(gc_s[0], 3),
+        "host_steal_s": round(steal_s, 2),
+        "stage_breakdown": stage_breakdown,
+        "dropped": plane.dropped,
+        "tick_errors": plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+# -- the live fault scenarios' shared harness ------------------------------
+# (chaos_soak, staged_update_soak, update_under_flap, migration_under_flap,
+# ...): one paced feeder, drain and warm-up, so a fix to the pacing or the
+# loss accounting lands once.
+
 # non-IP ethertype: never eligible for the TCP bypass, so every frame
 # crosses the shaping plane and the loss accounting is exact
 _FAULT_FRAME = b"\x02" * 12 + b"\x07\x77" + b"\x00" * 50
@@ -1010,6 +1412,522 @@ def _warm_live_load(wires_in, drain, fed, per_wire: int, label: str,
     return delivered
 
 
+def _cross_node_links(pairs: int, latency: str, prefix: str, node_a,
+                      node_b, status_links: bool = False):
+    """Pods `{prefix}a<i>` on node A, each linked to `{prefix}b<i>` on
+    node B over `latency` links: the CRs in both stores, A's links
+    realised, and a wire for each pod on its daemon, A's forwarding to
+    B's. `node_a` is (store, engine, daemon, addr), `node_b` (store,
+    daemon, addr). With `status_links` the CRs carry their links in
+    status too (what a planned update diffs). Returns (wires_in,
+    wires_out)."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+
+    store_a, engine_a, daemon_a, addr_a = node_a
+    store_b, daemon_b, addr_b = node_b
+    props = LinkProperties(latency=latency)
+    for store in (store_a, store_b):
+        for i in range(pairs):
+            ta = Topology(name=f"{prefix}a{i}", spec=TopologySpec(
+                links=[Link(local_intf="eth1", peer_intf="eth1",
+                            peer_pod=f"{prefix}b{i}", uid=i + 1,
+                            properties=props)]))
+            tb = Topology(name=f"{prefix}b{i}", spec=TopologySpec(
+                links=[Link(local_intf="eth1", peer_intf="eth1",
+                            peer_pod=f"{prefix}a{i}", uid=i + 1,
+                            properties=props)]))
+            ta.status.src_ip, ta.status.net_ns = addr_a, "/ns/a"
+            tb.status.src_ip, tb.status.net_ns = addr_b, "/ns/b"
+            if status_links:
+                ta.status.links = list(ta.spec.links)
+                tb.status.links = list(tb.spec.links)
+            store.create(ta)
+            store.create(tb)
+    for i in range(pairs):
+        t = store_a.get("default", f"{prefix}a{i}")
+        if not engine_a.add_links(t, t.spec.links):
+            raise RuntimeError("cross-node realize failed")
+    wires_in, wires_out = [], []
+    for i in range(pairs):
+        wb = daemon_b._add_wire(types.SimpleNamespace(
+            **{**vars(wire_def(f"{prefix}b{i}", "default", i + 1)),
+               "peer_ip": addr_a}))
+        wa = daemon_a._add_wire(types.SimpleNamespace(
+            **{**vars(wire_def(f"{prefix}a{i}", "default", i + 1)),
+               "peer_ip": addr_b, "peer_intf_id": wb.wire_id}))
+        wires_in.append(wa)
+        wires_out.append(wb)
+    return wires_in, wires_out
+
+
+def _cross_node_setup(pairs: int, latency: str, dt_us: float,
+                      prefix: str, dev, status_links: bool = False):
+    """Two real gRPC daemons on 127.0.0.1, both engines on `dev`, linked
+    by `_cross_node_links`, and a plane (not started) on A. Returns a
+    namespace of the parts; the servers are stopped again when the
+    set-up fails."""
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.topology import SimEngine, TopologyStore
+    from kubedtn_tpu_torch.wire.server import Daemon, make_server
+
+    servers = []
+
+    def make_node():
+        store = TopologyStore()
+        engine = SimEngine(store, capacity=4 * pairs + 8, device=dev)
+        daemon = Daemon(engine)
+        server, port = make_server(daemon, port=0, host="127.0.0.1",
+                                   log_rpcs=False)
+        server.start()
+        servers.append(server)
+        engine.node_ip = f"127.0.0.1:{port}"
+        return store, engine, daemon, server, engine.node_ip
+
+    try:
+        store_a, engine_a, daemon_a, server_a, addr_a = make_node()
+        store_b, _engine_b, daemon_b, server_b, addr_b = make_node()
+        wires_in, wires_out = _cross_node_links(
+            pairs, latency, prefix, (store_a, engine_a, daemon_a, addr_a),
+            (store_b, daemon_b, addr_b), status_links)
+        plane = WireDataPlane(daemon_a, dt_us=dt_us)
+    except BaseException:
+        for server in servers:
+            server.stop(0)
+        raise
+    return types.SimpleNamespace(
+        store_a=store_a, engine_a=engine_a, daemon_a=daemon_a,
+        server_a=server_a, addr_a=addr_a, daemon_b=daemon_b,
+        server_b=server_b, addr_b=addr_b, plane=plane, wires_in=wires_in,
+        wires_out=wires_out)
+
+
+def chaos_soak(pairs: int = 4, seconds: float = 12.0,
+               flap_period_s: float = 1.0, duty_down: float = 0.5,
+               offered_frames_per_s: int = 20_000,
+               latency: str = "2ms", dt_us: float = 2_000.0,
+               window_s: float = 1.0, seed: int = 7,
+               drain_timeout_s: float = 90.0,
+               sample_period: int = 16, require_trace: bool = True,
+               device=None):
+    """Throughput under a flapping peer with ZERO frame loss: two real
+    gRPC daemons (A shapes on `device`, None = the CUDA card, and
+    forwards cross-node; B receives pod-side), a paced in-process feeder
+    on A, and the seeded chaos injector flapping the A→B peer at
+    `1/flap_period_s` Hz for `seconds`. A's per-peer sender must hold
+    every outage in its breaker-guarded buffer and retry, so once the
+    flap ends and the breaker closes every fed frame arrives at B
+    exactly once (`frames_lost == 0`), with at least one open →
+    half-open → closed breaker cycle. Windowed delivery rates give the
+    throughput under flap.
+
+    Both daemons run flight recorders (A samples 1/`sample_period`
+    frames; B records what it receives through Packet.trace_id), and at
+    least one sampled cross-node trace must show the whole fault path —
+    ingress → outage-buffered → retried → peer-sent on A, received on B.
+    `require_trace=False` reports the fields without raising."""
+    import statistics
+    import threading as _threading
+
+    from kubedtn_tpu_torch import telemetry as tele
+    from kubedtn_tpu_torch.chaos import ChaosInjector
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    n = _cross_node_setup(pairs, latency, dt_us, "c", dev)
+    plane, addr_a, addr_b = n.plane, n.addr_a, n.addr_b
+    fed = [0]
+    stop_feed = _threading.Event()
+    feed = None
+    delivered = 0
+    windows: list[float] = []
+    try:
+        # link telemetry + flight recorder on the sending plane; the
+        # receiving daemon gets its own recorder so cross-node traces
+        # close
+        tel_a, rec_a = plane.enable_telemetry(
+            window_s=0.5, sample_period=sample_period, node=addr_a)
+        rec_b = tele.FlightRecorder(node=addr_b)
+        n.daemon_b.recorder = rec_b
+        chaos = ChaosInjector(seed=seed)
+        plane.attach_chaos(chaos)
+        plane.start()
+        delivered = _warm_live_load(
+            n.wires_in, lambda: _drain_wires(n.wires_out), fed,
+            max(1, int(offered_frames_per_s * 0.02 / pairs)), "chaos_soak")
+        feed = _threading.Thread(
+            target=_paced_feeder,
+            args=(n.wires_in, offered_frames_per_s, stop_feed, fed),
+            daemon=True)
+        feed.start()
+        # the flap starts with the load, down first: the outage buffer
+        # works from the first window
+        chaos.flap_peer(addr_b, flap_period_s, duty_down)
+        t_end = time.monotonic() + seconds
+        while time.monotonic() < t_end:
+            w0 = time.monotonic()
+            time.sleep(window_s)
+            got = _drain_wires(n.wires_out)
+            delivered += got
+            windows.append(got / (time.monotonic() - w0))
+        stop_feed.set()
+        feed.join(timeout=5)
+        chaos.heal_peer(addr_b)
+        # drain to empty: every fed frame must land at B; the breaker
+        # needs its half-open probe to close
+        deadline = time.monotonic() + drain_timeout_s
+        while delivered < fed[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            delivered += _drain_wires(n.wires_out)
+        plane.flush_peers(timeout_s=10.0)
+        delivered += _drain_wires(n.wires_out)
+    finally:
+        stop_feed.set()
+        if feed is not None:
+            feed.join(timeout=5)
+        # read BEFORE stop(), which drops the per-peer senders
+        pstats = plane.peer_fault_stats().get(addr_b, {})
+        retries_total = plane.peer_retries
+        plane.stop()
+        n.server_a.stop(0)
+        n.server_b.stop(0)
+    med = statistics.median(windows) if windows else 0.0
+    # at least one sampled frame rode the WHOLE fault path: sampled at
+    # ingress on A, buffered through an outage, retried, sent to B on a
+    # later attempt and received there
+    trace_id, trace_path = tele.find_cross_node_trace(rec_a, rec_b)
+    trace_stages = [e["stage"] for e in trace_path]
+    if require_trace and not trace_id:
+        raise RuntimeError(
+            "chaos_soak: no sampled cross-node trace shows the full "
+            "fault path (ingress → outage-buffered → retried → "
+            f"peer-sent → received); sampled={rec_a.sampled} "
+            f"a_events={rec_a.recorded} b_events={rec_b.recorded} "
+            f"breaker={pstats}")
+    link_rows, _secs, _trunc = tel_a.link_rows(n.engine_a)
+    return {
+        "scenario": "chaos_soak",
+        "device": str(dev),
+        "pairs": pairs,
+        "seconds": seconds,
+        "flap_hz": round(1.0 / flap_period_s, 3),
+        "duty_down": duty_down,
+        "offered_frames_per_s": offered_frames_per_s,
+        "frames_fed": fed[0],
+        "frames_delivered": delivered,
+        "frames_lost": fed[0] - delivered,
+        "windows_frames_per_s": [round(w, 1) for w in windows],
+        "sustained_under_flap_frames_per_s": round(med, 1),
+        "breaker": pstats,
+        "breaker_cycles": int(pstats.get("cycles", 0)),
+        "peer_retries": retries_total,
+        "peer_buffer_dropped": int(pstats.get("dropped", 0)),
+        "injected_faults": dict(chaos.injected),
+        "tick_errors": plane.tick_errors,
+        "shaping_dropped": plane.dropped,
+        "forward_errors": n.daemon_a.forward_errors,
+        "degrade_level_end": plane.degrade_level,
+        # link telemetry + flight-recorder evidence
+        "sampled_frames": rec_a.sampled,
+        "trace_ok": bool(trace_id),
+        "trace_id": f"{trace_id:#x}",
+        "trace_hops": len(trace_path),
+        "trace_stages": trace_stages,
+        "trace_nodes": sorted({e["node"] for e in trace_path}),
+        "telemetry_windows_closed": tel_a.windows_closed,
+        "telemetry_link_rows": len(link_rows),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def staged_update_soak(pairs: int = 4, steady_s: float = 3.0,
+                       staging_s: float = 3.0,
+                       offered_frames_per_s: int = 8_000,
+                       latency: str = "2ms", new_latency: str = "3ms",
+                       dt_us: float = 2_000.0,
+                       observe_ticks: int = 4, gate_ticks: int = 120,
+                       drain_timeout_s: float = 60.0, device=None):
+    """The planned-update change gate under LIVE load, end to end, on a
+    plane on `device` (None = the CUDA card):
+
+    1. a real daemon and runner serve paced traffic; a steady window
+       measures the baseline throughput;
+    2. a CLEAN delta (a latency bump on every pair) goes through plan →
+       twin gate (one what-if sweep, kernel K1 a shaping slot and step
+       on the card) → staged rounds with watch windows while the load
+       keeps flowing; the throughput DURING staging is held against the
+       steady one and the zero-loss accounting covers the whole run;
+    3. a REGRESSING delta (loss=70 on a pair) must be REJECTED by the
+       gate before it touches the plane: the props column is compared
+       on its own device before and after.
+
+    Records the gate's seconds, rounds staged, rollbacks and staging
+    over steady throughput."""
+    import threading as _threading
+
+    import torch
+
+    from kubedtn_tpu_torch.updates import (Guardrails, plan_update,
+                                           verify_plan_live)
+    from kubedtn_tpu_torch.updates.stager import UpdateStats
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    daemon, server, _port, plane, wires_in, wires_out = \
+        _live_plane_setup(pairs, latency, dt_us, "su", device=dev)
+    engine = daemon.engine
+    stats = UpdateStats()
+    fed = [0]
+    stop_feed = _threading.Event()
+    stop_probe = _threading.Event()
+    feed = pr = None
+
+    def drain_delivered() -> int:
+        return _drain_wires(wires_out)
+
+    delivered = 0
+    # p99 headroom: the clean delta IS a latency bump, so the latency
+    # guardrail must not veto the intended change; the regressing delta
+    # is caught by the delivery-ratio guardrail
+    guards = Guardrails(ticks=gate_ticks, dt_us=1000.0,
+                        max_p99_factor=4.0)
+    try:
+        plane.enable_telemetry(window_s=0.5, sample_period=64)
+        stager = plane.update_stager(stats=stats)
+        delivered = _warm_live_load(wires_in, drain_delivered, fed, 32,
+                                    "staged_update_soak")
+        feed = _threading.Thread(
+            target=_paced_feeder,
+            args=(wires_in, offered_frames_per_s, stop_feed, fed),
+            daemon=True)
+        feed.start()
+        w0 = time.monotonic()
+        time.sleep(steady_s)
+        got = drain_delivered()
+        delivered += got
+        steady_rate = got / (time.monotonic() - w0)
+        # the clean delta through the full claim/apply path, under load:
+        # the gate sweeps a live snapshot while traffic flows; staging
+        # lands each round at a flush barrier and watches the telemetry
+        # ring between rounds
+        topos = [engine.store.get("default", f"su-a{i}")
+                 for i in range(pairs)]
+        new_props = LinkProperties(latency=new_latency)
+        gate_s, stage_s, rounds_staged = 0.0, 0.0, 0
+        stage_window_t0 = time.monotonic()
+        drained_during = [0]
+
+        def probe():  # keep draining: the staging window's rate
+            while not stop_probe.is_set():
+                drained_during[0] += drain_delivered()
+                stop_probe.wait(0.02)
+
+        pr = _threading.Thread(target=probe, daemon=True)
+        pr.start()
+        clean_verdicts = []
+        for topo in topos:
+            old = list(topo.status.links)
+            new = [l.with_properties(new_props) for l in old]
+            plan = plan_update(old, new, namespace=topo.namespace,
+                               name=topo.name)
+            verdict = verify_plan_live(plane, plan, guardrails=guards)
+            stats.record_plan(verdict)
+            gate_s += verdict.gate_s
+            clean_verdicts.append(verdict.ok)
+            if not verdict.ok:
+                continue
+            res = stager.stage(plan, topo, observe_ticks=observe_ticks,
+                               guardrails=guards)
+            stage_s += res.stage_s
+            rounds_staged += res.rounds_applied
+        time.sleep(max(0.0, staging_s
+                       - (time.monotonic() - stage_window_t0)))
+        stop_probe.set()
+        pr.join(timeout=2)
+        drained_during[0] += drain_delivered()
+        delivered += drained_during[0]
+        staging_rate = (drained_during[0]
+                        / (time.monotonic() - stage_window_t0))
+        # the regressing delta: the gate must block it BEFORE the plane
+        topo0 = engine.store.get("default", "su-a0")
+        bad = [l.with_properties(LinkProperties(loss="70"))
+               for l in topo0.status.links]
+        bad_plan = plan_update(list(topo0.status.links), bad,
+                               namespace=topo0.namespace,
+                               name=topo0.name)
+        pre_props = engine.state.props.clone()
+        bad_verdict = verify_plan_live(plane, bad_plan,
+                                       guardrails=guards)
+        stats.record_plan(bad_verdict)
+        gate_s += bad_verdict.gate_s
+        gate_untouched = bool(torch.equal(pre_props, engine.state.props))
+        # drain to empty: zero-loss accounting across the whole run
+        stop_feed.set()
+        feed.join(timeout=5)
+        deadline = time.monotonic() + drain_timeout_s
+        while delivered < fed[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            delivered += drain_delivered()
+    finally:
+        stop_feed.set()
+        stop_probe.set()
+        for th in (feed, pr):
+            if th is not None:
+                th.join(timeout=5)
+        plane.stop()
+        server.stop(0)
+    snap_stats = stats.snapshot()
+    return {
+        "scenario": "staged_update_soak",
+        "device": str(dev),
+        "pairs": pairs,
+        "offered_frames_per_s": offered_frames_per_s,
+        "frames_fed": fed[0],
+        "frames_delivered": delivered,
+        "frames_lost": fed[0] - delivered,
+        "steady_frames_per_s": round(steady_rate, 1),
+        "staging_frames_per_s": round(staging_rate, 1),
+        "staging_over_steady": round(staging_rate / steady_rate, 3)
+        if steady_rate else None,
+        "clean_plans_verified": sum(clean_verdicts),
+        "clean_plans": len(clean_verdicts),
+        "rounds_staged": rounds_staged,
+        "rollbacks": snap_stats["rollbacks"],
+        "gate_s": round(gate_s, 3),
+        "stage_s": round(stage_s, 3),
+        "regressing_rejected": not bad_verdict.ok,
+        "regressing_reason": bad_verdict.reason,
+        "gate_left_plane_untouched": gate_untouched,
+        "tick_errors": plane.tick_errors,
+        "update_stats": snap_stats,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def update_under_flap(pairs: int = 2, seconds: float = 5.0,
+                      flap_period_s: float = 1.0, duty_down: float = 0.5,
+                      offered_frames_per_s: int = 6_000,
+                      latency: str = "2ms", new_latency: str = "4ms",
+                      dt_us: float = 2_000.0, gate_ticks: int = 100,
+                      observe_ticks: int = 3, seed: int = 11,
+                      drain_timeout_s: float = 90.0, device=None):
+    """chaos_soak's cross-node flap with a staged update landing
+    MID-FLAP: while the A→B peer breaker cycles, a planned latency
+    change on A's topologies goes through the gate (K1 on the card) and
+    stages through the running plane on `device` (None = the CUDA card).
+    Each update must complete, roll back cleanly or be rejected by the
+    gate, and no frame may be lost in any case (`frames_lost == 0`: the
+    outage buffer and the retries absorb the flap, the staging barriers
+    strand no frame)."""
+    import threading as _threading
+
+    from kubedtn_tpu_torch.chaos import ChaosInjector
+    from kubedtn_tpu_torch.updates import (Guardrails, plan_update,
+                                           verify_plan_live)
+    from kubedtn_tpu_torch.updates.stager import UpdateStats
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    n = _cross_node_setup(pairs, latency, dt_us, "u", dev,
+                          status_links=True)
+    plane, addr_b = n.plane, n.addr_b
+    stats = UpdateStats()
+    fed = [0]
+    stop_feed = _threading.Event()
+    feed = None
+
+    def drain_delivered() -> int:
+        return _drain_wires(n.wires_out)
+
+    delivered = 0
+    stage_results = []
+    # a latency bump: give the p99 guardrail headroom (as
+    # staged_update_soak); the contract is complete or roll back
+    # cleanly with zero loss, either verdict passes
+    guards = Guardrails(ticks=gate_ticks, dt_us=1000.0,
+                        max_p99_factor=4.0)
+    try:
+        plane.enable_telemetry(window_s=0.5, sample_period=64,
+                               node=n.addr_a)
+        chaos = ChaosInjector(seed=seed)
+        plane.attach_chaos(chaos)
+        stager = plane.update_stager(stats=stats)
+        plane.start()
+        delivered = _warm_live_load(n.wires_in, drain_delivered, fed, 32,
+                                    "update_under_flap")
+        feed = _threading.Thread(
+            target=_paced_feeder,
+            args=(n.wires_in, offered_frames_per_s, stop_feed, fed),
+            daemon=True)
+        feed.start()
+        chaos.flap_peer(addr_b, flap_period_s, duty_down)
+        t_end = time.monotonic() + seconds
+        # stage mid-flap, after about one flap period, so the breaker
+        # is cycling
+        time.sleep(min(flap_period_s, seconds / 3))
+        new_props = LinkProperties(latency=new_latency)
+        for i in range(pairs):
+            topo = n.store_a.get("default", f"ua{i}")
+            old = list(topo.status.links)
+            new = [l.with_properties(new_props) for l in old]
+            plan = plan_update(old, new, namespace=topo.namespace,
+                               name=topo.name)
+            verdict = verify_plan_live(plane, plan, guardrails=guards)
+            stats.record_plan(verdict)
+            if not verdict.ok:
+                stage_results.append("gate-rejected")
+                continue
+            res = stager.stage(plan, topo, observe_ticks=observe_ticks,
+                               guardrails=guards)
+            stage_results.append("completed" if res.ok
+                                 else f"rolled-back: {res.reason}")
+        while time.monotonic() < t_end:
+            time.sleep(0.05)
+            delivered += drain_delivered()
+        stop_feed.set()
+        feed.join(timeout=5)
+        chaos.heal_peer(addr_b)
+        deadline = time.monotonic() + drain_timeout_s
+        while delivered < fed[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            delivered += drain_delivered()
+        plane.flush_peers(timeout_s=10.0)
+        delivered += drain_delivered()
+    finally:
+        stop_feed.set()
+        if feed is not None:
+            feed.join(timeout=5)
+        pstats = plane.peer_fault_stats().get(addr_b, {})
+        plane.stop()
+        n.server_a.stop(0)
+        n.server_b.stop(0)
+    # every verdict is clean while the plane stays consistent: completed
+    # (landed), rolled back (undone bit-exactly) or gate-rejected (never
+    # touched the plane)
+    clean = all(r in ("completed", "gate-rejected")
+                or r.startswith("rolled-back") for r in stage_results)
+    return {
+        "scenario": "update_under_flap",
+        "device": str(dev),
+        "pairs": pairs,
+        "seconds": seconds,
+        "flap_hz": round(1.0 / flap_period_s, 3),
+        "frames_fed": fed[0],
+        "frames_delivered": delivered,
+        "frames_lost": fed[0] - delivered,
+        "stage_results": stage_results,
+        "stages_clean": clean,
+        "stages_completed": sum(1 for r in stage_results
+                                if r == "completed"),
+        "rollbacks": stats.snapshot()["rollbacks"],
+        "breaker_cycles": int(pstats.get("cycles", 0)),
+        "breaker": pstats,
+        "injected_faults": dict(chaos.injected),
+        "tick_errors": plane.tick_errors,
+        "update_stats": stats.snapshot(),
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
 def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
                          migrate_after_s: float = 1.5,
                          flap_period_s: float = 1.0,
@@ -1042,7 +1960,6 @@ def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
     import tempfile
     import threading as _threading
 
-    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
     from kubedtn_tpu_torch.chaos import ChaosInjector
     from kubedtn_tpu_torch.federation import (FederationController,
                                               MigrationError,
@@ -1076,36 +1993,12 @@ def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
 
     (store_a, engine_a, daemon_a, server_a, addr_a, reg_a,
      plane_a) = make_node()
-    (store_b, engine_b, daemon_b, server_b, addr_b, reg_b,
+    (store_b, _engine_b, daemon_b, server_b, addr_b, reg_b,
      plane_b) = make_node()
-    props = LinkProperties(latency=latency)
-    for store in (store_a, store_b):
-        for i in range(pairs):
-            ta = Topology(name=f"ma{i}", spec=TopologySpec(links=[
-                Link(local_intf="eth1", peer_intf="eth1",
-                     peer_pod=f"mb{i}", uid=i + 1, properties=props)]))
-            tb = Topology(name=f"mb{i}", spec=TopologySpec(links=[
-                Link(local_intf="eth1", peer_intf="eth1",
-                     peer_pod=f"ma{i}", uid=i + 1, properties=props)]))
-            ta.status.src_ip, ta.status.net_ns = addr_a, "/ns/a"
-            tb.status.src_ip, tb.status.net_ns = addr_b, "/ns/b"
-            store.create(ta)
-            store.create(tb)
-    for i in range(pairs):
-        t = store_a.get("default", f"ma{i}")
-        if not engine_a.add_links(t, t.spec.links):
-            raise RuntimeError("cross-node realize failed")
+    wires_in, wires_out = _cross_node_links(
+        pairs, latency, "m", (store_a, engine_a, daemon_a, addr_a),
+        (store_b, daemon_b, addr_b))
     reg_a.create("mig", namespaces=["default"])
-    wires_in, wires_out = [], []
-    for i in range(pairs):
-        wb = daemon_b._add_wire(types.SimpleNamespace(
-            **{**vars(wire_def(f"mb{i}", "default", i + 1)),
-               "peer_ip": addr_a}))
-        wa = daemon_a._add_wire(types.SimpleNamespace(
-            **{**vars(wire_def(f"ma{i}", "default", i + 1)),
-               "peer_ip": addr_b, "peer_intf_id": wb.wire_id}))
-        wires_in.append(wa)
-        wires_out.append(wb)
 
     stats = MigrationStats()
     chaos = ChaosInjector(seed=seed)
@@ -1812,15 +2705,19 @@ LADDER = {
     "reconcile_100k": reconcile_100k,
     "scale_1m": scale_1m,
     "chaos_flaps": chaos_flaps,
+    "live_plane": live_plane,
+    "live_plane_soak": live_plane_soak,
     "reconverge_10k": reconverge_10k,
+    "chaos_soak": chaos_soak,
     "burn_recovery": burn_recovery,
+    "staged_update_soak": staged_update_soak,
+    "update_under_flap": update_under_flap,
     "migration_under_flap": migration_under_flap,
     "plane_failover": plane_failover,
     "fleet_rolling_upgrade": fleet_rolling_upgrade,
 }
 NOT_PORTED = (
-    "live_plane", "live_plane_soak", "chaos_soak", "whatif_sweep",
-    "telemetry_overhead", "slo_overhead", "pause_observability",
-    "sharded_soak", "staged_update_soak", "update_under_flap",
-    "noisy_neighbor", "shm_producer_crash", "shm_soak", "tenant_soak",
+    "whatif_sweep", "telemetry_overhead", "slo_overhead",
+    "pause_observability", "sharded_soak", "noisy_neighbor",
+    "shm_producer_crash", "shm_soak", "tenant_soak",
 )

@@ -744,16 +744,19 @@ def test_ladder_is_jax_order_restricted_to_the_ported():
     assert list(tsc.LADDER) == [k for k in jsc.LADDER if k in tsc.LADDER]
     assert list(tsc.LADDER) == ["3node", "fat_tree_64", "churn_1k",
                                 "routes_10k", "clos_100k", "reconcile_100k",
-                                "scale_1m", "chaos_flaps", "reconverge_10k",
-                                "burn_recovery", "migration_under_flap",
-                                "plane_failover", "fleet_rolling_upgrade"]
+                                "scale_1m", "chaos_flaps", "live_plane",
+                                "live_plane_soak", "reconverge_10k",
+                                "chaos_soak", "burn_recovery",
+                                "staged_update_soak", "update_under_flap",
+                                "migration_under_flap", "plane_failover",
+                                "fleet_rolling_upgrade"]
     assert sorted([*tsc.LADDER, *tsc.NOT_PORTED]) == sorted(jsc.LADDER)
     assert list(tsc.NOT_PORTED) == [k for k in jsc.LADDER
                                     if k not in tsc.LADDER]
 
 
-@pytest.mark.parametrize("name", ["live_plane", "noisy_neighbor",
-                                  "chaos_soak"])
+@pytest.mark.parametrize("name", ["telemetry_overhead", "noisy_neighbor",
+                                  "shm_soak"])
 def test_scenario_not_ported_yet_is_refused(capsys, name):
     rc, out, err = run(capsys, tcli, ["scenario", name, *CPU])
     assert rc == 1 and out == ""

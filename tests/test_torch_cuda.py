@@ -1401,3 +1401,68 @@ def test_exchange_probe_of_a_sharded_plane_on_the_card(dev):
     assert_bitwise(got[0].cpu(), want[0], "probe f32 payload")
     assert_bitwise(got[1].cpu(), want[1], "probe i32 payload")
 
+
+
+def test_live_plane_soaks_on_the_card(dev):
+    """live_plane and the TBF live_plane_soak at the CPU tests' sizes on
+    a plane on the card: every frame delivered, every window alive."""
+    from kubedtn_tpu_torch import scenarios
+
+    r = scenarios.live_plane(pairs=2, frames_per_wire=1_000, rounds=1,
+                             timeout_s=120.0, device=dev)
+    assert r["device"].startswith("cuda")
+    assert r["frames_delivered"] == 2 * 1024
+    assert r["dropped"] == 0 and r["tick_errors"] == 0
+    r = scenarios.live_plane_soak(pairs=2, seconds=3.0, window_s=1.0,
+                                  rate="2Gbit", chunk=512, device=dev)
+    assert r["dropped"] == 0 and r["tick_errors"] == 0
+    assert r["windows_frames_per_s"]
+    assert all(w > 0 for w in r["windows_frames_per_s"])
+
+
+def test_chaos_soak_on_the_card(dev):
+    """chip_smoke.py's 23(c) at the CPU test's size: A's plane on the
+    card, zero loss, the breaker cycling, a cross-node trace."""
+    import logging
+
+    from kubedtn_tpu_torch import scenarios
+
+    logging.disable(logging.WARNING)
+    try:
+        r = scenarios.chaos_soak(pairs=2, seconds=3.0, flap_period_s=1.0,
+                                 offered_frames_per_s=6_000, seed=11,
+                                 device=dev)
+    finally:
+        logging.disable(logging.NOTSET)
+    assert r["device"].startswith("cuda")
+    assert r["frames_lost"] == 0 and r["peer_buffer_dropped"] == 0, r
+    assert r["shaping_dropped"] == 0 and r["tick_errors"] == 0, r
+    assert r["breaker_cycles"] >= 1, r["breaker"]
+    assert r["trace_ok"] and len(r["trace_nodes"]) == 2, r
+    for stage in ("ingress", "outage-buffered", "retried", "peer-sent",
+                  "received"):
+        assert stage in r["trace_stages"], r["trace_stages"]
+
+
+def test_staged_update_soak_gates_through_k1_on_the_card(dev):
+    """chip_smoke.py's 23(d) and (f) at the CPU test's size: zero loss,
+    the regressing delta rejected with the plane untouched, K1 launched
+    exactly gates x ticks x slots, and the regressing gate's sweep on
+    its own snapshot through K1 == the plain version, bit for bit."""
+    import chip_smoke
+    from kubedtn_tpu_torch import scenarios
+
+    shaping.reset_launches()
+    with chip_smoke.GateLog() as gates:
+        r = scenarios.staged_update_soak(pairs=2, steady_s=1.0,
+                                         staging_s=1.0, gate_ticks=60,
+                                         device=dev)
+    k1 = shaping.LAUNCHES["shape_step_rows"]
+    assert r["frames_lost"] == 0 and r["tick_errors"] == 0, r
+    assert r["clean_plans_verified"] == r["clean_plans"] == 2, r
+    assert r["regressing_rejected"] and r["gate_left_plane_untouched"], r
+    assert len(gates.calls) == 3
+    assert k1 == chip_smoke._gate_launches(gates.calls, 60, "test") \
+        == 3 * 60 * 4
+    out = chip_smoke.replay_gate_sweep(gates.calls[-1], True, "test")
+    assert out["k1_compare_launches"] == 60 * 4
