@@ -115,11 +115,13 @@ Phases, each fatal on failure:
      first 8 scenarios alone == their lanes; 2 steps through K1 == the
      plain version, bit for bit; K1 at 3,932,160 rows timed against its
      bound; ms per step, replica-steps/s, busy share, peak memory;
-     (b) a 4-lane routed sweep of 20 steps (50 until phase 21) on the
+     (b) a 4-lane routed sweep of 10 steps (50 until phase 21, 20
+     until phase 24) on the
      Clos with its routes:
      replica 0 == run_routed bit for bit; (c) phase 12's daemon and
      classes, its plane in the real-time runner at depth 2 behind a gRPC
-     server: a WhatIf of 4 scenarios x 100 ticks while phase 12's feed
+     server: a WhatIf of 4 scenarios x 50 ticks (100 until phase 24)
+     while phase 12's feed
      flows, every frame fed shaped or queue-dropped and delivered; the
      snapshot barrier's cost; (d) a latency change on 64 links of one
      leaf through the planned reconciler (plan, the twin gate at full
@@ -255,7 +257,8 @@ Phases, each fatal on failure:
      of 64-256 B per wire and tick); the supervisor from
      entry.build_fleet (suspect after 2, dead after 4, healthy after 2):
      (a) the ledger adopts every registry's tenants, FleetStatus over
-     gRPC == status(); (b) A fed 3 ticks and drained (one t0 frame a
+     gRPC == status(); (b) A fed 2 ticks (3 until phase 24) and
+     drained (one t0 frame a
      tick keeps A dispatching), one save_live checkpoint (the
      autosave's stand-in), t1's move A -> C failed by a fault at RESTORE
      (the journal holds a running record with FORK committed), one
@@ -268,8 +271,9 @@ Phases, each fatal on failure:
      restored rows' columns == their source and A's own rows, bit for
      bit; every slice that landed on C restored on C' by hand from the
      same source (the journal's fork, or the evacuation's own read of
-     A's checkpoint); whether a survivor grew is printed; 3 fed ticks
-     and the drain: every stream on C == C' per wire, bit for bit;
+     A's checkpoint); whether a survivor grew is printed; 2 fed ticks
+     (3 until phase 24) and the drain: every stream on C == C' per
+     wire, bit for bit;
      check_failover_accounting exact per tenant (reported_lost == the
      gap frames, accounted + lost == fed, egress == delivered_src +
      delivered_dst), the mismatch gauge 0; K4 == plain on one ring step
@@ -316,17 +320,20 @@ Phases, each fatal on failure:
      process and the card's free memory down), Health serving, /metrics
      with the 200,000 rows and the checkpoint's tenants; (c) 4,096
      leaf -> spine links wired on both ends by AddGRPCWireLocal, fed for
-     2 s (3 until phase 21) over InjectBulk from a client process (1-4
+     1 s (3 until phase 21, 2 until phase 24) over InjectBulk from a
+     client process (1-4
      tagged frames of
      64-256 B a wire every 0.5 s) and by 8 ShmSender processes into S
-     (5,000 frames each; cut from a round every 0.1 s and 20,000 frames,
-     which the daemon drained too slowly, PERF.md §4 and §7); after the
+     (2,500 frames each, 5,000 until phase 24; cut from a round every
+     0.1 s and 20,000 frames, which the daemon drained too slowly,
+     PERF.md §4 and §7); after the
      drain the books close from the
      scrape: per fed link its leaf end's tx == the frames fed into its
      wire, node-wide fed == delivered + netem loss + TBF queue + delay
      ring; each operator verb a `tpudtn-torch` process (python -m
-     kubedtn_tpu_torch.cli; the first 11 started as the feed ends, while
-     the books are read) with rc 0 and JSON: top, slo, pauses,
+     kubedtn_tpu_torch.cli; the first 10 started as the feed ends,
+     while the books are read, and top once the daemon has closed its
+     first telemetry window) with rc 0 and JSON: top, slo, pauses,
      tenant list / stats, autopilot status (attached, disabled), fleet
      status, migrate --status, trace latest, whatif --daemon (degrade,
      fail, spine0 blackholed, load x 1.5; 100 ticks, 200 until phase
@@ -420,23 +427,63 @@ Phases, each fatal on failure:
      child over InjectBulk (2 rounds of JAX's 5): every frame of the
      whole chunks delivered, none dropped, the median and best frames/s
      and the injector's; (b) live_plane_soak at 5 ms (chunk 1,024) and
-     over 2 Gbit TBF wires (chunk 512), 5 s of 1 s windows (JAX's 20 s
-     of 2.5 s) after a settle of at most 15 s (90): every window
+     over 2 Gbit TBF wires (chunk 512), 3 s of 1 s windows (JAX's 20 s
+     of 2.5 s; 5 s until phase 24) after a settle of at most 15 s (90):
+     every window
      alive, nothing dropped; the windows, sustained rate, flatness,
      backlog, GC and steal seconds, the stage shares; (c) chaos_soak, 4
      pairs, 20,000 frames/s, the peer flapped at 1 Hz, 50 % down, for
-     4 s (12): zero frames lost, no buffer or shaping drop, a breaker
+     3 s (12; 4 until phase 24): zero frames lost, no buffer or shaping drop, a breaker
      cycle, a sampled trace ingress -> outage-buffered -> retried ->
      peer-sent -> received on both nodes; (d) staged_update_soak, 4
-     pairs, 8,000 frames/s, 1.5 s steady and 1.5 s staging (3 and 3):
-     zero loss, the 4 clean plans verified and staged, the loss=70
+     pairs, 8,000 frames/s, 1.5 s steady and 1.5 s staging (3 and 3),
+     gates of 60 ticks (120; 120 until phase 24): zero loss, the 4 clean plans verified and staged, the loss=70
      delta rejected with the props column untouched; (e)
-     update_under_flap, 2 pairs, 6,000 frames/s, 3 s (5): zero loss,
+     update_under_flap, 2 pairs, 6,000 frames/s, 3 s (5), gates of 50
+     ticks (100; 100 until phase 24): zero loss,
      every stage clean, a breaker cycle; (f) K1's launches, counted
      from 0 around (d) and (e) == the gates that ran x their ticks x 4
-     slots (5 x 120 + 2 x 100), and the regressing gate's own snapshot
+     slots (5 x 60 + 2 x 50), and the regressing gate's own snapshot
      of (d)'s plane swept again through K1 and through the plain
      version on the same seed: every metric equal, bit for bit.
+ 24. the ladder's last nine scenarios, through scenarios.LADDER on the
+     card at JAX's widths, only their durations cut (PROBE_CUTS, PERF.md
+     §4), each with its JAX keys and "device": (a) telemetry_overhead,
+     4 pairs at 2 ms, 20,000 frames a wire, 3 interleaved off / on
+     rounds (5), windows of 0.01 s (0.25 s closes none on the probe's
+     virtual clock): no tick error, frames sampled and recorded, a link
+     row a pair, windows closed; the paired overhead, its best pair and
+     the 5 % bar printed; (b) slo_overhead, two planes of 3 tenants
+     of 1 pair at 2 ms, the evaluator's sidecar on one, 3 rounds (5):
+     evaluations ran, every tenant evaluated and ok; the 1 % bar
+     printed; (c) pause_observability, 2 rounds (4):
+     the forced checkpoint_save, compact and staged_update barriers each
+     in the ledger with count, seconds and rows, compact moved rows, the
+     staged update ok, no dropped event; the 2 % bar printed; (d)
+     whatif_sweep, 64 replicas of a random_mesh(32, 64) for 200 steps
+     (10,000), K1's launches counted from 0 around it: delivery ratios
+     in (0, 1] and the worst <= the baseline, K1 == steps x 2 slots, each
+     launch over 64 x 256 rows; the recorded run_sweep call's snapshot
+     and scenarios swept again for 20 steps through K1 and through the
+     plain version: every metric equal, bit for bit; (e) sharded_soak,
+     48 pairs, 6,000 frames a wire, 2 rounds (3), on 8 virtual shards
+     (devices=8; JAX's devices=0 is the one card): mesh [8], no drop or
+     tick error, cross-shard frames, the shard edges summing to the
+     plane's rows, remote_dma and exchange_seconds; K4, counted from 0
+     around it, == the sharded plane's dispatches x 7 ring steps x the
+     ring plan's launches plus its exchange probes' (ProbeK4), and == the
+     plain ring on one ring step of its mailbox, bit for bit; single and
+     sharded frames/s; (f) noisy_neighbor over wire ingress for 2 s and
+     over an shm ring for 1 s (4 s each): in guardrails, the victim lost
+     nothing, the aggressor's admitted + queued == fed, nothing dropped,
+     over shm the ring head's throttle verdicts; (g) shm_producer_crash
+     at JAX's defaults: in guardrails (a contiguous prefix delivered, the
+     torn tail skipped, the ring retired, a trace across the ring); (h)
+     shm_soak at JAX's defaults: 200,000 frames audited exactly once, the
+     producer's rc 0, shm >= 10 x the gRPC stream; (i) tenant_soak, 3
+     tenants x 2 pairs behind the real-time runner, an injector child
+     each, 3 s (8) after a settle of at most 15 s (60): every tenant's
+     sustained rate and worst window > 0, nothing dropped.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
@@ -445,8 +492,10 @@ saturating InjectBulk feed, booted with phase 20's flags, without
 
 The line before the last lists the kernels with their launches by path
 (K1's sharded_step and sharded_router from phase 22, its rungs path
-with chaos_flaps, its soaks path from 23(d) and (e); K4's probe path,
-the sharded planes' exchange probes), errors, times and bounds (with --phases, the kernels whose checks ran:
+with chaos_flaps, its soaks path from 23(d) and (e), its whatif path
+from 24(d), with 24(d)'s replay under compare_launches; K4's probe path,
+the sharded planes' exchange probes, and its sharded_soak path from
+24(e)), errors, times and bounds (with --phases, the kernels whose checks ran:
 K1-K3 with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
 {...}}. It exits non-zero, printing neither, when there is no CUDA
 device or the package is missing.
@@ -2658,8 +2707,8 @@ TWIN_CHECK_STEPS = 2        # K1's replica launches vs the plain version
 TWIN_SUBSET = 8             # scenarios of the N = 8 sweep
 TWIN_PROFILED_STEPS = 5
 TWIN_ROUTED_LANES = 4
-TWIN_ROUTED_STEPS = 20      # (50 until phase 21 joined)
-WHATIF_TICKS = 100
+TWIN_ROUTED_STEPS = 10      # (50 until phase 21, 20 until phase 24)
+WHATIF_TICKS = 50           # (100 until phase 24 joined)
 WHATIF_FEED_ROUNDS = 4      # phase 12's feed rounds around the WhatIf
 WHATIF_WAIT_S = 300.0       # bound on every wait of 14(c) and 14(d)
 PLAN_LINKS = 64             # links of one leaf whose latency the plan moves
@@ -5450,8 +5499,10 @@ def run_migration_phase(dev, card, n_spine=None, n_leaf=None,
     return m, k1, k4
 
 
-FL_FEED_TICKS = 3           # fed ticks before the checkpoint
-FL_POST_TICKS = 3           # fed ticks after the evacuation
+FL_FEED_TICKS = 2           # fed ticks before the checkpoint (3 until
+                            # phase 24 joined)
+FL_POST_TICKS = 2           # fed ticks after the evacuation (3 until
+                            # phase 24 joined)
 FL_C0 = "c0"                # C's own tenant: phase 17's g0 shape on
 FL_C0_LATENCY = "1ms"       # latency-only links, as fleet_rolling_upgrade's
 FL_C0_FEED = 8              # frames of AP_FRAME_BYTES per c0 wire and tick
@@ -6441,9 +6492,10 @@ def run_fleet_phase(dev, card, n_spine=None, n_leaf=None,
 DMN_LINKS = 4096            # fed Clos links, leaf ends among the scrape's
                             # first 10,000 interface series
 DMN_PRODUCERS = 8           # shm producer processes, one fed link each
-DMN_SHM_FRAMES = 5_000      # frames per producer
+DMN_SHM_FRAMES = 2_500      # frames per producer (5,000 until phase 24)
 DMN_SHM_BYTES = 200
-DMN_FEED_S = 2.0            # seconds of feed (3 until phase 21 joined)
+DMN_FEED_S = 1.0            # seconds of feed (3 until phase 21 joined,
+                            # 2 until phase 24)
 DMN_ROUND_S = 0.5           # the InjectBulk feeder's pace: a round a 0.5 s
 DMN_MAX_FRAMES = 4          # 1..4 frames of 64-256 B per wire and round
 DMN_HOLD_LATENCY = "2s"     # the fed links' leaf ends before 20(d)'s burst:
@@ -6946,7 +6998,18 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
                 verbs[k] = {"s": time.perf_counter() - t0,
                             "out": json.loads(out.splitlines()[-1])}
 
+        # `top` starts once the daemon has closed its first telemetry
+        # window: before that it has none to report. On a slow host the
+        # feed's first two dispatches hold the plane ~5 s each (PERF.md
+        # §7), and a `top` started with the others asked inside them
+        top_argv = together.pop("top")
         running = launch(together)
+        m["first_window_s"] = wait_for(
+            lambda: dmn_scrape(mport).get(
+                ("kubedtn_link_windows_closed_total", ""), 0.0) >= 1,
+            DMN_WAIT_S, "20(c): the daemon's first telemetry window",
+            interval=0.25)
+        running_top = launch({"top": top_argv})
         books, sc, m["drain_s"] = dmn_wait_books(mport, links, fed,
                                                  "20(c) the feed")
         log(f"20(c) {len(wids)} + {len(wids)} wires by AddGRPCWireLocal in "
@@ -6962,6 +7025,7 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
             f"({card})")
 
         collect(running)
+        collect(running_top)
         plan = verbs["plan"]["out"]["plans"][0]
         check(plan["ok"] and plan["verified"], f"20(c): plan {plan}")
         n_changed = sum(r["changes"] for r in plan["rounds"])
@@ -6981,7 +7045,7 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
         top = verbs["top"]
         check(top["out"]["windows_closed"] > 0,
               f"20(c): top: no telemetry window closed (its answer "
-              f"{top['s']:.1f} s after the feed ended, covered_seconds "
+              f"{top['s']:.1f} s after its start, covered_seconds "
               f"{top['out']['covered_seconds']}; after the drain the "
               f"scrape read kubedtn_link_windows_closed "
               f"{sc.get(('kubedtn_link_windows_closed_total', ''))} and "
@@ -6998,7 +7062,9 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
         m["verbs_s"] = {k: v["s"] for k, v in verbs.items()}
         log(f"20(c) tpudtn-torch verbs against the daemon, rc 0 and JSON "
             f"each, wall s (the first {len(together)} run together while "
-            f"the feed drained, then apply --plan): "
+            f"the feed drained, top once the first telemetry window had "
+            f"closed {m['first_window_s']:.1f} s after the feed ended, "
+            f"then apply --plan): "
             + ", ".join(f"{k} {v:.2f}" for k, v in m["verbs_s"].items())
             + f"; plan {plan['plan_id']} verified ({n_changed} links, gate "
             f"{plan['gate_s']:.2f} s), applied in "
@@ -8228,13 +8294,17 @@ def run_scale_phase(el, fresh, dev, card, routed=None,
 # are cut (JAX's defaults in the comments, PERF.md §4).
 SOAK_CUTS = {
     "live_plane": dict(rounds=2),                        # 5 rounds
-    "live_plane_soak": dict(seconds=5.0, window_s=1.0,   # 20 s, 2.5 s,
+    "live_plane_soak": dict(seconds=3.0, window_s=1.0,   # 20 s, 2.5 s,
                             settle_s=15.0),              # settle <= 90 s
-    "chaos_soak": dict(seconds=4.0),                     # 12 s
+    "chaos_soak": dict(seconds=3.0),                     # 12 s
     "staged_update_soak": dict(steady_s=1.5,             # 3 s
-                               staging_s=1.5),           # 3 s
-    "update_under_flap": dict(seconds=3.0),              # 5 s
+                               staging_s=1.5,            # 3 s
+                               gate_ticks=60),           # 120 ticks
+    "update_under_flap": dict(seconds=3.0,               # 5 s
+                              gate_ticks=50),            # 100 ticks
 }
+# (phase 24 cut live_plane_soak 5 -> 3 s, chaos_soak 4 -> 3 s and the
+# gates 120 -> 60 and 100 -> 50 ticks, PERF.md §4)
 SOAK_TBF = dict(rate="2Gbit", chunk=512)    # bench.py's TBF soak
 
 
@@ -8277,36 +8347,49 @@ def _gate_launches(calls, gate_ticks: int, label: str) -> int:
     return len(calls) * gate_ticks * k_slots
 
 
-def replay_gate_sweep(call, on_card: bool, label: str) -> dict:
-    """Sweep a recorded gate's scenarios (GateLog) on its own snapshot
-    again, through K1 (queues.shape_packets) and through the plain
-    version (shape_packets_plain) on the same seed: every metric of
-    both equal bit for bit, the baseline equal to the gate's own, K1
-    launched once a shaping slot and step on the card."""
+def sweep_k1_vs_plain(snapshot, scenarios, kw: dict, on_card: bool,
+                      label: str) -> tuple:
+    """Sweep `scenarios` on `snapshot` (run_sweep's keywords `kw`)
+    through K1 (queues.shape_packets) and through the plain version
+    (shape_packets_plain) on the same seed: every metric of both equal
+    bit for bit (JSON-equal), K1 launched once a shaping slot and step
+    on the card. Returns (the sweep through K1, its K1 launches)."""
     from kubedtn_tpu_torch.ops import queues
     from kubedtn_tpu_torch.ops.cuda import shaping
     from kubedtn_tpu_torch.twin import run_sweep
+
+    k0 = shaping.LAUNCHES["shape_step_rows"]
+    kern = run_sweep(snapshot, scenarios, shape_fn=queues.shape_packets,
+                     **kw)
+    launches = shaping.LAUNCHES["shape_step_rows"] - k0
+    plain = run_sweep(snapshot, scenarios,
+                      shape_fn=queues.shape_packets_plain, **kw)
+    want = on_card * kw["steps"] * kw["k_slots"]
+    check(launches == want, f"{label}: the replayed sweep launched K1 "
+                            f"{launches} times, want {want}")
+    same_m = [json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+              for a, b in zip(kern.metrics, plain.metrics)]
+    check(kern.names == plain.names and len(same_m) == len(scenarios)
+          and all(same_m),
+          f"{label}: the sweep through K1 != the plain version "
+          f"(replicas equal: {same_m})")
+    return kern, launches
+
+
+def replay_gate_sweep(call, on_card: bool, label: str) -> dict:
+    """Sweep a recorded gate's scenarios (GateLog) on its own snapshot
+    again through K1 and through the plain version (sweep_k1_vs_plain),
+    the baseline equal to the gate's own."""
     from kubedtn_tpu_torch.updates.gate import gate_scenarios
 
     pod_ids = call.kw["pod_ids"]
     scen, _adds, _edits = gate_scenarios(call.plan, call.snapshot,
                                          pod_ids=pod_ids)
     g = call.kw["guardrails"]
-    kw = dict(steps=g.ticks, dt_us=g.dt_us, seed=g.seed, k_slots=g.k_slots,
-              pod_ids=pod_ids)
-    k0 = shaping.LAUNCHES["shape_step_rows"]
-    kern = run_sweep(call.snapshot, scen, shape_fn=queues.shape_packets,
-                     **kw)
-    launches = shaping.LAUNCHES["shape_step_rows"] - k0
-    plain = run_sweep(call.snapshot, scen,
-                      shape_fn=queues.shape_packets_plain, **kw)
-    check(launches == on_card * g.ticks * g.k_slots,
-          f"{label}: the replayed sweep launched K1 {launches} times")
-    same_m = [json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
-              for a, b in zip(kern.metrics, plain.metrics)]
-    check(kern.names == plain.names and all(same_m),
-          f"{label}: the gate sweep through K1 != the plain version "
-          f"(replicas equal: {same_m})")
+    kern, launches = sweep_k1_vs_plain(
+        call.snapshot, scen, dict(steps=g.ticks, dt_us=g.dt_us, seed=g.seed,
+                                  k_slots=g.k_slots, pod_ids=pod_ids),
+        on_card, label)
     check(kern.metrics[0]["p99_us"] == call.verdict.baseline["p99_us"],
           f"{label}: the replayed baseline p99 {kern.metrics[0]['p99_us']} "
           f"!= the gate's {call.verdict.baseline['p99_us']}")
@@ -8458,7 +8541,329 @@ def run_soak_phase(dev, card) -> tuple:
     return m, k1
 
 
-ALL_PHASES = tuple(range(1, 24))
+# Phase 24: the plane-only probes, the what-if sweep, the sharded soak and
+# the tenant and shm soaks at JAX's widths; only durations are cut (JAX's
+# defaults in the comments, PERF.md §4).
+PROBE_CUTS = {
+    # 5 rounds; JAX's 0.25 s windows close none on the probe's virtual
+    # clock (~15 ms a round), so the windows are slo_overhead's 0.01 s
+    "telemetry_overhead": dict(rounds=3, window_s=0.01),
+    "slo_overhead": dict(rounds=3),                      # 5 rounds
+    "pause_observability": dict(rounds=2),               # 4 rounds
+    "whatif_sweep": dict(steps=200),                     # 10,000 steps
+    "sharded_soak": dict(rounds=2, devices=8),           # 3; the cards' (1)
+    "noisy_neighbor": dict(seconds=2.0),                 # 4.0 s
+    "noisy_neighbor_shm": dict(seconds=1.0,              # 4.0 s
+                               aggressor_via_shm=True),
+    "shm_producer_crash": {},                            # JAX's defaults
+    "shm_soak": {},                                      # JAX's defaults
+    "tenant_soak": dict(seconds=3.0, settle_s=15.0),     # 8 s, <= 60 s
+}
+WHATIF_REPLAY_STEPS = 20    # 24(d): the recorded sweep through K1 and plain
+
+
+class SweepLog:
+    """While installed, records every twin.run_sweep call (its snapshot,
+    scenarios and keywords), as the scenarios reach it through the
+    package at call time; the sweeps run as they would."""
+
+    def __enter__(self) -> "SweepLog":
+        from kubedtn_tpu_torch import twin
+
+        real = self._real = twin.run_sweep
+        self.calls = []
+
+        def recorded(snapshot, scenarios, **kw):
+            self.calls.append(types.SimpleNamespace(
+                snapshot=snapshot, scenarios=list(scenarios), kw=kw))
+            return real(snapshot, scenarios, **kw)
+
+        twin.run_sweep = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from kubedtn_tpu_torch import twin
+
+        twin.run_sweep = self._real
+
+
+class ShardLog:
+    """While installed, records every plane that enables sharding and the
+    first mailbox ring step of the run (its blocks and mesh), and counts
+    the ring steps (parallel/exchange.ring_right_shift calls)."""
+
+    def __enter__(self) -> "ShardLog":
+        from kubedtn_tpu_torch import runtime
+        from kubedtn_tpu_torch.parallel import exchange as pex
+
+        self.planes, self.first, self.steps = [], None, 0
+        real_en = self._real_en = runtime.WireDataPlane.enable_sharding
+        real_shift = self._real_shift = pex.ring_right_shift
+        log_ = self
+
+        def enable(plane, *a, **kw):
+            log_.planes.append(plane)
+            return real_en(plane, *a, **kw)
+
+        def shift(blocks, mesh):
+            if log_.first is None:
+                log_.first = ([b.clone() for b in blocks], tuple(mesh))
+            log_.steps += 1
+            return real_shift(blocks, mesh)
+
+        runtime.WireDataPlane.enable_sharding = enable
+        pex.ring_right_shift = shift
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from kubedtn_tpu_torch import runtime
+        from kubedtn_tpu_torch.parallel import exchange as pex
+
+        runtime.WireDataPlane.enable_sharding = self._real_en
+        pex.ring_right_shift = self._real_shift
+
+
+def replay_whatif_sweep(call, on_card: bool, steps: int) -> dict:
+    """The recorded whatif_sweep call's (SweepLog) snapshot and scenarios
+    swept again for `steps` steps on its seed through K1 and through the
+    plain version (sweep_k1_vs_plain)."""
+    kw = dict(call.kw, steps=steps)
+    kern, launches = sweep_k1_vs_plain(call.snapshot, call.scenarios, kw,
+                                       on_card, "24(d)")
+    return {"replicas": kern.replicas, "steps": steps,
+            "k_slots": kw["k_slots"],
+            "rows": kern.replicas * int(call.snapshot.sim.edges.capacity),
+            "k1_compare_launches": launches}
+
+
+def run_probe_phase(dev, card, probe) -> tuple:
+    """Phase 24: the nine scenarios the ladder adds over phase 23,
+    through scenarios.LADDER on `dev` at JAX's widths, PROBE_CUTS cutting
+    their durations; K1 counted from 0 around whatif_sweep and its
+    recorded sweep replayed through K1 and through its plain version; K4
+    counted from 0 around sharded_soak on 8 virtual shards, == its
+    dispatches' ring steps plus its exchange probes' (`probe`, a
+    ProbeK4), and == plain on one ring step of its mailbox. Returns
+    (metrics, K1 launches by path, K4 launches around sharded_soak, its
+    probes' among them)."""
+    from kubedtn_tpu_torch import scenarios
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    on_card = dev.type == "cuda"
+    m, k1_other = {}, {}
+
+    def run(name, cut=None):
+        t0 = time.perf_counter()
+        k1 = shaping.LAUNCHES["shape_step_rows"]
+        r = scenarios.LADDER[name](device=dev, **PROBE_CUTS[cut or name])
+        r["phase_s"] = time.perf_counter() - t0
+        k1_other[cut or name] = shaping.LAUNCHES["shape_step_rows"] - k1
+        check(r["device"] == str(dev), f"24 {name} ran on {r['device']}")
+        return r
+
+    def pairs_line(r, bar: str, key: str) -> str:
+        return (f"overhead {r[key]} % (best pair {r[key + '_best']} %), "
+                f"meets the {bar} bar: {r[f'meets_{bar}_target']}; off "
+                f"{r['rounds_off_frames_per_s']}, on "
+                f"{r['rounds_on_frames_per_s']} frames/s"
+                + (f"; stalled first attempt "
+                   f"{r['stalled_first_attempt']['overhead_pct']} %"
+                   if "stalled_first_attempt" in r else ""))
+
+    # (a) telemetry's cost on the plane-only probe
+    r = m["a"] = run("telemetry_overhead")
+    check(r["tick_errors_off"] == 0 and r["tick_errors_on"] == 0
+          and r["sampled_frames"] > 0 and r["recorder_events"] > 0
+          and r["telemetry_link_rows"] == r["pairs"]
+          and r["telemetry_windows_closed"] > 0,
+          f"24(a) telemetry_overhead: {json.dumps(r)}")
+    log(f"24(a) telemetry_overhead {r['pairs']} pairs x "
+        f"{r['frames_per_wire']} frames, {r['rounds']} rounds: "
+        f"{pairs_line(r, '5pct', 'overhead_pct')}; sampled "
+        f"{r['sampled_frames']}, {r['recorder_events']} events, "
+        f"{r['telemetry_windows_closed']} windows, "
+        f"{r['telemetry_link_rows']} link rows; {r['phase_s']:.1f} s "
+        f"({card})")
+
+    # (b) the SLO evaluator's cost on two tenant planes
+    r = m["b"] = run("slo_overhead")
+    check(r["tick_errors_off"] == 0 and r["tick_errors_on"] == 0
+          and r["slo_evaluations"] > 0
+          and r["tenants_evaluated"] == r["tenants"] and r["all_ok"],
+          f"24(b) slo_overhead: {json.dumps(r)}")
+    log(f"24(b) slo_overhead {r['tenants']} tenants, "
+        f"{r['frames_per_wire']} frames a wire, {r['rounds']} rounds: "
+        f"{pairs_line(r, '1pct', 'overhead_pct')}; "
+        f"{r['slo_evaluations']} evaluations, {r['slo_windows_evaluated']} "
+        f"windows; {r['phase_s']:.1f} s ({card})")
+
+    # (c) the pause ledger's hooks, and the forced barriers attributed
+    r = m["c"] = run("pause_observability")
+    check(r["all_attributed"] and r["staged_ok"] and r["staged_rounds"] >= 1
+          and r["compact_moved"] >= 1 and r["dropped_events"] == 0
+          and r["tick_errors_off"] == 0 and r["tick_errors_on"] == 0,
+          f"24(c) pause_observability: {json.dumps(r)}")
+    forced = {c: {k: v[k] for k in ("count", "seconds", "rows")}
+              for c, v in r["forced"].items()}
+    log(f"24(c) pause_observability: hook "
+        f"{pairs_line(r, '2pct', 'hook_overhead_pct')}; forced {forced}, "
+        f"compact moved {r['compact_moved']} rows, {r['staged_rounds']} "
+        f"staged rounds, load window {r['load_window_s']} s; "
+        f"{r['phase_s']:.1f} s ({card})")
+
+    # (d) the what-if sweep: K1 once a shaping slot and step, over
+    # replicas x capacity rows
+    shaping.reset_launches()
+    with SweepLog() as sweeps:
+        r = m["d"] = run("whatif_sweep")
+    k1_whatif = shaping.LAUNCHES["shape_step_rows"]
+    k1_other["whatif_sweep"] -= k1_whatif
+    want = on_card * r["steps"] * inspect.signature(
+        scenarios.whatif_sweep).parameters["k_slots"].default
+    check(r["replicas"] == 64 and len(sweeps.calls) == 1
+          and 0 < r["baseline_delivery_ratio"] <= 1.0
+          and (r["worst_delivery_ratio"] or 0.0)
+          <= r["baseline_delivery_ratio"],
+          f"24(d) whatif_sweep: {json.dumps(r)}")
+    check(k1_whatif == want, f"24(d): K1 launched {k1_whatif} times in the "
+                             f"sweep, want {want} (steps x slots)")
+    replay = m["d_replay"] = replay_whatif_sweep(
+        sweeps.calls[0], on_card, WHATIF_REPLAY_STEPS)
+    log(f"24(d) whatif_sweep {r['replicas']} replicas x {r['steps']} steps "
+        f"of a random_mesh({r['nodes']}, {r['links']}): "
+        f"{r['replicas_steps_per_s']} replica-steps/s, run "
+        f"{r['run_s']} s, compile {r['compile_s']} s, virtual speedup "
+        f"{r['virtual_speedup']}; baseline delivery "
+        f"{r['baseline_delivery_ratio']}, worst {r['worst_delivery_ratio']}, "
+        f"baseline p99 {r['baseline_p99_us']} us; K1 {k1_whatif} launches "
+        f"over {replay['rows']} rows each; {replay['steps']} steps of its "
+        f"sweep through K1 == plain, every metric bit for bit "
+        f"({replay['k1_compare_launches']} compare launches); "
+        f"{r['phase_s']:.1f} s ({card})")
+
+    # (e) the sharded soak on 8 virtual shards of the card: K4 on every
+    # dispatch's ring steps and the sampled exchange probe's
+    k4_0, probe0, runs0 = pex.LAUNCHES["ring_step"], probe.launches, \
+        probe.runs
+    with ShardLog() as shards:
+        r = m["e"] = run("sharded_soak")
+    k4 = pex.LAUNCHES["ring_step"] - k4_0
+    probe_k4, probe_runs = probe.launches - probe0, probe.runs - runs0
+    check(len(shards.planes) == 1 and shards.first is not None,
+          f"24(e): {len(shards.planes)} sharded planes, ring stepped: "
+          f"{shards.first is not None}")
+    plane = shards.planes[0]
+    S = len(plane._shard_mesh)
+    plan = len(pex.ring_plan(plane._shard_mesh))
+    dispatches = plane._exchange_count
+    check(r["mesh_shape"] == [8] and S == 8 and r["dropped"] == 0
+          and r["tick_errors"] == 0 and r["xshard_frames_total"] > 0
+          and sum(r["edges_per_shard"]) == int(plane.engine.state.num_active)
+          and r["remote_dma"] == on_card and r["exchange_seconds"] > 0,
+          f"24(e) sharded_soak: {json.dumps(r)}")
+    check(shards.steps == (dispatches + probe_runs) * (S - 1),
+          f"24(e): {shards.steps} ring steps, want ({dispatches} dispatches "
+          f"+ {probe_runs} probe runs) x {S - 1}")
+    want = on_card * dispatches * (S - 1) * plan
+    check(k4 - probe_k4 == want,
+          f"24(e): K4 launched {k4} times, {probe_k4} by the probe; the "
+          f"plane's {k4 - probe_k4}, want {dispatches} dispatches x "
+          f"{S - 1} ring steps x {plan} launches")
+    blocks, mesh = shards.first
+    before = pex.LAUNCHES["ring_step"]
+    same(pex.ring_right_shift(blocks, mesh),
+         pex.ring_right_shift_plain(blocks), "24(e) K4 vs plain")
+    check(pex.LAUNCHES["ring_step"] - before == on_card * plan,
+          "24(e): the compared ring step did not launch K4")
+    m["e_k4"] = {"k4_launches": k4, "probe_k4": probe_k4,
+                 "dispatches": dispatches, "probe_runs": probe_runs,
+                 "mailbox_rows": int(blocks[0].shape[0])}
+    log(f"24(e) sharded_soak {r['pairs']} pairs on {r['mesh_shape']} "
+        f"virtual shards: single {r['single_device_frames_per_s']} frames/s "
+        f"{r['single_rounds']}, sharded {r['sharded_frames_per_s']} "
+        f"{r['sharded_rounds']}, sharded / single "
+        f"{r['sharded_over_single']}; edges per shard "
+        f"{r['edges_per_shard']}, imbalance {r['shard_imbalance']}, "
+        f"colocated {r['colocated_frac']}, {r['xshard_frames_total']} "
+        f"cross-shard frames, mailbox hwm {r['mailbox_hwm']}, exchange "
+        f"{r['exchange_seconds']} s; K4 {k4} = {dispatches} dispatches x "
+        f"{S - 1} x {plan} + {probe_k4} by {probe_runs} probe runs; K4 == "
+        f"plain on one ring step of its mailbox ({blocks[0].shape[0]} x "
+        f"{blocks[0].shape[1]} words a shard); {r['phase_s']:.1f} s "
+        f"({card})")
+
+    # (f) the noisy neighbour, over wire ingress, then over an shm ring
+    for key, cut in (("f_ingress", "noisy_neighbor"),
+                     ("f_shm", "noisy_neighbor_shm")):
+        r = m[key] = run("noisy_neighbor", cut)
+        check(r["in_guardrails"] and r["victim_lost"] == 0
+              and r["aggressor_admitted"] + r["aggressor_queued_not_dropped"]
+              == r["aggressor_fed"] and r["dropped"] == 0
+              and (cut == "noisy_neighbor"
+                   or r["shm"]["throttled_events"] > 0),
+              f"24(f) noisy_neighbor {r['aggressor_transport']}: "
+              f"{json.dumps(r)}")
+        log(f"24(f) noisy_neighbor over {r['aggressor_transport']}, "
+            f"{r['seconds']} s: victim {r['victim_fed']} fed, "
+            f"{r['victim_delivered']} delivered, p99 {r['victim_p99_us']} "
+            f"us, slo {r['victim_slo']['severity']}; aggressor "
+            f"{r['aggressor_fed']} fed, {r['aggressor_admitted']} admitted "
+            f"(cap {r['aggressor_budget_cap']}), "
+            f"{r['aggressor_queued_not_dropped']} queued, "
+            f"{r['throttle_events']} throttle events, slo "
+            f"{r['aggressor_slo']['severity']}"
+            + (f"; ring {r['shm']}" if "shm" in r else "")
+            + f"; {r['phase_s']:.1f} s ({card})")
+
+    # (g) a producer child SIGKILLed mid-burst
+    r = m["g"] = run("shm_producer_crash")
+    check(r["in_guardrails"], f"24(g) shm_producer_crash: {json.dumps(r)}")
+    log(f"24(g) shm_producer_crash: killed at {r['reported_at_kill']} of "
+        f"{r['frames_target']}, {r['delivered']} delivered (prefix "
+        f"{r['delivered_prefix_ok']}, {r['committed_lost']} lost), "
+        f"{r['torn_skipped']} torn skipped, {r['rings_retired']} ring "
+        f"retired, {r['ring_traces_spanning']} of {r['ring_traces_seen']} "
+        f"ring traces span received -> delivered; {r['phase_s']:.1f} s "
+        f"({card})")
+
+    # (h) 200,000 frames through a ring beside the gRPC ladder
+    r = m["h"] = run("shm_soak")
+    check(r["in_guardrails"], f"24(h) shm_soak: {json.dumps(r)}")
+    log(f"24(h) shm_soak {r['shm_frames_ingested']} frames of "
+        f"{r['frame_size']} B exactly once (producer rc "
+        f"{r['producer_rc']}): shm {r['shm_frames_per_s']} frames/s "
+        f"({r['shm_frames_per_dequeue']} a dequeue); gRPC unary "
+        f"{r['grpc_unary_frames_per_s']}, stream "
+        f"{r['grpc_stream_frames_per_s']}, bulk "
+        f"{r['grpc_bulk_frames_per_s']}; shm / stream "
+        f"{r['shm_over_grpc_stream']}, / bulk {r['shm_over_grpc_bulk']}; "
+        f"{r['phase_s']:.1f} s ({card})")
+
+    # (i) a real-time runner, an injector child per tenant
+    r = m["i"] = run("tenant_soak")
+    check(all(v["sustained_frames_per_s"] > 0
+              and v["worst_window_frames_per_s"] > 0
+              for v in r["per_tenant"].values())
+          and r["dropped"] == 0 and r["tick_errors"] == 0,
+          f"24(i) tenant_soak: {json.dumps(r)}")
+    log(f"24(i) tenant_soak {r['tenants']} tenants x "
+        f"{r['pairs_per_tenant']} pairs, {r['seconds']} s: plane "
+        f"{r['plane_frames_per_s']} frames/s; per tenant "
+        + ", ".join(f"{n} {v['sustained_frames_per_s']} (worst "
+                    f"{v['worst_window_frames_per_s']}, p99 {v['p99_us']} "
+                    f"us)" for n, v in r["per_tenant"].items())
+        + f"; {r['phase_s']:.1f} s ({card})")
+
+    k1_paths = {"whatif": k1_whatif}
+    other = sum(k1_other.values())
+    if other:
+        k1_paths["probes"] = other
+    m["k1_other_by_part"] = k1_other
+    return m, k1_paths, k4
+
+
+ALL_PHASES = tuple(range(1, 25))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
 NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22}
@@ -8580,6 +8985,7 @@ def main(argv=None) -> int:
     results = {}
     k1_paths = {}
     k4_paths = {"probe": 0}
+    k1_compare = {}
     launches = {}
     phase_s = {}
     keep = {}
@@ -8798,6 +9204,24 @@ def main(argv=None) -> int:
         detail["soaks"] = soak_m
         _free_card(dev)
         clock("23", t0)
+    if 24 in want:
+        t0 = time.perf_counter()
+        p0 = probe.launches
+        probe_m, k1_24, k4_24 = run_probe_phase(dev, card, probe)
+        k1_paths.update(k1_24)
+        plane_k4("sharded_soak", k4_24, p0)
+        k1_compare["whatif_replay"] = \
+            probe_m["d_replay"]["k1_compare_launches"]
+        probe_m["phase_s"] = time.perf_counter() - t0
+        log(f"24: phase {probe_m['phase_s']:.1f} s; K1 launches: whatif "
+            f"{k1_paths['whatif']} (+ {k1_compare['whatif_replay']} "
+            f"comparing its replay with the plain version, not counted), "
+            f"elsewhere in the phase {probe_m['k1_other_by_part']}; K4: "
+            f"sharded_soak {k4_paths['sharded_soak']}")
+        check(k1_paths["whatif"] > 0, "K1 never launched on the whatif path")
+        detail["probes"] = probe_m
+        _free_card(dev)
+        clock("24", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)
@@ -8831,6 +9255,8 @@ def main(argv=None) -> int:
             # and each
             kernels[-1].update(launches=sum(k1_paths.values()),
                                launches_by_path=k1_paths)
+            if k1_compare:   # launches that compared K1 with plain
+                kernels[-1]["compare_launches"] = k1_compare
             big = detail.get("k8s", {}).get("ladder", {}).get("k1_2m")
             if big and "ms" in big:   # scale_1m's 2^21 rows (21(c))
                 kernels[-1]["at_rows"] = {

@@ -37,8 +37,7 @@ codes), with these differences:
 - `manager` runs the controller manager (topology/manager.py) over a
   SimEngine on --device, with the JAX verb's flags and ready line.
 - `bench` is not ported (the port's benchmark is its own). `scenario`
-  runs scenarios.LADDER, the ported part of the JAX ladder; a JAX
-  scenario not ported yet is refused by name.
+  runs scenarios.LADDER, the JAX ladder's 27 scenarios.
 """
 
 from __future__ import annotations
@@ -1142,11 +1141,8 @@ def cmd_fleet(args) -> int:
 
 
 def cmd_scenario(args) -> int:
-    from kubedtn_tpu_torch.scenarios import LADDER, NOT_PORTED
+    from kubedtn_tpu_torch.scenarios import LADDER
 
-    if args.name in NOT_PORTED:
-        print(f"scenario {args.name} is not ported yet", file=sys.stderr)
-        return 1
     if args.name == "all":
         if args.param:
             print("-p overrides are per-scenario; not supported with "

@@ -1,32 +1,40 @@
 """Scenarios of the port, runnable functions returning a result dict.
 
-Port of kubedtn_tpu/scenarios.py, in part. Nine of the BASELINE rungs:
-`three_node` ("3node", a sample through the control plane and a ping
-per link), `fat_tree_64`, `churn_1k`, `routes_10k` (route recomputes
-on link events), `clos_100k`, `reconcile_100k` (reconcile-to-steady at
-100k links through store, reconciler and engine), `scale_1m`
-(UpdateLinks and a K1 step over 2M rows), `chaos_flaps` (link flaps
-under routed traffic) and `reconverge_10k` (incremental reconvergence
-on a three-tier fabric). The live-plane soaks: `live_plane` (rounds of
-frames from an injector child over InjectBulk through a real gRPC
-daemon), `live_plane_soak` (the same load without end, windowed
-delivery rates), `chaos_soak` (zero loss and a cross-node trace under a
-flapping peer), `staged_update_soak` (a planned update through the
-twin gate and the stager under load, a regressing delta rejected) and
-`update_under_flap` (a staged update landing mid-flap). Then
-`_tenant_plane_setup` (the multi-tenant plane harness),
-`burn_recovery` (the SLO autopilot's
-closed loop on one live plane), `migration_under_flap` (a live tenant
-migration between two gRPC daemons under a flapping peer), and the fleet
-supervisor's two: `plane_failover` (a plane killed mid-migration and
-evacuated with no operator call) and `fleet_rolling_upgrade` (two gRPC
-daemons upgraded one at a time under load). Each takes a `device`, None
-meaning the CUDA card, and returns the JAX scenario's keys (and
-"device"). `LADDER` holds these eighteen in the order of the JAX
-module's ladder (what `tpudtn-torch scenario` runs); `NOT_PORTED` names
-the nine left of that ladder (whatif_sweep, the overhead probes,
-sharded_soak, noisy_neighbor, the shm and tenant soaks), still to be
-ported.
+Port of kubedtn_tpu/scenarios.py, all of its ladder. Nine of the
+BASELINE rungs: `three_node` ("3node", a sample through the control
+plane and a ping per link), `fat_tree_64`, `churn_1k`, `routes_10k`
+(route recomputes on link events), `clos_100k`, `reconcile_100k`
+(reconcile-to-steady at 100k links through store, reconciler and
+engine), `scale_1m` (UpdateLinks and a K1 step over 2M rows),
+`chaos_flaps` (link flaps under routed traffic) and `reconverge_10k`
+(incremental reconvergence on a three-tier fabric). The live-plane
+soaks: `live_plane` (rounds of frames from an injector child over
+InjectBulk through a real gRPC daemon), `live_plane_soak` (the same load
+without end, windowed delivery rates), `chaos_soak` (zero loss and a
+cross-node trace under a flapping peer), `staged_update_soak` (a planned
+update through the twin gate and the stager under load, a regressing
+delta rejected) and `update_under_flap` (a staged update landing
+mid-flap). The plane-only probes (`_plane_only_setup`, `_probe_round`):
+`telemetry_overhead`, `slo_overhead` and `pause_observability` (paired
+off/on rounds against a bar, the last with forced barriers attributed
+in the pause ledger), `whatif_sweep` (64 perturbed replicas of a random
+mesh through the twin's replica engine) and `sharded_soak` (the probe on
+one device and on an edge-sharded plane). Then `_tenant_plane_setup`
+(the multi-tenant plane harness), `burn_recovery` (the SLO autopilot's
+closed loop on one live plane), `noisy_neighbor` (an aggressor tenant
+throttled at its budget over wire ingress or an shm ring, the victim
+unharmed), `shm_producer_crash` and `shm_soak` (a real producer child
+killed mid-burst; 200,000 frames audited exactly once beside the gRPC
+ladder), `tenant_soak` (an injector child per tenant against a real-time
+runner), `migration_under_flap` (a live tenant migration between two
+gRPC daemons under a flapping peer), and the fleet supervisor's two:
+`plane_failover` (a plane killed mid-migration and evacuated with no
+operator call) and `fleet_rolling_upgrade` (two gRPC daemons upgraded
+one at a time under load). Each takes a `device`, None meaning the CUDA
+card, and returns the JAX scenario's keys (and "device"). `LADDER` holds
+the twenty-seven in the order of the JAX module's ladder (what
+`tpudtn-torch scenario` runs). The children the scenarios start (the
+injector, the shm producer) import neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -1928,6 +1936,1245 @@ def update_under_flap(pairs: int = 2, seconds: float = 5.0,
     }
 
 
+# -- the plane-only probes (kubedtn_tpu/scenarios.py:1638-2098) ------------
+
+def _plane_only_setup(pairs: int, latency: str, dt_us: float,
+                      prefix: str, device=None):
+    """In-process daemon + plane with `pairs` shaped pod pairs and NO
+    gRPC server / runner thread — the plane-only probe harness: frames
+    are fed straight into wire ingress deques and the caller drives
+    explicit-clock ticks, so a measurement sees the shaping pipeline
+    (drain → decide → fused dispatch → schedule → release) and nothing
+    else. The engine lies on `device` (None = the CUDA card)."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.topology import (Reconciler, SimEngine,
+                                            TopologyStore)
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=4 * pairs + 8,
+                       device=resolve_device(device))
+    props = LinkProperties(latency=latency)
+    for i in range(pairs):
+        a, b = f"{prefix}-a{i}", f"{prefix}-b{i}"
+        store.create(Topology(name=a, spec=TopologySpec(links=[
+            Link(local_intf="eth1", peer_intf="eth1", peer_pod=b,
+                 uid=i + 1, properties=props)])))
+        store.create(Topology(name=b, spec=TopologySpec(links=[
+            Link(local_intf="eth1", peer_intf="eth1", peer_pod=a,
+                 uid=i + 1, properties=props)])))
+        engine.setup_pod(a)
+        engine.setup_pod(b)
+    Reconciler(store, engine).drain()
+    daemon = Daemon(engine)
+    wires_in, wires_out = [], []
+    for i in range(pairs):
+        wires_in.append(daemon._add_wire(
+            wire_def(f"{prefix}-a{i}", "default", i + 1)))
+        wires_out.append(daemon._add_wire(
+            wire_def(f"{prefix}-b{i}", "default", i + 1)))
+    plane = WireDataPlane(daemon, dt_us=dt_us)
+    plane.pipeline_explicit_clock = True
+    return daemon, engine, plane, wires_in, wires_out
+
+
+def _probe_round(plane, wires_in, wires_out, n_per: int, t: float,
+                 dt_s: float, timeout_s: float = 180.0):
+    """Feed `n_per` frames per wire and tick the explicit clock until
+    every frame is delivered; returns (frames_per_s, clock').
+
+    A CPU plane's round runs torch with one intra-op thread, the cap a
+    CPU plane's runner takes (runtime._CPUThreadCap): the probe ticks
+    from the caller's thread with no runner, and under the default
+    pool a round's rate swings several-fold on a shared host. Planes on
+    the card never take it."""
+    from kubedtn_tpu_torch.runtime import _CPUThreadCap
+
+    frame = b"\xab" * 200
+    for w in wires_in:
+        w.ingress.extend([frame] * n_per)
+    total = n_per * len(wires_in)
+    got = 0
+    cap = plane.device.type == "cpu"
+    if cap:
+        _CPUThreadCap.acquire()
+    try:
+        w0 = time.perf_counter()
+        deadline = w0 + timeout_s
+        while got < total and time.perf_counter() < deadline:
+            t += dt_s
+            plane.tick(now_s=t)
+            got += _drain_wires(wires_out)
+        elapsed = time.perf_counter() - w0
+    finally:
+        if cap:
+            _CPUThreadCap.release()
+    if got < total:
+        raise RuntimeError(
+            f"telemetry probe round stalled: {got}/{total} delivered")
+    return total / elapsed, t
+
+
+def _paired_rounds(off, on, rounds: int, n_per: int, t_clk: list,
+                   dt_s: float):
+    """`rounds` probe rounds INTERLEAVED over two probes (each a
+    (plane, wires_in, wires_out)): each off round is immediately
+    followed by its on round, so the per-pair ratio cancels host drift
+    (load spikes, throttling) a median-of-medians would smear across
+    the comparison. `t_clk` holds the two explicit clocks. Returns
+    (rates_off, rates_on, median paired overhead %, best pair %): the
+    best is the least-interference pair, the role frames_per_s_best
+    plays in live_plane."""
+    import statistics
+
+    rates = ([], [])
+    for _ in range(rounds):
+        for side, (plane, win, wout) in enumerate((off, on)):
+            r, t_clk[side] = _probe_round(plane, win, wout, n_per,
+                                          t_clk[side], dt_s)
+            rates[side].append(r)
+    pct = [(a - b) / a * 100.0 for a, b in zip(*rates) if a > 0]
+    return rates[0], rates[1], statistics.median(pct), min(pct)
+
+
+def _measure_overhead(off, on, rounds: int, n_per: int, t_clk: list,
+                      dt_s: float, bar_pct: float):
+    """_paired_rounds with the probes' stall rule: a median pulled over
+    `bar_pct` while the best pair sits under it is an exogenous host
+    stall inside some round, not the measured cost — one re-measure,
+    the first attempt kept as evidence (and the re-measure kept only
+    when its median is lower). Returns (rates_off, rates_on, overhead,
+    best, first attempt or None)."""
+    rates_off, rates_on, overhead, best = _paired_rounds(
+        off, on, rounds, n_per, t_clk, dt_s)
+    attempt1 = None
+    if overhead >= bar_pct > best:
+        attempt1 = {"rounds_off_frames_per_s":
+                    [round(r, 1) for r in rates_off],
+                    "rounds_on_frames_per_s":
+                    [round(r, 1) for r in rates_on],
+                    "overhead_pct": round(overhead, 2)}
+        r2 = _paired_rounds(off, on, rounds, n_per, t_clk, dt_s)
+        if r2[2] < overhead:
+            rates_off, rates_on, overhead, best = r2
+    return rates_off, rates_on, overhead, best, attempt1
+
+
+def telemetry_overhead(pairs: int = 4, frames_per_wire: int = 20_000,
+                       rounds: int = 5, latency: str = "2ms",
+                       dt_us: float = 2_000.0,
+                       sample_period: int = 256,
+                       window_s: float = 0.25, device=None):
+    """Link-telemetry cost on the plane-only probe: the SAME workload
+    through two identical in-process planes on `device` (None = the
+    CUDA card) — recorder/ring OFF vs ON at the default sampling rate —
+    with rounds INTERLEAVED (off, on, off, on, ...) so host drift hits
+    both sides equally. The headline `overhead_pct` is the median
+    paired overhead; the acceptance bar is < 5% (telemetry rides the
+    fused dispatch: the window ring is chained on the device with no
+    extra dispatch and no per-tick host sync, and the recorder's
+    sampling is counter arithmetic)."""
+    import statistics
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    _d_off, _e0, p_off, in_off, out_off = _plane_only_setup(
+        pairs, latency, dt_us, "toff", device=dev)
+    _d_on, e_on, p_on, in_on, out_on = _plane_only_setup(
+        pairs, latency, dt_us, "ton", device=dev)
+    tel, rec = p_on.enable_telemetry(window_s=window_s,
+                                     sample_period=sample_period)
+    dt_s = dt_us / 1e6
+    t_clk = [100.0, 100.0]
+    # an untimed warm round each: every drain size's first allocations
+    warm = min(frames_per_wire, 4096)
+    _r, t_clk[0] = _probe_round(p_off, in_off, out_off, warm, t_clk[0],
+                                dt_s)
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on, warm, t_clk[1], dt_s)
+    rates_off, rates_on, overhead, best, attempt1 = _measure_overhead(
+        (p_off, in_off, out_off), (p_on, in_on, out_on), rounds,
+        frames_per_wire, t_clk, dt_s, 5.0)
+    rows, _secs, _trunc = tel.link_rows(e_on)
+    return {
+        "scenario": "telemetry_overhead",
+        "device": str(dev),
+        "pairs": pairs,
+        "frames_per_wire": frames_per_wire,
+        "rounds": rounds,
+        "sample_period": sample_period,
+        "rounds_off_frames_per_s": [round(r, 1) for r in rates_off],
+        "rounds_on_frames_per_s": [round(r, 1) for r in rates_on],
+        "frames_per_s_off": round(statistics.median(rates_off), 1),
+        "frames_per_s_on": round(statistics.median(rates_on), 1),
+        "overhead_pct": round(overhead, 2),
+        "overhead_pct_best": round(best, 2),
+        "meets_5pct_target": overhead < 5.0,
+        **({"stalled_first_attempt": attempt1} if attempt1 else {}),
+        "sampled_frames": rec.sampled,
+        "recorder_events": rec.recorded,
+        "telemetry_windows_closed": tel.windows_closed,
+        "telemetry_link_rows": len(rows),
+        "tick_errors_off": p_off.tick_errors,
+        "tick_errors_on": p_on.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def slo_overhead(pairs: int = 4, frames_per_wire: int = 20_000,
+                 rounds: int = 5, latency: str = "2ms",
+                 dt_us: float = 2_000.0, tenants: int = 3,
+                 window_s: float = 0.01, device=None):
+    """SLO-evaluation cost on the tenant-plane probe: the SAME workload
+    through two identical multi-tenant planes on `device` (None = the
+    CUDA card) — telemetry ON in both, the SLO evaluator's continuous
+    rollover loop running in ONE — rounds INTERLEAVED (the
+    telemetry_overhead pattern) so host drift hits both sides equally.
+    The acceptance bar is < 1%: the evaluator never touches the tick
+    path (a sidecar thread polls `windows_closed` — one counter read —
+    and each rollover costs one vectorized ring reduction per
+    burn-window span + O(tenants) host arithmetic), so its cost is
+    thread wakeups and brief query-side lock holds.
+    `overhead_pct_best` (the least-interference interleaved pair) is
+    the sub-1% evidence on a noisy host, with the stall re-measure kept
+    when the median disagrees."""
+    import statistics
+
+    from kubedtn_tpu_torch.slo import SloEvaluator
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    qos_ladder = ["gold", "silver", "bronze"]
+    cfg = {f"t{i}": {"pairs": max(1, pairs // tenants),
+                     "qos": qos_ladder[i % len(qos_ladder)]}
+           for i in range(tenants)}
+
+    def build(prefix):
+        daemon, _srv, _port, plane, registry, wires = \
+            _tenant_plane_setup(cfg, latency, dt_us, prefix, device=dev)
+        # a window sized to the probe's VIRTUAL clock (the explicit
+        # tick clock drives rollover), so the evaluator fires several
+        # times per measured round — on BOTH planes, keeping the
+        # telemetry cost symmetric
+        plane.enable_telemetry(window_s=window_s)
+        win = [w for ws, _ in wires.values() for w in ws]
+        wout = [w for _, ws in wires.values() for w in ws]
+        return daemon, plane, registry, win, wout
+
+    _d_off, p_off, _r_off, in_off, out_off = build("soff")
+    d_on, p_on, r_on, in_on, out_on = build("son")
+    ev = SloEvaluator(r_on, p_on).attach(d_on)
+    ev.start(poll_s=0.05)
+    dt_s = dt_us / 1e6
+    warm = min(frames_per_wire, 4096)
+    t_clk = [100.0, 100.0]
+    _r, t_clk[0] = _probe_round(p_off, in_off, out_off, warm, t_clk[0],
+                                dt_s)
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on, warm, t_clk[1], dt_s)
+    try:
+        rates_off, rates_on, overhead, best, attempt1 = _measure_overhead(
+            (p_off, in_off, out_off), (p_on, in_on, out_on), rounds,
+            frames_per_wire, t_clk, dt_s, 1.0)
+    finally:
+        ev.stop()
+    snap = ev.stats.snapshot()
+    verdicts = ev.verdicts()
+    out = {
+        "scenario": "slo_overhead",
+        "device": str(dev),
+        "pairs": pairs,
+        "tenants": tenants,
+        "frames_per_wire": frames_per_wire,
+        "rounds": rounds,
+        "rounds_off_frames_per_s": [round(r, 1) for r in rates_off],
+        "rounds_on_frames_per_s": [round(r, 1) for r in rates_on],
+        "frames_per_s_off": round(statistics.median(rates_off), 1),
+        "frames_per_s_on": round(statistics.median(rates_on), 1),
+        "overhead_pct": round(overhead, 2),
+        "overhead_pct_best": round(best, 2),
+        "meets_1pct_target": overhead < 1.0,
+        **({"stalled_first_attempt": attempt1} if attempt1 else {}),
+        "slo_evaluations": snap["evaluations"],
+        "slo_windows_evaluated": snap["windows_evaluated"],
+        "tenants_evaluated": len(verdicts),
+        "all_ok": all(v.ok for v in verdicts.values()),
+        "tick_errors_off": p_off.tick_errors,
+        "tick_errors_on": p_on.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+    p_off.stop()
+    p_on.stop()
+    return out
+
+
+def pause_observability(pairs: int = 4, frames_per_wire: int = 8_000,
+                        rounds: int = 4, latency: str = "2ms",
+                        dt_us: float = 2_000.0,
+                        load_frames_per_wire: int = 20_000, device=None):
+    """The pause/stall observability plane, measured twice over, on
+    planes whose engines lie on `device` (None = the CUDA card):
+
+    1. **Hook overhead** — the SAME workload through two identical
+       plane-only probes, pause ledger OFF vs ON, rounds INTERLEAVED
+       (the telemetry_overhead pattern) so host drift hits both sides
+       equally. The bar is < 2% (the savail budget's
+       `hook_overhead_pct`): every ledger hook on the tick path is a
+       perf_counter pair plus one short-hold dict update.
+    2. **Attribution under load** — on the ON plane the ledger is
+       reset, then between load rounds the three headline barriers are
+       FORCED: a live checkpoint (`save_live`, barrier at one
+       stage_update_round flush), real churn (pair 0 deleted) followed
+       by `compact()`, and one staged update through the real
+       UpdateStager. The scenario checks each landed in the ledger
+       with cause + duration + rows touched.
+    """
+    import shutil
+    import statistics
+    import tempfile
+
+    from kubedtn_tpu_torch import checkpoint
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.topology import Reconciler
+    from kubedtn_tpu_torch.updates import plan_update
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    _d_off, _e_off, p_off, in_off, out_off = _plane_only_setup(
+        pairs, latency, dt_us, "pfo", device=dev)
+    _d_on, e_on, p_on, in_on, out_on = _plane_only_setup(
+        pairs, latency, dt_us, "pfn", device=dev)
+    # the A/B switch: identical planes, every hook a dead branch in one
+    p_off.pauses.enabled = False
+    dt_s = dt_us / 1e6
+    t_clk = [100.0, 100.0]
+    warm = min(frames_per_wire, 4096)
+    _r, t_clk[0] = _probe_round(p_off, in_off, out_off, warm, t_clk[0],
+                                dt_s)
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on, warm, t_clk[1], dt_s)
+    rates_off, rates_on, overhead, best, attempt1 = _measure_overhead(
+        (p_off, in_off, out_off), (p_on, in_on, out_on), rounds,
+        frames_per_wire, t_clk, dt_s, 2.0)
+
+    def save_live():
+        ck = tempfile.mkdtemp(prefix="pause-ck-")
+        try:
+            checkpoint.save_live(ck, store, e_on, p_on)
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+
+    def latency_plan(name):
+        topo = store.get("default", name)
+        old = list(topo.status.links)
+        new = [l.with_properties(LinkProperties(latency="3ms"))
+               for l in old]
+        return plan_update(old, new, namespace=topo.namespace,
+                           name=topo.name), topo
+
+    # -- attribution window: forced barriers between load rounds ------
+    # A warm pass first runs the same barrier sequence untimed, so the
+    # measured window sees each barrier's first use (its first
+    # allocations) paid: the banked record judges the barriers.
+    store = e_on.store
+    save_live()
+    # warm churn: a throwaway pair, deleted again before compact; its
+    # rows were allocated last so no live row moves
+    wprops = LinkProperties(latency=latency)
+    store.create(Topology(name="pfn-wa", spec=TopologySpec(links=[
+        Link(local_intf="eth1", peer_intf="eth1", peer_pod="pfn-wb",
+             uid=pairs + 1, properties=wprops)])))
+    store.create(Topology(name="pfn-wb", spec=TopologySpec(links=[
+        Link(local_intf="eth1", peer_intf="eth1", peer_pod="pfn-wa",
+             uid=pairs + 1, properties=wprops)])))
+    e_on.setup_pod("pfn-wa")
+    e_on.setup_pod("pfn-wb")
+    Reconciler(store, e_on).drain()
+    for name in ("pfn-wa", "pfn-wb"):
+        t_warm = store.get("default", name)
+        e_on.del_links(t_warm, list(t_warm.status.links))
+    e_on.compact()
+    warm_plan, topo0 = latency_plan("pfn-a0")
+    p_on.update_stager().stage(warm_plan, topo0, observe_ticks=0)
+    # both wire sets the measured window drives, at its feed size
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on,
+                                load_frames_per_wire, t_clk[1], dt_s)
+    _r, t_clk[1] = _probe_round(p_on, in_on[1:], out_on[1:],
+                                load_frames_per_wire, t_clk[1], dt_s)
+    p_on.pauses.reset()
+    wall0 = time.perf_counter()
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on,
+                                load_frames_per_wire, t_clk[1], dt_s)
+    save_live()
+    _r, t_clk[1] = _probe_round(p_on, in_on, out_on,
+                                load_frames_per_wire, t_clk[1], dt_s)
+    # real churn so compact() moves rows: free pair 0's rows (lowest
+    # allocated), every surviving row shifts down. Pair 0's wires stay
+    # registered but are never fed again.
+    for name in ("pfn-a0", "pfn-b0"):
+        topo0 = store.get("default", name)
+        e_on.del_links(topo0, list(topo0.status.links))
+    compact_res = e_on.compact()
+    live_in, live_out = in_on[1:], out_on[1:]
+    _r, t_clk[1] = _probe_round(p_on, live_in, live_out,
+                                load_frames_per_wire, t_clk[1], dt_s)
+    # one staged update through the real stager (flush barrier per
+    # round; observe_ticks=0 — the probe has no runner to watch)
+    plan, topo = latency_plan("pfn-a1")
+    staged = p_on.update_stager().stage(plan, topo, observe_ticks=0)
+    _r, t_clk[1] = _probe_round(p_on, live_in, live_out,
+                                load_frames_per_wire, t_clk[1], dt_s)
+    load_window_s = time.perf_counter() - wall0
+    snap = p_on.pauses.snapshot()
+    forced = {c: snap["causes"].get(c)
+              for c in ("checkpoint_save", "compact", "staged_update")}
+    all_attributed = all(
+        v is not None and v["count"] >= 1 and v["seconds"] > 0.0
+        and v["rows"] > 0 for v in forced.values())
+    return {
+        "scenario": "pause_observability",
+        "device": str(dev),
+        "pairs": pairs,
+        "frames_per_wire": frames_per_wire,
+        "rounds": rounds,
+        "rounds_off_frames_per_s": [round(r, 1) for r in rates_off],
+        "rounds_on_frames_per_s": [round(r, 1) for r in rates_on],
+        "frames_per_s_off": round(statistics.median(rates_off), 1),
+        "frames_per_s_on": round(statistics.median(rates_on), 1),
+        "hook_overhead_pct": round(overhead, 2),
+        "hook_overhead_pct_best": round(best, 2),
+        "meets_2pct_target": overhead < 2.0,
+        **({"stalled_first_attempt": attempt1} if attempt1 else {}),
+        "load_window_s": round(load_window_s, 3),
+        "causes": snap["causes"],
+        "tick_hist": snap["tick_hist"],
+        "tick_edges_s": snap["tick_edges_s"],
+        "dropped_events": snap["dropped_events"],
+        "forced": forced,
+        "all_attributed": all_attributed,
+        "compact_moved": compact_res["moved"],
+        "staged_rounds": staged.rounds_applied,
+        "staged_ok": staged.ok,
+        "tick_errors_off": p_off.tick_errors,
+        "tick_errors_on": p_on.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def whatif_sweep(replicas: int = 64, steps: int = 10_000,
+                 n_nodes: int = 32, n_links: int = 64,
+                 dt_us: float = 1000.0, k_slots: int = 2,
+                 q_slots: int = 8, rate_bps: float = 1e6, seed: int = 0,
+                 device=None):
+    """What-if replica-engine throughput: `replicas` perturbed futures ×
+    `steps` virtual ticks advanced by the twin's replica engine on
+    `device` (None = the CUDA card; each shaping slot of a step is ONE
+    launch of kernel K1 over replicas × capacity rows), the headline in
+    replicas·steps/s.
+
+    The scenario set cycles the whole perturbation vocabulary — link
+    degrades, link failures, node blackholes, offered-load scaling —
+    across `replicas - 1` lanes plus the unperturbed baseline, drawn
+    from the same numpy generator as the JAX scenario's, so the list is
+    the same. `compile_s` is the kernels' build and load when this is
+    their first use on the card (0.0 after); `virtual_speedup` =
+    aggregate virtual seconds simulated per wall second. The sweep goes
+    through `twin.run_sweep`, read from the package at call time."""
+    import numpy as np
+
+    from kubedtn_tpu_torch import sim as S
+    from kubedtn_tpu_torch import twin
+    from kubedtn_tpu_torch.models import topologies as T
+    from kubedtn_tpu_torch.models.traffic import cbr_everywhere
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    el = T.random_mesh(n_nodes, n_links, seed=seed,
+                       props=LinkProperties(latency="2ms", jitter="500us",
+                                            loss="0.5"))
+    state, rows = T.load_edge_list_into_state(el, device=dev)
+    sim = S.init_sim(state, q=q_slots)
+    spec = cbr_everywhere(state.capacity, len(rows), rate_bps=rate_bps,
+                          pkt_bytes=400.0, device=dev)
+    snap = twin.snapshot_from_sim(sim, n_nodes=n_nodes)
+
+    rng = np.random.default_rng(seed + 1)
+    degrade_props = LinkProperties(latency="50ms", loss="5")
+    # blackhole targets must touch active rows (compile_scenarios
+    # rejects a no-op node death as a wrong answer, not an empty one)
+    act = state.active.cpu().numpy()
+    live_nodes = np.unique(np.concatenate(
+        [state.src.cpu().numpy()[act], state.dst.cpu().numpy()[act]]))
+    scenarios = [twin.Scenario("baseline")]
+    for i in range(replicas - 1):
+        kind = ("degrade", "fail", "blackhole", "scale")[i % 4]
+        uid = int(rng.integers(1, el.n_links + 1))
+        if kind == "degrade":
+            p = twin.Perturbation("degrade", uid=uid, props=degrade_props)
+        elif kind == "fail":
+            p = twin.Perturbation("fail", uid=uid)
+        elif kind == "blackhole":
+            p = twin.Perturbation("blackhole",
+                                  node=int(rng.choice(live_nodes)))
+        else:
+            p = twin.Perturbation("scale",
+                                  factor=float(rng.choice([0.5, 1.5, 2.0])))
+        scenarios.append(twin.Scenario(f"{kind}-{i}", (p,)))
+
+    res = twin.run_sweep(snap, scenarios, steps=steps, dt_us=dt_us,
+                         spec=spec, k_slots=k_slots, seed=seed)
+    sim_seconds = res.sim_seconds
+    worst = max(res.metrics,
+                key=lambda m: -(m["delivery_ratio"] or 0.0))
+    return {
+        "scenario": "whatif_sweep",
+        "device": str(dev),
+        "nodes": n_nodes,
+        "links": n_links,
+        "replicas": res.replicas,
+        "steps": steps,
+        "sim_seconds_per_replica": sim_seconds,
+        "compile_s": res.compile_s,
+        "run_s": res.run_s,
+        "replicas_steps_per_s": res.replicas_steps_per_s,
+        # aggregate virtual seconds per wall second (one live plane
+        # fast-forwards one timeline; the sweep N of them at once)
+        "virtual_speedup": round(res.replicas * sim_seconds
+                                 / max(res.run_s, 1e-9), 1),
+        "baseline_delivery_ratio": res.metrics[0]["delivery_ratio"],
+        "worst_delivery_ratio": worst["delivery_ratio"],
+        "baseline_p99_us": res.metrics[0]["p99_us"],
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+def sharded_soak(pairs: int = 48, frames_per_wire: int = 6_000,
+                 rounds: int = 3, devices: int = 0,
+                 latency: str = "2ms", dt_us: float = 2_000.0,
+                 device=None):
+    """Evidence for the edge-sharded live plane: the SAME plane-only
+    probe workload (frames fed straight into wire ingress,
+    explicit-clock ticks) measured twice — on one device and on a plane
+    whose edge-state is sharded over S shards
+    (`plane.enable_sharding(n_devices=S)`). `devices=0` takes the
+    visible cards (the one device on the CPU); S is the largest power
+    of two of `devices`, and shards beyond the card count are virtual
+    shards of the cards. Reports mesh shape, per-shard edge counts +
+    imbalance, cross-shard frames (rows whose hop straddles a shard
+    block — pairs=48 pads the capacity to 200, E_loc = 25 on 8 shards,
+    so 2 of the 48 consecutive-row link pairs straddle a boundary and
+    generate genuine mailbox deliveries), the mailbox high-water mark,
+    and the sampled exchange-probe seconds. On the card every mailbox
+    ring step is kernel K4 (`remote_dma`); on the CPU it is the plain
+    rotation, with the same mailbox bits. The sharded:single rate ratio
+    is the no-regression headline."""
+    import statistics
+
+    import torch
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    n_dev = devices or (torch.cuda.device_count() if dev.type == "cuda"
+                        else 1)
+    S = 1
+    while S * 2 <= n_dev:
+        S *= 2
+
+    def measure(mesh_n: int, prefix: str):
+        _daemon, _engine, plane, win, wout = _plane_only_setup(
+            pairs, latency, dt_us, prefix, device=dev)
+        if mesh_n > 1:
+            plane.enable_sharding(n_devices=mesh_n)
+        t = 0.0
+        rates = []
+        for r in range(rounds + 1):  # round 0 warms the drain sizes
+            rate, t = _probe_round(plane, win, wout, frames_per_wire, t,
+                                   dt_us / 1e6)
+            if r:
+                rates.append(rate)
+        return statistics.median(rates), rates, plane
+
+    base_med, base_rates, base_plane = measure(1, "ss1")
+    sh_med, sh_rates, plane = measure(S, "ssN")
+    shard = plane.shard_summary()
+    xpt = plane.shard_xfrm / max(plane.ticks, 1)
+    return {
+        "scenario": "sharded_soak",
+        "device": str(dev),
+        "record": "MULTICHIP_SHARDED_SOAK",
+        "backend": dev.type,
+        "remote_dma": dev.type == "cuda",
+        "pairs": pairs,
+        "frames_per_wire": frames_per_wire,
+        "devices": n_dev,
+        "mesh_shape": shard.get("mesh_shape", [S]),
+        "edges_per_shard": shard.get("edges_per_shard"),
+        "shard_imbalance": shard.get("imbalance"),
+        "colocated_frac": shard.get("colocated_frac"),
+        "xshard_frames_total": int(plane.shard_xfrm),
+        "xshard_frames_per_tick": round(xpt, 2),
+        "mailbox_hwm": int(plane.shard_mailbox_hwm),
+        "exchange_seconds": shard.get("exchange_seconds", 0.0),
+        "single_device_frames_per_s": round(base_med, 1),
+        "single_rounds": [round(r, 1) for r in base_rates],
+        "sharded_frames_per_s": round(sh_med, 1),
+        "sharded_rounds": [round(r, 1) for r in sh_rates],
+        "sharded_over_single": round(sh_med / base_med, 3)
+        if base_med else None,
+        "dropped": plane.dropped + base_plane.dropped,
+        "tick_errors": plane.tick_errors + base_plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
+# -- the tenant and shm soaks (kubedtn_tpu/scenarios.py:2484-3126) --------
+
+def noisy_neighbor(victim_pairs: int = 2, aggressor_pairs: int = 2,
+                   seconds: float = 4.0, dt_us: float = 2_000.0,
+                   victim_rate_fps: int = 2_000,
+                   aggressor_rate_fps: int = 20_000,
+                   aggressor_budget_fps: int = 2_000,
+                   latency: str = "2ms",
+                   aggressor_via_shm: bool = False, device=None):
+    """Noisy-neighbor CHAOS scenario: a gold victim and a bronze
+    aggressor share one plane on `device` (None = the CUDA card); the
+    aggressor offers ~10× its admission frame budget while the victim
+    offers a modest steady load. The contract under attack: the
+    aggressor is throttled AT ITS BUDGET by the per-tenant token bucket
+    (typed verdicts, frames queued — never dropped), and the victim
+    sees ZERO frame loss with its shaping latency inside guardrails.
+    Deterministic: explicit-clock ticks + clock-driven buckets, so a
+    given parameterization replays exactly.
+
+    `aggressor_via_shm` swaps the aggressor's transport for a
+    shared-memory ingest ring: admission is then evaluated at the RING
+    HEAD, so the over-budget backlog parks in the ring segment (plus
+    the sender's outage buffer) instead of the wire deques — the same
+    throttled-never-dropped contract, enforced one layer earlier."""
+    import os
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch.slo import SloEvaluator
+
+    dev = resolve_device(device)
+    t_wall = time.perf_counter()
+    cfg = {
+        "victim": {"pairs": victim_pairs, "qos": "gold"},
+        "aggressor": {"pairs": aggressor_pairs, "qos": "bronze",
+                      "frame_budget_per_s": float(aggressor_budget_fps)},
+    }
+    daemon, _srv, _port, plane, registry, wires = _tenant_plane_setup(
+        cfg, latency, dt_us, "nn", device=dev)
+    vin, vout = wires["victim"]
+    ain, aout = wires["aggressor"]
+    shm_dir = sender = ingest = None
+    if aggressor_via_shm:
+        from kubedtn_tpu_torch.shm import ShmIngest, ShmRing, ShmSender
+
+        shm_dir = tempfile.mkdtemp(prefix="kdt-nn-shm-")
+        # the outage buffer must hold the whole unadmitted backlog:
+        # feeding and ticking share this thread, so a blocking send
+        # could never be drained by the consumer it is waiting on
+        sender = ShmSender(os.path.join(shm_dir, "aggressor.ring"),
+                           namespace="aggressor",
+                           max_buffered=int(aggressor_rate_fps
+                                            * seconds) + 4096)
+        ingest = ShmIngest(shm_dir)
+        ingest.attach_ring(ShmRing.attach(sender.ring.path))
+        plane.attach_shm(ingest, watcher=False)
+    dt = dt_us / 1e6
+    t = 100.0
+    fed = {"victim": 0, "aggressor": 0}
+    got = {"victim": 0, "aggressor": 0}
+    acc = {"victim": 0.0, "aggressor": 0.0}
+    frame = _FAULT_FRAME
+
+    def tick():
+        nonlocal t
+        t += dt
+        plane.tick(now_s=t)
+        got["victim"] += _drain_wires(vout)
+        got["aggressor"] += _drain_wires(aout)
+
+    for _ in range(int(seconds / dt)):
+        for ns, win, rate in (("victim", vin, victim_rate_fps),
+                              ("aggressor", ain, aggressor_rate_fps)):
+            acc[ns] += rate * dt / len(win)
+            n = int(acc[ns])
+            if n:
+                acc[ns] -= n
+                for w in win:
+                    if ns == "aggressor" and sender is not None:
+                        sender.send(w.wire_id, [frame] * n)
+                    else:
+                        w.ingress.extend([frame] * n)
+                fed[ns] += n * len(win)
+        tick()
+    # drain the tail: the victim's in-flight frames must all land
+    # (zero-loss guardrail); the aggressor's QUEUED backlog stays
+    # queued — admission throttling holds while its bucket is in debt
+    for _ in range(int(0.2 / dt) + 8):
+        tick()
+    plane.flush()
+    got["victim"] += _drain_wires(vout)
+    got["aggressor"] += _drain_wires(aout)
+    a_stats = registry.stats(plane, "aggressor")
+    v_stats = registry.stats(plane, "victim")
+    queued = sum(len(w.ingress) for w in ain)
+    if sender is not None:
+        # shm transport: the unadmitted backlog parks in the ring
+        # segment + the sender's outage buffer, not the wire deques
+        queued += ingest.pending_total() + sender.buffered()
+    # budget guardrail: admitted ≤ burst (1s worth) + rate × seconds,
+    # with one batch of slack (admission is batch-granular)
+    budget_cap = (aggressor_budget_fps * (seconds + 1.0)
+                  + plane.max_slots * len(ain))
+    v_p99 = (v_stats.get("window") or {}).get("p99_us")
+    lat_us = 1e6 * float(latency.rstrip("ms")) / 1e3 \
+        if latency.endswith("ms") else 0.0
+    out = {
+        "scenario": "noisy_neighbor",
+        "device": str(dev),
+        "seconds": seconds,
+        "victim_pairs": victim_pairs,
+        "aggressor_pairs": aggressor_pairs,
+        "victim_fed": fed["victim"],
+        "victim_delivered": got["victim"],
+        "victim_delivery_ratio": (got["victim"] / fed["victim"]
+                                  if fed["victim"] else 1.0),
+        "victim_lost": fed["victim"] - got["victim"],
+        "victim_p99_us": v_p99,
+        "aggressor_fed": fed["aggressor"],
+        "aggressor_delivered": got["aggressor"],
+        "aggressor_admitted": int(a_stats["admitted_frames"]),
+        "aggressor_budget_fps": aggressor_budget_fps,
+        "aggressor_budget_cap": int(budget_cap),
+        "aggressor_queued_not_dropped": int(queued),
+        "aggressor_transport": "shm" if sender is not None
+        else "ingress",
+        "throttle_events": int(a_stats["throttle_events"]),
+        "victim_throttle_events": int(v_stats["throttle_events"]),
+        "dropped": plane.dropped,
+        "tick_errors": plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t_wall, 3),
+    }
+    # SLO self-verdict: the same contract in the SLO plane's own
+    # vocabulary — the gold victim's objectives are MET (attainment +
+    # latency, severity never page) while the bronze aggressor's
+    # error-budget BURN runs >1 (its parked admission backlog is
+    # unserved demand): "throttled at budget while backfilling"
+    slo = SloEvaluator(registry, plane).attach(daemon).evaluate()
+    v_slo, a_slo = slo.get("victim"), slo.get("aggressor")
+    if v_slo is not None:
+        out["victim_slo"] = {
+            "delivery_ratio": v_slo.delivery_ratio,
+            "p99_us": v_slo.p99_us, "p999_us": v_slo.p999_us,
+            "tail_method": v_slo.tail_method,
+            "fast_burn": round(v_slo.fast_burn, 3),
+            "slow_burn": round(v_slo.slow_burn, 3),
+            "budget_remaining": round(v_slo.budget_remaining, 3),
+            "severity": v_slo.severity,
+        }
+        out["victim_slo_met"] = bool(v_slo.ok
+                                     and v_slo.severity != "page")
+    if a_slo is not None:
+        out["aggressor_slo"] = {
+            "slow_burn": round(a_slo.slow_burn, 3),
+            "throttle_backlog": round(a_slo.throttle_backlog, 1),
+            "budget_remaining": round(a_slo.budget_remaining, 3),
+            "severity": a_slo.severity,
+        }
+        out["aggressor_burning"] = bool(
+            a_slo.slow_burn > 1.0 and out["throttle_events"] > 0)
+    # the scenario's own verdict (the chaos-harness style: a record
+    # that says whether the contract held, not just numbers)
+    out["aggressor_throttled_at_budget"] = (
+        out["throttle_events"] > 0
+        and out["aggressor_admitted"] <= out["aggressor_budget_cap"])
+    out["victim_unharmed"] = (
+        out["victim_lost"] == 0
+        and out["victim_throttle_events"] == 0
+        and (v_p99 is None or v_p99 <= lat_us * 4 + 4 * dt_us))
+    out["in_guardrails"] = bool(out["aggressor_throttled_at_budget"]
+                                and out["victim_unharmed"]
+                                and out.get("victim_slo_met", True)
+                                and out.get("aggressor_burning", True))
+    if sender is not None:
+        st = ingest.stats()
+        out["shm"] = {
+            "ring_pending": ingest.pending_total(),
+            "sender_buffered": sender.buffered(),
+            "ring_full_failures": st["full_failures"],
+            "throttled_events": st["throttled_events"],
+            "frames_in": st["frames_in"],
+        }
+        sender.close()
+        ingest.close()
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    plane.stop()
+    return out
+
+
+def _producer(ring_path: str, wire_id: int, frames: int, *args,
+              stdout=None):
+    """A `python -m kubedtn_tpu_torch.shm.producer` child streaming
+    `frames` indexed frames into `ring_path` (its extra arguments in
+    `args`); the repo root goes on its PYTHONPATH. The producer imports
+    neither torch nor jax: it opens no CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [_REPO_ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                        else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "kubedtn_tpu_torch.shm.producer", ring_path,
+         str(wire_id), str(frames), *map(str, args)],
+        env=env, stdout=stdout, stderr=subprocess.PIPE, text=True)
+
+
+def _one_link_daemon(prefix: str, latency: str, device):
+    """A Daemon over one `latency` link between pods `{prefix}-a` and
+    `{prefix}-b` (uid 1) in an engine of 16 rows on `device`, with a
+    wire on each end: (engine, daemon, wire_a, wire_b)."""
+    from kubedtn_tpu_torch.api.types import Link, Topology, TopologySpec
+    from kubedtn_tpu_torch.topology import (Reconciler, SimEngine,
+                                            TopologyStore)
+    from kubedtn_tpu_torch.wire.server import Daemon
+
+    store = TopologyStore()
+    engine = SimEngine(store, capacity=16, device=device)
+    props = LinkProperties(latency=latency)
+    a, b = f"{prefix}-a", f"{prefix}-b"
+    store.create(Topology(name=a, spec=TopologySpec(links=[
+        Link(local_intf="eth1", peer_intf="eth1", peer_pod=b, uid=1,
+             properties=props)])))
+    store.create(Topology(name=b, spec=TopologySpec(links=[
+        Link(local_intf="eth1", peer_intf="eth1", peer_pod=a, uid=1,
+             properties=props)])))
+    engine.setup_pod(a)
+    engine.setup_pod(b)
+    Reconciler(store, engine).drain()
+    daemon = Daemon(engine)
+    wa = daemon._add_wire(wire_def(a, "default", 1))
+    wb = daemon._add_wire(wire_def(b, "default", 1))
+    return engine, daemon, wa, wb
+
+
+def shm_producer_crash(frames: int = 4_000, kill_after: int = 1_500,
+                       frame_size: int = 128, dt_us: float = 2_000.0,
+                       latency: str = "2ms", sample_period: int = 16,
+                       torn_tail: int = 3,
+                       drain_timeout_s: float = 30.0, device=None):
+    """Producer-crash CHAOS scenario for the shared-memory ingest
+    plane, on a plane whose engine lies on `device` (None = the CUDA
+    card): a REAL producer subprocess (`python -m
+    kubedtn_tpu_torch.shm.producer`) streams deterministic indexed
+    frames into its ring while the daemon drains; once its progress
+    reports cross `kill_after`, it is SIGKILLed mid-burst. The contract
+    under attack — the seqlock commit protocol's crash-safety half:
+
+    - ZERO committed-frame loss: the delivered indices form an exact
+      contiguous prefix 0..K-1 (commits are sequential, so the
+      committed set IS a prefix) with K >= the last progress report —
+      everything the producer published before dying arrives, exactly
+      once, in order;
+    - uncommitted reservations are NEVER surfaced as frames: the torn
+      tail (a deterministic reserve-without-commit image stamped onto
+      the dead ring, plus whatever the SIGKILL itself tore) is skipped
+      and counted only AFTER the producer pid provably died;
+    - the drained ring of a dead producer is RETIRED;
+    - a producer-minted sampled trace id spans the ring:
+      received -> ingress -> delivered under the SAME id.
+
+    The kill lands on the wall clock (real chaos), but every acceptance
+    check is exact — none depends on WHERE the kill lands."""
+    import os
+    import shutil
+    import struct
+    import subprocess
+    import tempfile
+    import threading
+
+    from kubedtn_tpu_torch import telemetry as tele
+    from kubedtn_tpu_torch.runtime import WireDataPlane
+    from kubedtn_tpu_torch.shm import ShmIngest, ShmRing
+
+    dev = resolve_device(device)
+    t_wall = time.perf_counter()
+    _engine, daemon, win, wout = _one_link_daemon("shm", latency, dev)
+    plane = WireDataPlane(daemon, dt_us=dt_us)
+    plane.pipeline_explicit_clock = True
+    plane.enable_telemetry(window_s=0.5, sample_period=256)
+    shm_dir = tempfile.mkdtemp(prefix="kdt-shm-crash-")
+    ingest = ShmIngest(shm_dir, scan_interval_s=0.02)
+    plane.attach_shm(ingest, watcher=False)
+    ring_path = os.path.join(shm_dir, "crash.ring")
+    proc = _producer(ring_path, win.wire_id, frames,
+                     "--frame-size", frame_size, "--batch", 64,
+                     "--pace-s", 0.002, "--sample-period", sample_period,
+                     "--hold-s", 60, stdout=subprocess.PIPE)
+    reported = [0]  # last `pushed=N` progress line seen
+
+    def read_progress():
+        for line in proc.stdout:
+            line = line.strip()
+            if line.startswith(("pushed=", "done pushed=")):
+                reported[0] = int(line.rsplit("=", 1)[1])
+
+    rd = threading.Thread(target=read_progress, daemon=True)
+    rd.start()
+
+    dt = dt_us / 1e6
+    t = 100.0
+    killed_at_report = -1
+    deadline = time.monotonic() + drain_timeout_s
+    try:
+        while time.monotonic() < deadline:
+            t += dt
+            plane.tick(now_s=t)
+            if killed_at_report < 0 and reported[0] >= kill_after:
+                killed_at_report = reported[0]
+                proc.kill()
+                proc.wait()  # reaped: producer_dead() now has its proof
+                rd.join(timeout=5.0)
+            if killed_at_report >= 0 and torn_tail > 0:
+                # stamp a deterministic crash-frozen image (reserved,
+                # never committed) onto the DEAD ring, so the gap-skip
+                # path runs on every seed — on top of whatever the
+                # SIGKILL itself tore mid-batch. The tail word lives in
+                # the shared segment, so a scratch mapping can write it.
+                tr = ShmRing.attach(ring_path)
+                tr.push_torn(torn_tail)
+                tr.close()
+                torn_tail = 0  # once
+            if killed_at_report >= 0:
+                st = ingest.stats()
+                if st["pending"] == 0 and st["rings"] == 0:
+                    break
+            time.sleep(0.001)
+        plane.flush()
+        plane.tick(now_s=t + 10.0)
+    finally:
+        if proc.poll() is None:  # kill_after never reached: clean up
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+
+    delivered = list(wout.egress)
+    idx = sorted(struct.unpack("<Q", f[:8])[0] for f in delivered)
+    prefix_ok = idx == list(range(len(idx)))
+    stats = ingest.stats()
+    # trace audit: every `received` event on this plane came through
+    # the ring (no gRPC feeder here); at least one producer-minted id
+    # must span received -> ingress -> delivered
+    stages_by_tid: dict = {}
+    for e in list(plane.recorder.events):
+        stages_by_tid.setdefault(e[0], set()).add(e[3])
+    ring_tids = [tid for tid, st in stages_by_tid.items()
+                 if tele.ST_RECEIVED in st]
+    spanned = [tid for tid in ring_tids
+               if {tele.ST_INGRESS, tele.ST_DELIVERED}
+               <= stages_by_tid[tid]]
+    out = {
+        "scenario": "shm_producer_crash",
+        "device": str(dev),
+        "frames_target": frames,
+        "reported_at_kill": killed_at_report,
+        "delivered": len(delivered),
+        "delivered_prefix_ok": prefix_ok,
+        "committed_lost": max(0, killed_at_report - len(delivered)),
+        "torn_skipped": int(stats["skipped_uncommitted"]),
+        "ring_pending_final": int(stats["pending"]),
+        "rings_retired": int(stats["rings_retired"]),
+        "ring_traces_seen": len(ring_tids),
+        "ring_traces_spanning": len(spanned),
+        "trace_ok": len(spanned) > 0,
+        "dropped": plane.dropped,
+        "tick_errors": plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t_wall, 3),
+    }
+    out["in_guardrails"] = bool(
+        killed_at_report >= 0
+        and prefix_ok
+        and out["committed_lost"] == 0
+        and len(delivered) >= killed_at_report
+        and out["torn_skipped"] > 0
+        and out["ring_pending_final"] == 0
+        and out["rings_retired"] == 1
+        and out["trace_ok"]
+        and out["tick_errors"] == 0
+        and out["dropped"] == 0)
+    ingest.close()
+    plane.stop()
+    shutil.rmtree(shm_dir, ignore_errors=True)
+    return out
+
+
+def shm_soak(frames: int = 200_000, frame_size: int = 200,
+             slots: int = 16_384, slot_size: int = 2_048,
+             batch: int = 1_024, grpc_unary_n: int = 2_000,
+             grpc_stream_n: int = 20_000, grpc_bulk_n: int = 50_000,
+             timeout_s: float = 300.0, device=None):
+    """Shared-memory ingest TRANSPORT soak: a REAL producer subprocess
+    (`python -m kubedtn_tpu_torch.shm.producer`) streams `frames`
+    indexed frames through its ring while this process drains them via
+    `Daemon.drain_ingress` (the daemon's engine on `device`, None = the
+    CUDA card) — the measured number is the daemon-side ingestion rate
+    (one native dequeue + one columnar regroup per drain), with an
+    exact zero-loss audit on the embedded indices.
+
+    For the honest comparison the gRPC ladder (unary SendToOnce /
+    client-streaming SendToStream / coalesced SendToBulk — the
+    compat-fallback transports) is RE-MEASURED in this same session
+    over a real loopback server, so both sides see the same host, the
+    same interpreter state, and the same moment of machine load. This
+    is a transport microbench (no shaping — the plane-only soak's
+    sustained rate is the end-to-end ceiling, see live_plane_soak),
+    single producer, and the producer side is ITSELF Python building
+    frames, so the recorded rate is a floor."""
+    import os
+    import shutil
+    import struct
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from kubedtn_tpu_torch.shm import ShmIngest
+    from kubedtn_tpu_torch.wire import proto as pb
+    from kubedtn_tpu_torch.wire.client import DaemonClient
+    from kubedtn_tpu_torch.wire.server import make_server
+
+    dev = resolve_device(device)
+    t_wall = time.perf_counter()
+    _engine, daemon, wire, _wb = _one_link_daemon("soak", "1ms", dev)
+    shm_dir = tempfile.mkdtemp(prefix="kdt-shm-soak-")
+    ingest = ShmIngest(shm_dir, scan_interval_s=0.01)
+    daemon.shm = ingest
+    ring_path = os.path.join(shm_dir, "soak.ring")
+    proc = _producer(ring_path, wire.wire_id, frames,
+                     "--frame-size", frame_size, "--batch", batch,
+                     "--slots", slots, "--slot-size", slot_size,
+                     stdout=subprocess.DEVNULL)
+    try:
+        batches: list = []
+        total = 0
+        t_first = t_last = None
+        deadline = time.monotonic() + timeout_s
+        while total < frames and time.monotonic() < deadline:
+            out = daemon.drain_ingress(max_per_wire=16_384)
+            n = sum(len(lens) for _w, _r, lens, _p in out)
+            if n:
+                if t_first is None:
+                    t_first = time.perf_counter()
+                total += n
+                batches.extend(out)
+            t_last = time.perf_counter()
+        proc.wait(timeout=60.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    shm_s = (t_last - t_first) if t_first is not None else 0.0
+    st = ingest.stats()
+
+    # exact zero-loss audit: every index 0..frames-1 exactly once
+    seen = np.zeros(frames, np.int32)
+    for _w, _r, _lens, parts in batches:
+        for seg in parts:
+            for k in range(seg.lo, seg.hi):
+                i = struct.unpack_from("<Q", seg.blob,
+                                       int(seg.offs[k]))[0]
+                seen[i] += 1
+    audit_exact = bool((seen == 1).all())
+
+    # same-session gRPC ladder re-run (the compat fallback transports)
+    server, port = make_server(daemon, port=0, host="127.0.0.1",
+                               log_rpcs=False)
+    server.start()
+    client = DaemonClient(f"127.0.0.1:{port}")
+    try:
+        peer = daemon._add_wire(pb.WireDef(
+            local_pod_name="soak-peer", kube_ns="default", link_uid=2,
+            intf_name_in_pod="eth0", peer_ip="10.0.0.2"))
+        pkt = pb.Packet(remot_intf_id=peer.wire_id,
+                        frame=b"f" * frame_size)
+        client.SendToOnce(pkt)  # warm channel + path
+        t0 = time.perf_counter()
+        for _ in range(grpc_unary_n):
+            client.SendToOnce(pkt)
+        unary_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        client.SendToStream(iter([pkt] * grpc_stream_n))
+        stream_s = time.perf_counter() - t0
+        chunk = 256
+        bulk_batches = [pb.PacketBatch(packets=[pkt] * chunk)
+                        for _ in range(grpc_bulk_n // chunk)]
+        client.SendToBulk(iter(bulk_batches[:4]))  # warm
+        peer.egress.clear()
+        t0 = time.perf_counter()
+        client.SendToBulk(iter(bulk_batches))
+        bulk_s = time.perf_counter() - t0
+        bulk_done = (grpc_bulk_n // chunk) * chunk
+    finally:
+        client.close()
+        server.stop(0)
+
+    shm_fps = total / shm_s if shm_s > 0 else 0.0
+    stream_fps = grpc_stream_n / stream_s
+    bulk_fps = bulk_done / bulk_s
+    out = {
+        "scenario": "shm_soak",
+        "device": str(dev),
+        "frames": frames,
+        "frame_size": frame_size,
+        "slots": slots,
+        "shm_frames_ingested": total,
+        "shm_seconds": round(shm_s, 4),
+        "shm_frames_per_s": round(shm_fps, 1),
+        "shm_bytes_per_s": round(shm_fps * frame_size, 1),
+        "shm_dequeues": int(st["dequeues"]),
+        "shm_frames_per_dequeue": round(total / max(1, st["dequeues"]),
+                                        1),
+        "shm_ring_full_failures": int(st["full_failures"]),
+        "shm_audit_exact_once": audit_exact,
+        "grpc_unary_frames_per_s": round(grpc_unary_n / unary_s, 1),
+        "grpc_stream_frames_per_s": round(stream_fps, 1),
+        "grpc_bulk_frames_per_s": round(bulk_fps, 1),
+        "shm_over_grpc_unary": round(shm_fps * unary_s / grpc_unary_n,
+                                     1),
+        "shm_over_grpc_stream": round(shm_fps / stream_fps, 1),
+        "shm_over_grpc_bulk": round(shm_fps / bulk_fps, 2),
+        "same_session_grpc_rerun": True,
+        "caveats": (
+            "transport microbench on a shared host: gRPC ladder "
+            "re-measured in this same session (same machine-load "
+            "moment); single Python producer subprocess building "
+            "frames is the feed-side floor, native ring push/dequeue "
+            "probes higher; no shaping — the plane-only soak "
+            "(live_plane_soak) bounds end-to-end"),
+        "producer_rc": proc.returncode,
+        "wall_s": round(time.perf_counter() - t_wall, 3),
+    }
+    out["in_guardrails"] = bool(
+        total == frames and audit_exact and proc.returncode == 0
+        and out["shm_over_grpc_stream"] >= 10.0)
+    ingest.close()
+    shutil.rmtree(shm_dir, ignore_errors=True)
+    return out
+
+
+def tenant_soak(tenants: int = 3, pairs_per_tenant: int = 2,
+                seconds: float = 8.0, dt_us: float = 2_000.0,
+                latency: str = "2ms", budget_fps: int = 0,
+                window_s: float = 1.0, settle_s: float = 60.0,
+                device=None):
+    """Multi-tenant SOAK: `tenants` namespaces share one live plane
+    (real gRPC server + real-time runner, the engine on `device`, None
+    = the CUDA card), each fed by its OWN out-of-process InjectBulk
+    load generator; per-tenant throughput, p99 and throttle counts are
+    recorded per delivery window. With `budget_fps` > 0 the LAST tenant
+    gets that admission budget (gold/silver/bronze QoS ladder across
+    the rest), so the record shows enforcement under a real runner, not
+    just the explicit-clock chaos harness."""
+    import statistics
+    import subprocess
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    qos_ladder = ["gold", "silver", "bronze"]
+    names = [f"t{i}" for i in range(tenants)]
+    cfg = {name: {"pairs": pairs_per_tenant,
+                  "qos": qos_ladder[i % len(qos_ladder)]}
+           for i, name in enumerate(names)}
+    if budget_fps > 0:
+        cfg[names[-1]]["frame_budget_per_s"] = float(budget_fps)
+    _daemon, server, port, plane, registry, wires = _tenant_plane_setup(
+        cfg, latency, dt_us, "ts", server=True, device=dev)
+    plane.start()
+    procs = []
+
+    def drain(name) -> int:
+        return _drain_wires(wires[name][1])
+
+    try:
+        warm = _warm_drain_buckets(plane, [w for ws, _ in wires.values()
+                                           for w in ws])
+        # the warm-up's frames land (and are drained) FIRST: the settle
+        # below must wait for the injectors' frames, not see warm
+        # residue and open the first window before any injector runs
+        landed, deadline = 0, time.monotonic() + settle_s
+        while landed < warm and time.monotonic() < deadline:
+            landed += sum(drain(n) for n in names)
+            time.sleep(0.01)
+        for name in names:
+            procs.append((name, _injector(port, wires[name][0], -1,
+                                          INJECTOR_CHUNK,
+                                          subprocess.DEVNULL)))
+
+        deadline = time.monotonic() + settle_s
+        while (sum(drain(n) for n in names) == 0
+               and time.monotonic() < deadline):
+            for name, p in procs:
+                if p.poll() is not None:
+                    raise RuntimeError(
+                        f"tenant {name} injector exited "
+                        f"rc={p.returncode} before first delivery")
+            time.sleep(0.01)
+        windows: dict[str, list[float]] = {n: [] for n in names}
+        t_end = time.monotonic() + seconds
+        while time.monotonic() < t_end:
+            w0 = time.monotonic()
+            time.sleep(window_s)
+            span = time.monotonic() - w0
+            for n in names:
+                windows[n].append(drain(n) / span)
+        per_tenant = {}
+        for n in names:
+            rates = sorted(windows[n])
+            med = statistics.median(rates) if rates else 0.0
+            st = registry.stats(plane, n)
+            win = st.get("window") or {}
+            per_tenant[n] = {
+                "qos": cfg[n].get("qos"),
+                "frame_budget_per_s":
+                    cfg[n].get("frame_budget_per_s", 0.0),
+                "sustained_frames_per_s": round(med, 1),
+                "worst_window_frames_per_s":
+                    round(rates[0], 1) if rates else 0.0,
+                "p99_us": win.get("p99_us"),
+                "delivered_pps": round(win.get("delivered_pps", 0.0),
+                                       1),
+                "admitted_frames": int(st["admitted_frames"]),
+                "throttle_events": int(st["throttle_events"]),
+            }
+    finally:
+        for _name, p in procs:
+            _stop_child(p)
+        plane.stop()
+        server.stop(0)
+    total = sum(v["sustained_frames_per_s"]
+                for v in per_tenant.values())
+    return {
+        "scenario": "tenant_soak",
+        "device": str(dev),
+        "record": "TENANT_SOAK",
+        "tenants": tenants,
+        "pairs_per_tenant": pairs_per_tenant,
+        "seconds": seconds,
+        "window_s": window_s,
+        "per_tenant": per_tenant,
+        "plane_frames_per_s": round(total, 1),
+        "throttled_tenant": names[-1] if budget_fps > 0 else None,
+        "dropped": plane.dropped,
+        "tick_errors": plane.tick_errors,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }
+
+
 def migration_under_flap(pairs: int = 2, seconds: float = 6.0,
                          migrate_after_s: float = 1.5,
                          flap_period_s: float = 1.0,
@@ -2694,8 +3941,8 @@ def fleet_rolling_upgrade(pairs: int = 1, steady_s: float = 1.5,
     return out
 
 
-# The JAX module's ladder (kubedtn_tpu/scenarios.py LADDER), in its
-# order: the ported scenarios, and the names still to be ported.
+# The JAX module's ladder (kubedtn_tpu/scenarios.py LADDER), all of it, in
+# its order.
 LADDER = {
     "3node": three_node,
     "fat_tree_64": fat_tree_64,
@@ -2709,15 +3956,19 @@ LADDER = {
     "live_plane_soak": live_plane_soak,
     "reconverge_10k": reconverge_10k,
     "chaos_soak": chaos_soak,
+    "whatif_sweep": whatif_sweep,
+    "telemetry_overhead": telemetry_overhead,
+    "slo_overhead": slo_overhead,
+    "pause_observability": pause_observability,
     "burn_recovery": burn_recovery,
+    "sharded_soak": sharded_soak,
     "staged_update_soak": staged_update_soak,
     "update_under_flap": update_under_flap,
+    "noisy_neighbor": noisy_neighbor,
+    "shm_producer_crash": shm_producer_crash,
+    "shm_soak": shm_soak,
+    "tenant_soak": tenant_soak,
     "migration_under_flap": migration_under_flap,
     "plane_failover": plane_failover,
     "fleet_rolling_upgrade": fleet_rolling_upgrade,
 }
-NOT_PORTED = (
-    "whatif_sweep", "telemetry_overhead", "slo_overhead",
-    "pause_observability", "sharded_soak", "noisy_neighbor",
-    "shm_producer_crash", "shm_soak", "tenant_soak",
-)

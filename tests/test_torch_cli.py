@@ -17,8 +17,8 @@ with capsys.
   port daemons built the same way, one per CLI.
 - End to end: `top --json` and `tenant stats` of the port CLI on a port
   daemon == the JAX CLI on a JAX daemon built and fed the same way.
-- `scenario`: _coerce_params as JAX's, the ported ladder in JAX's order,
-  a JAX scenario not ported yet refused by name.
+- `scenario`: _coerce_params as JAX's, the whole ladder in JAX's order,
+  scenarios run on the CPU through `scenario NAME -p ... --device cpu`.
 - No fallback: without a card and without `--device cpu` every verb
   that builds an engine exits 2, and the daemon binds nothing.
 """
@@ -741,26 +741,30 @@ def test_ladder_is_jax_order_restricted_to_the_ported():
     from kubedtn_tpu import scenarios as jsc
     from kubedtn_tpu_torch import scenarios as tsc
 
-    assert list(tsc.LADDER) == [k for k in jsc.LADDER if k in tsc.LADDER]
-    assert list(tsc.LADDER) == ["3node", "fat_tree_64", "churn_1k",
-                                "routes_10k", "clos_100k", "reconcile_100k",
-                                "scale_1m", "chaos_flaps", "live_plane",
-                                "live_plane_soak", "reconverge_10k",
-                                "chaos_soak", "burn_recovery",
-                                "staged_update_soak", "update_under_flap",
-                                "migration_under_flap", "plane_failover",
-                                "fleet_rolling_upgrade"]
-    assert sorted([*tsc.LADDER, *tsc.NOT_PORTED]) == sorted(jsc.LADDER)
-    assert list(tsc.NOT_PORTED) == [k for k in jsc.LADDER
-                                    if k not in tsc.LADDER]
+    assert list(tsc.LADDER) == list(jsc.LADDER)
+    assert not hasattr(tsc, "NOT_PORTED")
+
+
+SMALL = {
+    "telemetry_overhead": ["pairs=2", "frames_per_wire=500", "rounds=1"],
+    "noisy_neighbor": ["victim_pairs=1", "aggressor_pairs=1", "seconds=0.2",
+                       "victim_rate_fps=800", "aggressor_rate_fps=8000",
+                       "aggressor_budget_fps=800"],
+    "shm_soak": ["frames=2000", "grpc_unary_n=20", "grpc_stream_n=200",
+                 "grpc_bulk_n=512"],
+}
 
 
 @pytest.mark.parametrize("name", ["telemetry_overhead", "noisy_neighbor",
                                   "shm_soak"])
-def test_scenario_not_ported_yet_is_refused(capsys, name):
-    rc, out, err = run(capsys, tcli, ["scenario", name, *CPU])
-    assert rc == 1 and out == ""
-    assert err.strip() == f"scenario {name} is not ported yet"
+def test_scenario_runs_on_the_cpu(capsys, name):
+    argv = ["scenario", name]
+    for kv in SMALL[name]:
+        argv += ["-p", kv]
+    rc, out, err = run(capsys, tcli, [*argv, *CPU])
+    assert rc == 0, err[-2000:]
+    r = json.loads(out.strip().splitlines()[-1])
+    assert r["scenario"] == name and r["device"] == "cpu"
 
 
 def test_unknown_scenario_and_bad_params_are_refused(capsys):

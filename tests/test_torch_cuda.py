@@ -1466,3 +1466,22 @@ def test_staged_update_soak_gates_through_k1_on_the_card(dev):
         == 3 * 60 * 4
     out = chip_smoke.replay_gate_sweep(gates.calls[-1], True, "test")
     assert out["k1_compare_launches"] == 60 * 4
+
+
+def test_whatif_sweep_replay_k1_equals_plain_on_the_card(dev):
+    """chip_smoke.py's 24(d) small: whatif_sweep's sweep launches K1
+    once a shaping slot and step, and its recorded sweep, swept again
+    for 2 steps through K1 and through the plain version, is the same
+    in every metric, bit for bit."""
+    import chip_smoke
+    from kubedtn_tpu_torch import scenarios
+
+    shaping.reset_launches()
+    with chip_smoke.SweepLog() as sweeps:
+        r = scenarios.whatif_sweep(replicas=6, steps=40, n_nodes=12,
+                                   n_links=24, k_slots=2, device=dev)
+    assert r["device"] == str(dev) and r["replicas"] == 6
+    assert shaping.LAUNCHES["shape_step_rows"] == 40 * 2
+    assert len(sweeps.calls) == 1
+    out = chip_smoke.replay_whatif_sweep(sweeps.calls[0], True, 2)
+    assert out["k1_compare_launches"] == 2 * 2
