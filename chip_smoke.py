@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases 1-4,19  # some phases (1 always runs;
-                                           # 3 and 4, 10, 11, 14 and 22
-                                           # bring 2 and 3; 6, 7 and 8
-                                           # go together)
+                                           # 3 and 4, 10, 11, 14, 22 and
+                                           # 25 bring 2 and 3; 6, 7 and
+                                           # 8 go together)
     python3 chip_smoke.py --phases 20 --daemon-rate  # + the daemon's rate
 
 Drives kubedtn_tpu_torch's main path at the BASELINE size — the
@@ -331,9 +331,10 @@ Phases, each fatal on failure:
      scrape: per fed link its leaf end's tx == the frames fed into its
      wire, node-wide fed == delivered + netem loss + TBF queue + delay
      ring; each operator verb a `tpudtn-torch` process (python -m
-     kubedtn_tpu_torch.cli; the first 10 started as the feed ends,
-     while the books are read, and top once the daemon has closed its
-     first telemetry window) with rc 0 and JSON: top, slo, pauses,
+     kubedtn_tpu_torch.cli; the first 9 started as the feed ends,
+     while the books are read, top once the daemon has closed its first
+     telemetry window and trace latest once its flight recorder has
+     sampled a frame) with rc 0 and JSON: top, slo, pauses,
      tenant list / stats, autopilot status (attached, disabled), fleet
      status, migrate --status, trace latest, whatif --daemon (degrade,
      fail, spine0 blackholed, load x 1.5; 100 ticks, 200 until phase
@@ -484,6 +485,28 @@ Phases, each fatal on failure:
      tenants x 2 pairs behind the real-time runner, an injector child
      each, 3 s (8) after a settle of at most 15 s (60): every tenant's
      sustained rate and worst window > 0, nothing dropped.
+ 25. the scale path across processes: 2 child processes
+     (kubedtn_tpu_torch.parallel.multihost, torch and the port only),
+     each joining the run through init_distributed (a file rendezvous in
+     a temporary directory) and make_multihost_mesh over 2 virtual shards
+     of the card: 4 shards, host-major, the backend chosen from the
+     layout (gloo for ranks that share a card, staged through pinned host
+     memory) and printed; (a) 22(a)'s sharded step on the churned Clos, 3
+     steps of a 1,000-row scattered batch, the uniforms drawn by every
+     rank from one seeded generator on the card; (b) 22(b)'s sharded
+     router on phase 11's routed fabric (built the same way when phase 11
+     did not run), budget 2^16, 10 steps, each shard drawing from its own
+     generator seeded by its global index; inputs and outputs through the
+     temporary directory (torch.save); every child's shards, ShapeResults
+     and NodeStats, and its router shards, == the same steps on one
+     process's 4 virtual shards, bit for bit, NodeStats the same on every
+     rank, no packet over the exchange budget (fwd_dropped, the same on
+     every rank, is the receiving lanes' overflow, as run_routed counts
+     it); K1 counted from 0 in each child around (a) and
+     (b), summed == the one-process runs' launches; start-up seconds,
+     ms per step against one process, bytes through the all-to-all a
+     step. A child that fails or outlives 300 s fails the phase, its
+     sibling killed.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
@@ -493,7 +516,9 @@ saturating InjectBulk feed, booted with phase 20's flags, without
 The line before the last lists the kernels with their launches by path
 (K1's sharded_step and sharded_router from phase 22, its rungs path
 with chaos_flaps, its soaks path from 23(d) and (e), its whatif path
-from 24(d), with 24(d)'s replay under compare_launches; K4's probe path,
+from 24(d), with 24(d)'s replay under compare_launches, its multiprocess
+path from phase 25's children, with the one-process runs they are held
+against under compare_launches; K4's probe path,
 the sharded planes' exchange probes, and its sharded_soak path from
 24(e)), errors, times and bounds (with --phases, the kernels whose checks ran:
 K1-K3 with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
@@ -6999,17 +7024,24 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
                             "out": json.loads(out.splitlines()[-1])}
 
         # `top` starts once the daemon has closed its first telemetry
-        # window: before that it has none to report. On a slow host the
-        # feed's first two dispatches hold the plane ~5 s each (PERF.md
-        # §7), and a `top` started with the others asked inside them
-        top_argv = together.pop("top")
+        # window, and `trace latest` once its flight recorder has sampled
+        # a frame: before that they have nothing to report. On a slow
+        # host the feed's first two dispatches hold the plane ~5 s each
+        # (PERF.md §7), and verbs started with the others asked inside
+        # them
+        late = {k: together.pop(k) for k in ("top", "trace latest")}
         running = launch(together)
         m["first_window_s"] = wait_for(
             lambda: dmn_scrape(mport).get(
                 ("kubedtn_link_windows_closed_total", ""), 0.0) >= 1,
             DMN_WAIT_S, "20(c): the daemon's first telemetry window",
             interval=0.25)
-        running_top = launch({"top": top_argv})
+        m["first_sample_s"] = wait_for(
+            lambda: dmn_scrape(mport).get(
+                ("kubedtn_flight_sampled_frames_total", ""), 0.0) >= 1,
+            DMN_WAIT_S, "20(c): the daemon's first sampled frame",
+            interval=0.25)
+        running_top = launch(late)
         books, sc, m["drain_s"] = dmn_wait_books(mport, links, fed,
                                                  "20(c) the feed")
         log(f"20(c) {len(wids)} + {len(wids)} wires by AddGRPCWireLocal in "
@@ -7062,9 +7094,10 @@ def run_daemon_phase(dev, card, n_spine=None, n_leaf=None,
         m["verbs_s"] = {k: v["s"] for k, v in verbs.items()}
         log(f"20(c) tpudtn-torch verbs against the daemon, rc 0 and JSON "
             f"each, wall s (the first {len(together)} run together while "
-            f"the feed drained, top once the first telemetry window had "
-            f"closed {m['first_window_s']:.1f} s after the feed ended, "
-            f"then apply --plan): "
+            f"the feed drained, top and trace latest once the first "
+            f"telemetry window had closed {m['first_window_s']:.1f} s "
+            f"after the feed ended and a frame was sampled "
+            f"{m['first_sample_s']:.1f} s after that, then apply --plan): "
             + ", ".join(f"{k} {v:.2f}" for k, v in m["verbs_s"].items())
             + f"; plan {plan['plan_id']} verified ({n_changed} links, gate "
             f"{plan['gate_s']:.2f} s), applied in "
@@ -8863,10 +8896,217 @@ def run_probe_phase(dev, card, probe) -> tuple:
     return m, k1_paths, k4
 
 
-ALL_PHASES = tuple(range(1, 25))
+MP_PROCS = 2                # 25: child processes, each joining the mesh
+MP_SHARDS = 2               # 25: virtual shards of the card a process holds
+MP_SEED = 25                # 25: the step's uniforms, the router's shards
+MP_CHILD_S = 300.0          # 25: bound on the children, rendezvous to exit
+
+
+def mp_step_inputs(el, fresh, rng) -> list:
+    """25(a)'s SH_STEPS steps: a SH_BATCH-row scattered UpdateLinks batch
+    each (22(a)'s draw), 1,500 B on every row, every active row shaped;
+    the uniforms drawn by each side from a generator seeded MP_SEED."""
+    from kubedtn_tpu_torch.models.topologies import random_link_props
+
+    E, n_rows, dev = fresh.capacity, 2 * el.n_links, fresh.device
+    sizes = torch.full((E,), 1500.0, dtype=torch.float32, device=dev)
+    t_arr = torch.zeros((E,), dtype=torch.float32, device=dev)
+    have = fresh.active.clone()
+    return [dict(rows=np.sort(rng.choice(n_rows, SH_BATCH, replace=False)
+                              ).astype(np.int32),
+                 props=random_link_props(SH_BATCH, 250 + i),
+                 valid=np.ones(SH_BATCH, dtype=bool), sizes=sizes,
+                 have=have, t_arr=t_arr)
+            for i in range(SH_STEPS)]
+
+
+def run_multiprocess_phase(el, fresh, dev, card, routed=None,
+                           layout=None) -> tuple:
+    """Phase 25: the scale path across processes. MP_PROCS children
+    (parallel/multihost.py, torch and the port only) each join the run
+    (init_distributed over a file rendezvous) and build make_multihost_mesh
+    over `layout`[rank] (default MP_SHARDS virtual shards of `dev` each);
+    (a) the sharded step on the churned Clos, (b) the sharded router on
+    phase 11's routed fabric (`routed` = its (rs, spec, flow_dst), else
+    built the same way), K1 counted from 0 around each in every child;
+    the same steps run here on one process's mesh over the same shards.
+    Every child's shards, ShapeResults and NodeStats == this process's,
+    bit for bit. Returns (metrics, K1 launches of the children, K1
+    launches of the one-process runs)."""
+    import shutil
+    import tempfile
+
+    from kubedtn_tpu_torch import entry, router
+    from kubedtn_tpu_torch.ops.cuda import shaping
+    from kubedtn_tpu_torch.parallel import multihost
+    from kubedtn_tpu_torch.parallel import router as prouter
+    from kubedtn_tpu_torch.parallel.mesh import make_mesh, shard_edge_state
+    from kubedtn_tpu_torch.parallel.sharded import make_sharded_step
+
+    t_phase = time.perf_counter()
+    layout = layout or [[str(dev)] * MP_SHARDS] * MP_PROCS
+    world = len(layout)
+    mesh = make_mesh([d for devs in layout for d in devs])
+    per = len(layout[0])
+    n, m = el.n_nodes, {}
+    if routed is None:
+        leaves = np.arange(entry.N_SPINE, el.n_nodes)
+        rs, spec, flow_dst, _ = entry.build_routed(
+            el, fresh, leaves, seed=31, rate_bps=ROUTED_RATE_BPS, q=SIM_Q,
+            k_fwd=ROUTED_K_FWD, max_hops=ROUTE_HOPS)
+    else:
+        rs, spec, flow_dst = routed
+    steps = mp_step_inputs(el, fresh, np.random.default_rng(25))
+    rparams = dict(n_nodes=n, q=SIM_Q, k_fwd=ROUTED_K_FWD, k_slots=SIM_K,
+                   budget=SR_BUDGET, dt_us=SIM_DT_US, steps=SR_STEPS,
+                   seed=MP_SEED)
+    tmp = tempfile.mkdtemp(prefix="kdt-multiprocess-")
+    try:
+        job = multihost.write_job(
+            tmp, {"step": dict(n_nodes=n, seed=MP_SEED), "router": rparams},
+            {"step": dict(state=fresh, steps=steps),
+             "router": dict(edges=rs.sim.edges, next_edge=rs.next_edge,
+                            spec=spec, flow_dst=flow_dst)},
+            world=world, init=f"file://{tmp}/rendezvous", devices=layout,
+            timeout_s=MP_CHILD_S)
+        t_spawn = time.time()
+        try:
+            res = multihost.spawn(job, world, MP_CHILD_S)
+        except RuntimeError as e:
+            fail(f"25: a child process failed: {e}")
+        t_children = time.time() - t_spawn
+        outs = multihost.load_outputs(job, world, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, info in enumerate(res):
+        check(info["forbidden_modules"] == [],
+              f"25: child {r} imported {info['forbidden_modules']}")
+        check(info["shards"] == len(mesh) and info["world_size"] == world,
+              f"25: child {r}'s mesh is {info['entries']}")
+    backend = {(i["backend"], i["staging"]) for i in res}
+    check(len(backend) == 1, f"25: the children chose {backend}")
+    backend, staging = backend.pop()
+    m["backend"], m["staging"] = backend, staging
+    m["startup_s"] = [i["t_ready"] - t_spawn for i in res]
+    m["children_s"] = t_children
+    log(f"25: {world} processes x {per} shards of {layout[0][0]}: backend "
+        f"{backend}, staging {staging}; start-up (spawn to rendezvous, "
+        f"mesh, CUDA context and K1 loaded) "
+        f"{', '.join(f'{s:.2f}' for s in m['startup_s'])} s; the children "
+        f"{t_children:.2f} s in all ({card})")
+
+    # (a) the one-process step on the same shards and draws
+    card_k1 = int(dev.type == "cuda")
+    ref_k1 = {}
+    step = make_sharded_step(mesh, n)
+    shards = shard_edge_state(fresh, mesh)
+    gen = torch.Generator(device=mesh[0]).manual_seed(MP_SEED)
+    k0 = shaping.LAUNCHES["shape_step_rows"]
+    walls = []
+    for i, x in enumerate(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        shards, want_res, want_stats = step(
+            shards, x["rows"], x["props"], x["valid"], x["sizes"],
+            x["have"], x["t_arr"], gen)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        for r, o in enumerate(outs):
+            name = f"25(a) step {i} rank {r}"
+            same(o["step"]["results"][i], want_res[r * per:(r + 1) * per],
+                 f"{name} ShapeResult")
+            same(o["step"]["stats"][i], want_stats, f"{name} NodeStats")
+    ref_k1["step"] = shaping.LAUNCHES["shape_step_rows"] - k0
+    for r, o in enumerate(outs):
+        same(o["step"]["shards"], shards[r * per:(r + 1) * per],
+             f"25(a) rank {r}'s shards")
+    k1_a = sum(i["step"]["k1_launches"] for i in res)
+    check(k1_a == ref_k1["step"] == card_k1 * len(mesh) * SH_STEPS,
+          f"25(a): K1 {k1_a} launches in the children, {ref_k1['step']} in "
+          f"one process")
+    m["a"] = {"ms_per_step_children": [
+        statistics.median(i["step"]["ms_per_step"]) for i in res],
+        "ms_per_step_one_process": 1e3 * statistics.median(walls)}
+    log(f"25(a) sharded step across {world} processes: every rank's "
+        f"{per} shards, ShapeResults and NodeStats == one process on "
+        f"{len(mesh)} shards, bit for bit, {SH_STEPS} steps of a "
+        f"{SH_BATCH}-row scattered batch; NodeStats the same on every "
+        f"rank; K1 {k1_a} launches in the children == {ref_k1['step']}; ms "
+        f"per step {m['a']['ms_per_step_children']} across processes, "
+        f"{m['a']['ms_per_step_one_process']:.3f} in one ({card})")
+
+    # (b) the one-process router on the same shards and generators
+    rstep = prouter.make_sharded_router_step(
+        mesh, n, k_slots=SIM_K, k_fwd=ROUTED_K_FWD, budget=SR_BUDGET)
+    rshards = prouter.shard_router_state(router.init_router(
+        rs.sim.edges, rs.next_edge, n, q=SIM_Q, k_fwd=ROUTED_K_FWD), mesh)
+    gens = prouter.shard_generators(mesh, MP_SEED)
+    # fwd_dropped counts the exchange budget's overflow and the receiving
+    # lanes' (as run_routed does); the former, counted here, must be 0
+    bucket, over = prouter._bucket_by_shard, []
+
+    def counted(*args):
+        buf, dropped = bucket(*args)
+        over.append(dropped)
+        return buf, dropped
+
+    prouter._bucket_by_shard = counted
+    try:
+        k0 = shaping.LAUNCHES["shape_step_rows"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(SR_STEPS):
+            rshards = rstep(rshards, spec, flow_dst, gens, SIM_DT_US)
+        _sync(dev)
+        one_ms = 1e3 * (time.perf_counter() - t0) / SR_STEPS
+    finally:
+        prouter._bucket_by_shard = bucket
+    ref_k1["router"] = shaping.LAUNCHES["shape_step_rows"] - k0
+    for r, o in enumerate(outs):
+        same(o["router"]["shards"], rshards[r * per:(r + 1) * per],
+             f"25(b) rank {r}'s router shards")
+    whole = prouter.gather_router_state(rshards)
+    over_budget = float(sum(float(x) for x in over))
+    check(len(over) == SR_STEPS * len(mesh) and over_budget == 0 and all(
+        i["router"]["fwd_dropped"] == float(whole.fwd_dropped)
+        for i in res),
+          f"25(b): {over_budget} packets over the exchange budget; "
+          f"fwd_dropped {[i['router']['fwd_dropped'] for i in res]}")
+    k_shape = SIM_K + ROUTED_K_FWD
+    k1_b = sum(i["router"]["k1_launches"] for i in res)
+    check(k1_b == ref_k1["router"]
+          == card_k1 * len(mesh) * k_shape * SR_STEPS,
+          f"25(b): K1 {k1_b} launches in the children, {ref_k1['router']} "
+          f"in one process")
+    books = transit_books(whole, spec, SR_STEPS, "25(b) sharded router")
+    a2a = sum(i["router"]["a2a_bytes_per_step"] for i in res)
+    cross = sum(i["router"]["a2a_cross_process_bytes_per_step"]
+                for i in res)
+    m["b"] = dict(books=books, over_budget=over_budget,
+                  a2a_bytes_per_step=a2a,
+                  a2a_cross_process_bytes_per_step=cross,
+                  ms_per_step_children=[
+                      statistics.mean(i["router"]["ms_per_step"])
+                      for i in res],
+                  ms_per_step_one_process=one_ms)
+    log(f"25(b) sharded router across {world} processes, {SR_STEPS} steps x "
+        f"{k_shape} slots, budget {SR_BUDGET}: every rank's router shards "
+        f"== one process on {len(mesh)} shards, bit for bit (generators "
+        f"seeded by global shard); 0 packets over the budget, "
+        f"fwd_dropped {books['fwd_dropped']:.0f} by the receiving lanes "
+        f"on every rank (as run_routed counts them); K1 {k1_b} launches in "
+        f"the children == {ref_k1['router']}; {a2a} B through "
+        f"all_to_all_single a step ({cross} B across processes); ms per "
+        f"step {[round(x, 3) for x in m['b']['ms_per_step_children']]} "
+        f"across processes, {one_ms:.3f} in one ({card})")
+    m["phase_s"] = time.perf_counter() - t_phase
+    return m, k1_a + k1_b, ref_k1["step"] + ref_k1["router"]
+
+
+ALL_PHASES = tuple(range(1, 26))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
-NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22}
+NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22, 25}
 LIVE_TICK_PHASES = {6, 7, 8}   # one run of run_live_tick
 
 
@@ -9184,7 +9424,7 @@ def main(argv=None) -> int:
     if 22 in want:
         t0 = time.perf_counter()
         scale_m, scale_k1 = run_scale_phase(el, fresh, dev, card,
-                                            routed=keep.pop("routed", None))
+                                            routed=keep.get("routed"))
         k1_paths["sharded_step"] = scale_k1["sharded_step"]
         k1_paths["sharded_router"] = scale_k1["sharded_router"]
         k1_paths["ladder"] = k1_paths.get("ladder", 0) + scale_k1["rungs"]
@@ -9222,6 +9462,21 @@ def main(argv=None) -> int:
         detail["probes"] = probe_m
         _free_card(dev)
         clock("24", t0)
+    if 25 in want:
+        t0 = time.perf_counter()
+        mp_m, k1_paths["multiprocess"], k1_compare["multiprocess_one"] = \
+            run_multiprocess_phase(el, fresh, dev, card,
+                                   routed=keep.pop("routed", None))
+        log(f"25: phase {mp_m['phase_s']:.1f} s; K1 launches: "
+            f"{k1_paths['multiprocess']} in the children (+ "
+            f"{k1_compare['multiprocess_one']} by the one-process runs "
+            f"they are held against, not counted); backend "
+            f"{mp_m['backend']}")
+        check(k1_paths["multiprocess"] > 0,
+              "K1 never launched on the multiprocess path")
+        detail["multiprocess"] = mp_m
+        _free_card(dev)
+        clock("25", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)

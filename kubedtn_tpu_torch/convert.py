@@ -125,43 +125,54 @@ def tel_from_numpy(tel, device=None) -> torch.Tensor:
 
 def shard(x, mesh) -> list:
     """Split along the edge axis into len(mesh) contiguous blocks, block
-    s on mesh[s]: a tensor gives a list of tensors, a tuple of tensors
-    (the dynamic columns) a list of per-shard tuples, an EdgeState a
-    list of per-shard EdgeStates, any other dataclass of [E, ...]
-    tensors (an InFlight, a TrafficSpec) a list of its blocks."""
-    from kubedtn_tpu_torch.parallel.mesh import shard_edge_state
+    s on shard s's device, one for each shard this process holds (every
+    shard of a one-process mesh): a tensor gives a list of tensors, a
+    tuple of tensors (the dynamic columns) a list of per-shard tuples, an
+    EdgeState a list of per-shard EdgeStates, any other dataclass of
+    [E, ...] tensors (an InFlight, a TrafficSpec) a list of its blocks."""
+    from kubedtn_tpu_torch.parallel.mesh import (local_shards,
+                                                 shard_edge_state)
 
     if isinstance(x, es.EdgeState):
         return shard_edge_state(x, mesh)
+    local = local_shards(mesh)
     if dataclasses.is_dataclass(x):
         parts = {f.name: shard(getattr(x, f.name), mesh)
                  for f in dataclasses.fields(x)}
-        return [type(x)(**{k: v[s] for k, v in parts.items()})
-                for s in range(len(mesh))]
+        return [type(x)(**{k: v[i] for k, v in parts.items()})
+                for i in range(len(local))]
     if isinstance(x, torch.Tensor):
         n = len(mesh)
         if x.shape[0] % n:
             raise ValueError(f"{x.shape[0]} rows not divisible by {n} "
                              "shards")
-        return [b.to(d, copy=True)
-                for b, d in zip(x.split(x.shape[0] // n), mesh)]
+        blocks = x.split(x.shape[0] // n)
+        return [blocks[s].to(d, copy=True) for s, d in local]
     fields = [shard(f, mesh) for f in x]
-    return [tuple(f[s] for f in fields) for s in range(len(mesh))]
+    return [tuple(f[i] for f in fields) for i in range(len(local))]
 
 
-def unshard(blocks, device=None):
+def unshard(blocks, device=None, mesh=None):
     """The inverse of `shard`: blocks joined on `device` (None = the
     device of block 0). A dataclass of [E, ...] tensors (an EdgeState, a
-    ShapeResult) is joined field by field."""
+    ShapeResult) is joined field by field. With a multi-process `mesh`
+    the blocks are this process's shards and the call is a collective:
+    every rank's blocks are gathered (mesh.gather_shards), and every rank
+    gets the whole."""
+    from kubedtn_tpu_torch.parallel.mesh import gather_shards
+
     first = blocks[0]
     if dataclasses.is_dataclass(first):
         return type(first)(**{
-            f.name: unshard([getattr(b, f.name) for b in blocks], device)
+            f.name: unshard([getattr(b, f.name) for b in blocks], device,
+                            mesh)
             for f in dataclasses.fields(first)})
     if isinstance(first, torch.Tensor):
-        dev = first.device if device is None else torch.device(device)
+        if mesh is not None:
+            blocks = gather_shards(mesh, blocks)
+        dev = blocks[0].device if device is None else torch.device(device)
         return torch.cat([b.to(dev) for b in blocks])
-    return tuple(unshard([b[i] for b in blocks], device)
+    return tuple(unshard([b[i] for b in blocks], device, mesh)
                  for i in range(len(first)))
 
 

@@ -40,6 +40,14 @@ Random inputs: the JAX step folds the shard index into its key, so each
 shard draws on its own. Here `draws` gives each shard's StepDraws (of
 E/S rows), or each shard draws from its own torch.Generator
 (`shard_generators`).
+
+Over a multi-process mesh (mesh.MultihostMesh) a process holds and steps
+only its own shards. The all-to-all crosses processes in one
+all_to_all_single (mesh.all_to_all_shards), each receiving shard
+reassembling its blocks in global shard order; the drop counts and the
+node rx counters are all-gathered and summed in global shard order, so
+they are the same on every rank; the replicated leaves are kept once per
+distinct device of this process.
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ import torch
 from kubedtn_tpu_torch.convert import shard, unshard
 from kubedtn_tpu_torch.models.traffic import TrafficSpec, generate
 from kubedtn_tpu_torch.ops.queues import shape_packets
+from kubedtn_tpu_torch.parallel.mesh import (MultihostMesh,
+                                             all_to_all_shards, as_mesh,
+                                             check_local, gather_shards,
+                                             local_shards, replicated)
 from kubedtn_tpu_torch.parallel.partition import shard_ranges
 from kubedtn_tpu_torch.parallel.sharded import cross_shard_sum
 from kubedtn_tpu_torch.router import (RouterState, _group_into_lanes,
@@ -71,21 +83,23 @@ _REPLICATED = ("next_edge", "node_rx_packets", "node_rx_bytes",
 
 
 def _per_device(x, mesh) -> dict:
-    """{device: a copy of x on it}, one per distinct device of `mesh`."""
-    return {dev: x.to(dev, copy=True) for dev in dict.fromkeys(mesh)}
+    """{device: a copy of x on it}, one per distinct device of this
+    process's shards of `mesh`."""
+    return {dev: x.to(dev, copy=True) for dev in replicated(mesh)}
 
 
 def shard_router_state(rs: RouterState, mesh) -> list[RouterState]:
     """Place a RouterState onto `mesh` as the sharded step takes it: a
-    list of per-shard RouterStates, the per-edge leaves split into
-    len(mesh) contiguous blocks (new tensors), the replicated leaves
-    copied once per distinct device. The capacity must split evenly.
-    The sharded router forwards single-path tables only."""
+    list of per-shard RouterStates, one for each shard this process
+    holds, the per-edge leaves split into len(mesh) contiguous blocks
+    (new tensors), the replicated leaves copied once per distinct device.
+    The capacity must split evenly. The sharded router forwards
+    single-path tables only."""
     if rs.next_edge.dim() != 2:
         raise AssertionError(
             "sharded router forwards single-path tables; build ECMP groups "
             "with recompute_routes_ecmp for the local router only")
-    mesh = tuple(mesh)
+    mesh = as_mesh(mesh)
     shard_ranges(rs.sim.edges.capacity, len(mesh))  # an even split
     sim_parts = {k: shard(getattr(rs.sim, k), mesh)
                  for k in _SIM_EDGE_LEAVES}
@@ -93,46 +107,49 @@ def shard_router_state(rs: RouterState, mesh) -> list[RouterState]:
     rep = {k: _per_device(getattr(rs, k), mesh) for k in _REPLICATED}
     clock = _per_device(rs.sim.clock_us, mesh)
     return [RouterState(
-        sim=SimState(**{k: v[s] for k, v in sim_parts.items()},
+        sim=SimState(**{k: v[i] for k, v in sim_parts.items()},
                      clock_us=clock[dev]),
-        **{k: v[s] for k, v in edge_parts.items()},
+        **{k: v[i] for k, v in edge_parts.items()},
         **{k: v[dev] for k, v in rep.items()})
-        for s, dev in enumerate(mesh)]
+        for i, (_, dev) in enumerate(local_shards(mesh))]
 
 
-def gather_router_state(shards, device=None) -> RouterState:
+def gather_router_state(shards, device=None, mesh=None) -> RouterState:
     """The sharded state joined back into one RouterState on `device`
     (None = shard 0's device): per-edge leaves concatenated in shard
-    order, replicated leaves from shard 0."""
+    order, replicated leaves from shard 0. With a multi-process `mesh`,
+    `shards` are this process's and the call is a collective: every
+    rank gets the whole state."""
     dev = shards[0].sim.edges.device if device is None else \
         torch.device(device)
     sims = [rs.sim for rs in shards]
-    sim = SimState(**{k: unshard([getattr(x, k) for x in sims], dev)
+    sim = SimState(**{k: unshard([getattr(x, k) for x in sims], dev, mesh)
                       for k in _SIM_EDGE_LEAVES},
                    clock_us=sims[0].clock_us.to(dev))
     return RouterState(
         sim=sim,
-        **{k: unshard([getattr(rs, k) for rs in shards], dev)
+        **{k: unshard([getattr(rs, k) for rs in shards], dev, mesh)
            for k in _EDGE_LEAVES},
         **{k: getattr(shards[0], k).to(dev) for k in _REPLICATED})
 
 
 def shard_generators(mesh, seed: int) -> list:
-    """One torch.Generator per shard: shard s's on mesh[s], seeded with
-    seed * 65536 + s."""
+    """One torch.Generator for each shard this process holds: shard s's
+    on its device, seeded with seed * 65536 + s (s its global index)."""
     return [torch.Generator(device=dev).manual_seed(seed * 65536 + s)
-            for s, dev in enumerate(mesh)]
+            for s, dev in local_shards(mesh)]
 
 
 def shard_draws(draws: StepDraws, mesh) -> list:
     """One step's unsharded draws (traffic [E] / [E, K], shaping
-    uniforms [K, E, NU]) as per-shard StepDraws of E/S rows, block s on
-    mesh[s]: the sharded step then draws what the unsharded one does."""
+    uniforms [K, E, NU]) as per-shard StepDraws of E/S rows, one for
+    each shard this process holds, on its device: the sharded step then
+    draws what the unsharded one does."""
     ranges = shard_ranges(draws.shape_u.shape[1], len(mesh))
     traffic = shard(draws.traffic, mesh)
-    return [StepDraws(traffic=t,
-                      shape_u=draws.shape_u[:, lo:hi].to(dev).contiguous())
-            for t, (lo, hi), dev in zip(traffic, ranges, mesh)]
+    return [StepDraws(traffic=t, shape_u=draws.shape_u[
+        :, ranges[s][0]:ranges[s][1]].to(dev).contiguous())
+            for t, (s, dev) in zip(traffic, local_shards(mesh))]
 
 
 def _bucket_by_shard(shard_of, lrow, size, fdst, corr, live,
@@ -168,8 +185,11 @@ def _bucket_by_shard(shard_of, lrow, size, fdst, corr, live,
 
 def all_to_all(sends: list, mesh) -> list:
     """Shard d receives [S * budget, 4]: send[s][d] for s = 0..S-1, in
-    shard order. One copy per (source card, destination card) pair; on
-    one card a stack and a transpose."""
+    shard order; `sends` and the result hold this process's shards. One
+    copy per (source card, destination card) pair; on one card a stack
+    and a transpose; across processes one all_to_all_single."""
+    if isinstance(mesh, MultihostMesh):
+        return [r.reshape(-1, 4) for r in all_to_all_shards(mesh, sends)]
     mesh = tuple(mesh)
     S = len(mesh)
     by_card: dict = {}
@@ -188,30 +208,25 @@ def all_to_all(sends: list, mesh) -> list:
     return recv
 
 
-def _sum_replicated(partials: list, mesh) -> dict:
-    """The cross-shard total of exact int64 partials rounded to f32 once,
-    on mesh[0] and copied to every other distinct device."""
-    total = fixed_to_f32(cross_shard_sum(partials, mesh[0]))
-    return {dev: total.to(dev) for dev in dict.fromkeys(mesh)}
-
-
 def make_sharded_router_step(mesh, n_nodes: int, k_slots: int = 4,
                              k_fwd: int = 8, budget: int | None = None):
     """The sharded router step over `mesh`.
 
     Returns step(shards, spec, flow_dst, generators, dt_us, *, draws=None,
     shape_fn=shape_packets) -> shards'. `shards` is the list of
-    `shard_router_state` (not modified); `spec` and `flow_dst` are the
-    [E] traffic spec and flow destinations by global row (shard s reads
-    its rows); `generators` one per shard (`shard_generators`), unless
-    `draws` gives each shard's StepDraws of E/S rows (shape_u with
-    k_slots + k_fwd slots). `budget` bounds each (source, destination)
-    pair's transit packets a step (default max(8 k_fwd, 16), as JAX's);
-    what exceeds it is counted in fwd_dropped. `shape_fn` is
-    queues.shape_packets (K1 per slot on the card) or
-    queues.shape_packets_plain."""
-    mesh = tuple(mesh)
+    `shard_router_state`, this process's shards (not modified); `spec`
+    and `flow_dst` are the [E] traffic spec and flow destinations by
+    global row (shard s reads its rows); `generators` one per shard
+    (`shard_generators`), unless `draws` gives each shard's StepDraws of
+    E/S rows (shape_u with k_slots + k_fwd slots). `budget` bounds each
+    (source, destination) pair's transit packets a step (default
+    max(8 k_fwd, 16), as JAX's); what exceeds it is counted in
+    fwd_dropped. `shape_fn` is queues.shape_packets (K1 per slot on the
+    card) or queues.shape_packets_plain."""
+    mesh = as_mesh(mesh)
     S = len(mesh)
+    local_ = local_shards(mesh)
+    home = local_[0][1]
     if budget is None:
         budget = max(k_fwd * 8, 16)
     if n_nodes >= EXACT_F32_INT:
@@ -242,8 +257,7 @@ def make_sharded_router_step(mesh, n_nodes: int, k_slots: int = 4,
 
     def step(shards, spec: TrafficSpec, flow_dst, generators, dt_us, *,
              draws=None, shape_fn=shape_packets):
-        if len(shards) != S:
-            raise ValueError(f"{len(shards)} shards for a mesh of {S}")
+        check_local(mesh, len(shards), "shards")
         E_loc = shards[0].sim.edges.capacity
         if E_loc >= EXACT_F32_INT:
             raise ValueError(f"{E_loc} rows a shard: the f32 packing of "
@@ -252,22 +266,23 @@ def make_sharded_router_step(mesh, n_nodes: int, k_slots: int = 4,
         if draws is None and generators is None:
             raise ValueError("the sharded router needs generators or draws")
         locs = []
-        for s, (rs, (lo, hi), dev) in enumerate(zip(shards, ranges, mesh)):
+        for i, (rs, (s, dev)) in enumerate(zip(shards, local_)):
             if rs.sim.edges.device != dev or rs.sim.edges.capacity != E_loc:
                 raise ValueError(f"shard {s} is {rs.sim.edges.capacity} "
                                  f"rows on {rs.sim.edges.device}, want "
                                  f"{E_loc} on {dev}")
+            lo, hi = ranges[s]
             spec_s = TrafficSpec(**{
                 f.name: getattr(spec, f.name)[lo:hi].to(dev)
                 for f in dataclasses.fields(TrafficSpec)})
             locs.append(local(
                 rs, spec_s, torch.as_tensor(flow_dst)[lo:hi].to(dev, I32),
-                None if generators is None else generators[s],
+                None if generators is None else generators[i],
                 torch.as_tensor(dt_us, dtype=F32, device=dev),
-                None if draws is None else draws[s], shape_fn))
+                None if draws is None else draws[i], shape_fn))
         # THE collective: one all-to-all replaces the per-packet RPC
         recv = all_to_all([x[1] for x in locs], mesh)
-        out, drops, no_routes = [], [], []
+        out, counts = [], []
         for (h, _, drop_tx, no_route), r in zip(locs, recv):
             r_row = r[:, 0].to(I32)
             r_live = r_row >= 0
@@ -276,27 +291,30 @@ def make_sharded_router_step(mesh, n_nodes: int, k_slots: int = 4,
                 r[:, 2].to(I32), r[:, 3] > 0.5, r_live, E_loc, k_fwd)
             out.append((h.sim, torch.where(p_ok, p_sz, 0.0),
                         torch.where(p_ok, p_dst, -1), p_co & p_ok))
-            drops.append(drop_tx + drop_rx)
-            no_routes.append(no_route)
-        rx_p = _sum_replicated([x[0].rx_p_fixed() for x in locs], mesh)
-        rx_b = _sum_replicated([x[0].rx_b_fixed() for x in locs], mesh)
-        # whole counts, exact in f32: their sum in shard order
-        fwd = cross_shard_sum(drops, mesh[0])
-        nr = cross_shard_sum(no_routes, mesh[0])
+            counts.append(torch.stack([drop_tx + drop_rx, no_route]))
+        # the node rx counters: exact int64 partials added in shard order
+        # and rounded once; the drops, whole counts exact in f32, summed
+        # in shard order
+        rx = fixed_to_f32(cross_shard_sum(gather_shards(mesh, [
+            torch.stack([x[0].rx_p_fixed(), x[0].rx_b_fixed()])
+            for x in locs]), home))
+        fwd, nr = cross_shard_sum(gather_shards(mesh, counts), home)
+        first = {}
+        for rs, (_, dev) in zip(shards, local_):
+            first.setdefault(dev, rs)
         rep, clock = {}, {}
-        for dev in dict.fromkeys(mesh):
-            rs0 = shards[mesh.index(dev)]
+        for dev, rs0 in first.items():
             clock[dev] = rs0.sim.clock_us + torch.as_tensor(
                 dt_us, dtype=F32, device=dev)
             rep[dev] = dict(
                 next_edge=rs0.next_edge,
-                node_rx_packets=rs0.node_rx_packets + rx_p[dev],
-                node_rx_bytes=rs0.node_rx_bytes + rx_b[dev],
+                node_rx_packets=rs0.node_rx_packets + rx[0].to(dev),
+                node_rx_bytes=rs0.node_rx_bytes + rx[1].to(dev),
                 fwd_dropped=rs0.fwd_dropped + fwd.to(dev),
                 no_route_dropped=rs0.no_route_dropped + nr.to(dev))
         return [RouterState(
             sim=dataclasses.replace(sim2, clock_us=clock[dev]),
             pend_size=ps, pend_dst=pd, pend_corr=pc, **rep[dev])
-            for (sim2, ps, pd, pc), dev in zip(out, mesh)]
+            for (sim2, ps, pd, pc), (_, dev) in zip(out, local_)]
 
     return step

@@ -25,6 +25,13 @@ and virtual shards of one card run the very program that cards would.
   rounded to f32 once. Integer adds commute, so the sharded counters are
   the unsharded ones bit for bit at any size and on every run (the JAX
   package's f32 psum agrees while sums stay below 2^24).
+
+Over a multi-process mesh (mesh.MultihostMesh) a process passes and gets
+back only its own shards; the UpdateLinks batch and the [E] inputs stay
+by global row, as every process builds the same topology. The int64
+partials are all-gathered (mesh.gather_shards) and added in global shard
+order, so NodeStats is the same on every rank and the one-process step's
+on the same shards, bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch
 
 from kubedtn_tpu_torch.ops import edge_state as es
 from kubedtn_tpu_torch.ops import netem
+from kubedtn_tpu_torch.parallel.mesh import (as_mesh, check_local,
+                                             gather_shards, local_shards)
 from kubedtn_tpu_torch.parallel.partition import shard_ranges
 from kubedtn_tpu_torch.router import fixed_to_f32, node_sums_fixed
 
@@ -66,31 +75,31 @@ def cross_shard_sum(partials: list, device) -> torch.Tensor:
 
 def make_node_stats_fn(mesh, n_nodes: int):
     """The per-node counter reduction over `mesh`: stats(srcs, dsts,
-    delivereds, sizes, droppeds) takes per-shard lists ([E/S] each, block
-    s on mesh[s]) and returns NodeStats on mesh[0]'s device. A mesh of
-    one device gives the unsharded counters."""
-    mesh = tuple(mesh)
+    delivereds, sizes, droppeds) takes per-shard lists ([E/S] each, one
+    block per shard this process holds, on its device) and returns
+    NodeStats on the first such device. A mesh of one device gives the
+    unsharded counters."""
+    mesh = as_mesh(mesh)
+    home = local_shards(mesh)[0][1]
 
     def stats(srcs, dsts, delivereds, sizes, droppeds) -> NodeStats:
         for name, xs in (("srcs", srcs), ("dsts", dsts),
                          ("delivereds", delivereds), ("sizes", sizes),
                          ("droppeds", droppeds)):
-            if len(xs) != len(mesh):
-                raise ValueError(f"{len(xs)} blocks of {name} for a mesh of "
-                                 f"{len(mesh)}")
-        parts = {f.name: [] for f in dataclasses.fields(NodeStats)}
+            check_local(mesh, len(xs), f"blocks of {name}")
+        parts = []   # per shard: int64 [5, n_nodes] in NodeStats' order
         for src, dst, deliv, sz, drop in zip(srcs, dsts, delivereds, sizes,
                                              droppeds):
             deliv_p = deliv.to(F32)
             deliv_b = torch.where(deliv, sz, 0.0)
-            for name, values, node in (
-                    ("tx_packets", deliv_p, src), ("tx_bytes", deliv_b, src),
-                    ("rx_packets", deliv_p, dst), ("rx_bytes", deliv_b, dst),
-                    ("dropped", drop.to(F32), src)):
-                parts[name].append(node_sums_fixed(values, node, n_nodes))
-        return NodeStats(**{
-            name: fixed_to_f32(cross_shard_sum(p, mesh[0]))
-            for name, p in parts.items()})
+            parts.append(torch.stack([
+                node_sums_fixed(values, node, n_nodes)
+                for values, node in ((deliv_p, src), (deliv_b, src),
+                                     (deliv_p, dst), (deliv_b, dst),
+                                     (drop.to(F32), src))]))
+        total = fixed_to_f32(cross_shard_sum(gather_shards(mesh, parts),
+                                             home))
+        return NodeStats(*total.unbind(0))
 
     return stats
 
@@ -109,18 +118,20 @@ def _batch_for_shard(urows, uvalid, lo: int, hi: int):
 
 
 def _check_shards(shards, mesh) -> list:
-    if len(shards) != len(mesh):
-        raise ValueError(f"{len(shards)} shards for a mesh of {len(mesh)}")
-    E = sum(st.capacity for st in shards)
+    """The [lo, hi) row range of each of `shards`, which must be this
+    process's shards of `mesh`, of one capacity, each on its device."""
+    check_local(mesh, len(shards), "shards")
+    E = shards[0].capacity * len(mesh)
     ranges = shard_ranges(E, len(mesh))
-    for s, (st, (lo, hi), dev) in enumerate(zip(shards, ranges, mesh)):
+    for st, (s, dev) in zip(shards, local_shards(mesh)):
+        lo, hi = ranges[s]
         if st.capacity != hi - lo:
             raise ValueError(f"shard {s} holds {st.capacity} rows, want "
                              f"{hi - lo}")
         if st.device != dev:
             raise ValueError(f"shard {s} lies on {st.device}, its mesh "
                              f"device is {dev}")
-    return ranges
+    return [ranges[s] for s, _ in local_shards(mesh)]
 
 
 def make_sharded_step(mesh, n_nodes: int):
@@ -128,34 +139,40 @@ def make_sharded_step(mesh, n_nodes: int):
 
     Returns step(shards, urows, uprops, uvalid, sizes, have, t_arr,
     generator=None, *, u=None) -> (shards', [ShapeResult per shard],
-    NodeStats). `shards` is a list of per-shard EdgeStates (block s on
-    mesh[s]) and is DONATED: each block is updated in place, as
+    NodeStats). `shards` is the list of this process's per-shard
+    EdgeStates (every shard of a one-process mesh, block s on its
+    device) and is DONATED: each block is updated in place, as
     netem.shape_step_auto donates its state. `urows` / `uprops` /
     `uvalid` are one UpdateLinks batch by global row; `sizes`, `have`
     and `t_arr` are the [E] inputs of shape_step by global row. The
-    step's [E, NU] uniforms are drawn once, unsharded, from `generator`
-    (on mesh[0]'s device) unless given as `u`, and shard s shapes with
-    rows [lo, hi) of them: the same draws the unsharded step takes."""
+    step's [E, NU] uniforms are drawn once, whole, from `generator` (on
+    the process's first shard device) unless given as `u`, and shard s
+    shapes with rows [lo, hi) of them: the same draws the unsharded step
+    takes. Across processes every rank draws the whole array from the
+    same seeded generator, and the draws agree only between like
+    devices (CPU with CPU, card with card)."""
     from kubedtn_tpu_torch.ops.cuda import shaping
 
-    mesh = tuple(mesh)
+    mesh = as_mesh(mesh)
     stats_fn = make_node_stats_fn(mesh, n_nodes)
+    home = local_shards(mesh)[0][1]
 
     def step(shards, urows, uprops, uvalid, sizes, have, t_arr,
              generator=None, *, u=None):
         ranges = _check_shards(shards, mesh)
-        E = ranges[-1][1]
+        E = shards[0].capacity * len(mesh)
         if u is None:
             if generator is None:
                 raise ValueError("the sharded step needs a generator or "
                                  "the draws u")
             u = torch.rand((E, netem.NU), generator=generator, dtype=F32,
-                           device=mesh[0])
+                           device=home)
         elif tuple(u.shape) != (E, netem.NU):
             raise ValueError(f"u has shape {tuple(u.shape)}, expected "
                              f"{(E, netem.NU)}")
         out, results, sizes_s = [], [], []
-        for st, (lo, hi), dev in zip(shards, ranges, mesh):
+        for st, (lo, hi) in zip(shards, ranges):
+            dev = st.device
             rows, valid = _batch_for_shard(urows, uvalid, lo, hi)
             st = es.update_links(st, rows, uprops, valid)
             sz = sizes[lo:hi].to(dev)

@@ -1598,6 +1598,15 @@ class WireDataPlane:
         return self._remote.dropped
 
     @property
+    def flow_stats(self) -> dict:
+        """The TCP/IP bypass flow table's counts, under the JAX plane's
+        keys; "available" is always true, since the port requires the
+        native table."""
+        ft = self._flowtable
+        return {"available": True, "flows": len(ft),
+                "bypassed": ft.bypassed, "passed": ft.passed}
+
+    @property
     def running(self) -> bool:
         """True while the real-time runner thread is alive."""
         return self._thread is not None and self._thread.is_alive()

@@ -1365,6 +1365,66 @@ def test_scale_phase_on_the_card_at_a_small_clos(dev, monkeypatch):
     assert m["b"]["overflow"]["fwd_dropped"] > 0
 
 
+def _routed_small_clos(dev, cs):
+    """An 8 x 40 Clos (1,280 rows in 2,048) on `dev`, churned, and its
+    routed fabric as chip_smoke builds phase 11's."""
+    from kubedtn_tpu_torch import entry
+    from kubedtn_tpu_torch.api.types import LinkProperties
+    from kubedtn_tpu_torch.models.topologies import (
+        clos, load_edge_list_into_state, random_link_props)
+
+    el = clos(8, 40, 0, props=LinkProperties(latency="10ms",
+                                              rate="10Gbit"),
+              links_per_pair=2)
+    state, _ = load_edge_list_into_state(el, device=dev)
+    n = 2 * el.n_links
+    es.update_links(state, np.arange(n, dtype=np.int32),
+                    random_link_props(n, 1), np.ones(n, bool),
+                    contiguous=True)
+    routed = entry.build_routed(
+        el, state, np.arange(8, el.n_nodes), seed=31,
+        rate_bps=cs.ROUTED_RATE_BPS, q=cs.SIM_Q, k_fwd=cs.ROUTED_K_FWD,
+        max_hops=cs.ROUTE_HOPS)[:3]
+    return el, state, routed
+
+
+def test_two_processes_share_the_card_over_gloo(dev, monkeypatch):
+    """chip_smoke.py's phase 25 at a small Clos: two processes, each
+    with 2 virtual shards of the card, over gloo staged through pinned
+    host memory; the sharded step and the sharded router == one
+    process's on the same 4 shards, bit for bit, and the children
+    launch K1 exactly as often as one process does."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "SH_BATCH", 200)
+    monkeypatch.setattr(cs, "SR_BUDGET", 1 << 12)
+    el, state, routed = _routed_small_clos(dev, cs)
+    m, k1, k1_one = cs.run_multiprocess_phase(el, state, dev, "test",
+                                              routed=routed)
+    assert (m["backend"], m["staging"]) == ("gloo", "pinned-host")
+    assert k1 == k1_one == 4 * cs.SH_STEPS + 4 * 12 * cs.SR_STEPS
+
+
+def test_one_card_per_rank_runs_over_nccl(dev, monkeypatch):
+    """Two processes, one card each: the layout picks NCCL, and the
+    sharded step and router == one process's mesh over the same two
+    cards, bit for bit."""
+    import chip_smoke as cs
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card per "
+                    "rank, and two ranks on one card run over gloo")
+    monkeypatch.setattr(cs, "SH_BATCH", 200)
+    monkeypatch.setattr(cs, "SR_BUDGET", 1 << 12)
+    cuda0 = torch.device("cuda", 0)
+    el, state, routed = _routed_small_clos(cuda0, cs)
+    m, k1, k1_one = cs.run_multiprocess_phase(
+        el, state, cuda0, "test", routed=routed,
+        layout=[["cuda:0"], ["cuda:1"]])
+    assert (m["backend"], m["staging"]) == ("nccl", None)
+    assert k1 == k1_one == 2 * cs.SH_STEPS + 2 * 12 * cs.SR_STEPS
+
+
 def test_dryrun_multichip_on_the_card(dev, capsys):
     from kubedtn_tpu_torch import entry
     from kubedtn_tpu_torch.ops.cuda import shaping

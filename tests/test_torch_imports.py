@@ -99,6 +99,8 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.cni",
     # the scale path: the edge-sharded step and the sharded router
     "kubedtn_tpu_torch.parallel.sharded", "kubedtn_tpu_torch.parallel.router",
+    # the scale path across processes: its worker and spawner
+    "kubedtn_tpu_torch.parallel.multihost",
 )
 
 # the fleet supervisor's surfaces: (module, attribute path)
@@ -153,7 +155,8 @@ def test_import_loads_no_jax_in_a_fresh_process():
 
 
 @pytest.mark.parametrize("module", ["kubedtn_tpu_torch.parallel.sharded",
-                                    "kubedtn_tpu_torch.parallel.router"])
+                                    "kubedtn_tpu_torch.parallel.router",
+                                    "kubedtn_tpu_torch.parallel.multihost"])
 def test_scale_path_module_alone_loads_no_jax(module):
     """The sharded step and the sharded router imported on their own in
     a fresh process (with entry.dryrun_multichip run on 2 CPU shards):

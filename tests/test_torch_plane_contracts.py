@@ -239,6 +239,37 @@ def test_bypass_same_node_unshaped_tcp():
     assert stats["TCP"] == 10
 
 
+def test_flow_stats_match_jax_through_the_bypass():
+    """tests/test_runtime.py's bypass sequence on an unshaped link: the
+    first TCP message takes the shaped path, the next one bypasses in
+    the same tick; WireDataPlane.flow_stats == the JAX plane's dict after
+    each tick, and after the flow is disabled by a shaped crossing."""
+    import struct
+
+    eth = b"\x02" * 6 + b"\x04" * 6 + b"\x08\x00"
+    ip = struct.pack(">BBHHHBBHII", 0x45, 0, 40, 7, 0, 64, 6, 0,
+                     0x0A000001, 0x0A000002)
+    f = eth + ip + struct.pack(">HHIIBBHHH", 40000, 5201, 1, 0, 0x50, 0x18,
+                               8192, 0, 0)
+    res = {}
+    for pkg in ("jax", "torch"):
+        sc = build(pkg, [dict()])
+        seen = [sc.plane.flow_stats]
+        for t in (10.0, 10.001):
+            sc.win[0].ingress.append(f)
+            sc.plane.tick(now_s=t)
+            seen.append(sc.plane.flow_stats)
+        row = sc.engine.row_of("default/a0", 1)
+        sc.plane._try_bypass(row, f, ("default/b0", 1), {row})
+        seen.append(sc.plane.flow_stats)
+        res[pkg] = (seen, sc.plane.bypassed)
+    assert res["torch"] == res["jax"]
+    seen, bypassed = res["torch"]
+    assert bypassed == 1 and seen[2]["bypassed"] == 1
+    assert seen[0] == {"available": True, "flows": 0, "bypassed": 0,
+                       "passed": 0}
+
+
 def test_try_bypass_per_frame_matches_jax():
     """The per-frame bypass verdict (the batched decision's per-frame
     form): a same-node TCP frame over an unshaped row bypasses, over a
