@@ -507,6 +507,20 @@ Phases, each fatal on failure:
      ms per step against one process, bytes through the all-to-all a
      step. A child that fails or outlives 300 s fails the phase, its
      sibling killed.
+ 26. the dispatch probe (kubedtn_tpu_torch/analysis/verify/dispatch.py)
+     on dtnlint's canonical probe plane (one link pair per kernel class,
+     capacity 16, telemetry on; 8 frames a wire and tick on all three
+     classes, 2 warm-up ticks, 1 counted, 8 idle): per counted tick (a)
+     the calls into the hand-written-kernel wrappers by kernel, (b) the
+     kernels' launch counters, (c) the CUDA kernels torch.profiler saw,
+     (d) the host syncs `_dispatch` issued under
+     torch.cuda.set_sync_debug_mode("warn"), each at the innermost frame
+     of the package; (a) == (b) by kernel, every sync site under a
+     `sync-ok` waiver of the static sync pass. (a) at depths 1 and 2,
+     unsharded: delivered frames and counters equal across the depths;
+     (b) on 4 virtual shards of the card at depth 1: K4's wrapper calls
+     == its launches == the count the same probe gives on the CPU, frames
+     and counters == (a)'s unsharded ones.
 
 `--daemon-rate` (never in the default run; e.g. `--phases 20
 --daemon-rate`) then measures the daemon process's shaping rate under a
@@ -518,10 +532,11 @@ The line before the last lists the kernels with their launches by path
 with chaos_flaps, its soaks path from 23(d) and (e), its whatif path
 from 24(d), with 24(d)'s replay under compare_launches, its multiprocess
 path from phase 25's children, with the one-process runs they are held
-against under compare_launches; K4's probe path,
-the sharded planes' exchange probes, and its sharded_soak path from
-24(e)), errors, times and bounds (with --phases, the kernels whose checks ran:
-K1-K3 with phase 4, K4 with phase 9); the last line is {"ok": true, "device":
+against under compare_launches; K4's probe path, the sharded planes'
+exchange probes, its sharded_soak path from 24(e), and its
+dispatch_probe path from 26(b)), errors, times and bounds (with
+--phases, the kernels whose checks ran: K1-K3 with phase 4, K4 with
+phase 9); the last line is {"ok": true, "device":
 {...}}. It exits non-zero, printing neither, when there is no CUDA
 device or the package is missing.
 """
@@ -532,11 +547,13 @@ import dataclasses
 import inspect
 import json
 import logging
+import os
 import re
 import statistics
 import sys
 import threading
 import time
+import traceback
 import types
 
 import numpy as np
@@ -2133,15 +2150,15 @@ XN_TICKS = 3                # full-feed ticks (phase 12's feed; 10 there:
 #                             until phase 14 joined, 6 until phase 15
 #                             did, 4 until phase 17 did: 3 keep the
 #                             script in its time budget)
-XN_EQ_TICKS = 16            # equality-feed ticks, 1 frame per wire: each
-#                             first failure under the flap opens the
-#                             breaker with probability ~1/4 (two more
-#                             attempts land in a down half); 16 ticks
-#                             gave one open on the card, 24 gave 12
-#                             (PERF.md); cut from 32 to keep the script,
-#                             phase 14 included, near 600 s, from 24
-#                             when phase 15 joined, from 20 when phase 17
-#                             did (12 opens in 20 ticks, PERF.md)
+XN_EQ_TICKS = 16            # equality-feed ticks, 1 frame per wire;
+#                             cut from 32 to keep the script, phase 14
+#                             included, near 600 s, from 24 when phase
+#                             15 joined, from 20 when phase 17 did. The
+#                             flap run opens A's breaker by an outage of
+#                             B first: under the flap alone each first
+#                             failure opened it with probability ~1/4
+#                             and a run on the card saw 0 opens in 23
+#                             retries (PERF.md)
 XN_REF_TICKS = 4            # the reference-peer round's ticks: the
 #                             per-frame stream moved ~2,000 frames/s
 #                             with both daemons in one interpreter (NVIDIA
@@ -2430,9 +2447,16 @@ def xn_run(a, nb, addr_b, keys, win, state0, seed: int, depth: int,
     plane.pipeline_explicit_clock = True
     if telemetry:
         plane.enable_telemetry(window_s=3600.0, sample_period=1024)
+    # under `chaos`, B is down from the start until A's breaker has
+    # opened (read after each tick), then flaps: a flap alone opens the
+    # breaker only when three attempts in a row land in down halves,
+    # which the wall clock's phase and the backoff's jitter decide
+    # (tests/test_torch_breaker_flap.py)
+    outage = chaos is not None
+    outage_ticks = 0
     if chaos is not None:
         plane.attach_chaos(chaos)
-        chaos.flap_peer(addr_b, *XN_FLAP)
+        chaos.blackhole_peer(addr_b)
     errors0 = a["daemon"].forward_errors
     unresolved0 = nb("bulk_unresolved")
     # staged frames = what the remote stage hands the per-peer senders
@@ -2446,6 +2470,15 @@ def xn_run(a, nb, addr_b, keys, win, state0, seed: int, depth: int,
     runtime._PeerSender.enqueue = counting
     rng = np.random.default_rng(seed)
     fed, walls = 0, []
+
+    def end_outage() -> None:
+        nonlocal outage, outage_ticks
+        outage_ticks += 1
+        if plane.peer_fault_stats().get(addr_b, {}).get("opens", 0):
+            chaos.heal_peer(addr_b)
+            chaos.flap_peer(addr_b, *XN_FLAP)
+            outage = False
+
     try:
         t_start = time.perf_counter()
         t = 0
@@ -2456,9 +2489,13 @@ def xn_run(a, nb, addr_b, keys, win, state0, seed: int, depth: int,
             if engine.device.type == "cuda":
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - w0)
+            if outage:
+                end_outage()
         for _ in range(PLANE_DRAIN_TICKS):
             t += 1
             plane.tick(now_s=(t + 1) * PLANE_DT_S)
+            if outage:
+                end_outage()
             if (not plane._inflight and not plane._holdback
                     and len(plane._wheel) == 0):
                 break
@@ -2489,7 +2526,8 @@ def xn_run(a, nb, addr_b, keys, win, state0, seed: int, depth: int,
            "queue_dropped": plane.peer_queue_dropped,
            "forward_errors": a["daemon"].forward_errors - errors0,
            "bulk_unresolved": nb("bulk_unresolved") - unresolved0,
-           "peer": stats, "wall_ms_per_tick":
+           "peer": stats, "outage_ticks": outage_ticks,
+           "wall_ms_per_tick":
            1e3 * statistics.median(walls), "deliver_s": deliver_s}
     plane.stop()
     check(plane.tick_errors == 0, "13: tick errors on node A's plane")
@@ -2683,6 +2721,9 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
         check(fs.get("opens", 0) >= 1 and fs.get("retries", 0) >= 1,
               f"13(c) flap: breaker opens {fs.get('opens')} / retries "
               f"{fs.get('retries')}")
+        check(fs.get("closes", 0) >= 1 and fs.get("state") == 0,
+              f"13(c) flap: breaker closes {fs.get('closes')}, state "
+              f"{fs.get('state')} after the heal")
         check(ef["forward_errors"] == 0, "13(c) flap: forwarding errors")
         same_at_b(ef, e1, "13(c) depth 2 under the flap vs depth 1")
         m["equality"] = {
@@ -2697,11 +2738,14 @@ def run_cross_node_phase(dev, card, n_spine=None, n_leaf=None,
                           "bulk_reference_ticks": eb["deliver_s"],
                           "reference_peer": er["deliver_s"],
                           "flap": ef["deliver_s"]},
-            "flap_peer": fs, "chaos_injected": dict(chaos.injected)}
+            "flap_peer": fs, "outage_ticks": ef["outage_ticks"],
+            "chaos_injected": dict(chaos.injected)}
         log(f"13(c) equality feed: {XN_EQ_TICKS} ticks x {len(win)} "
             f"frames, {sum(e1['counts'])} arrived at B, 0 ring and 0 "
             f"queue drops; depth 1 == depth 2 + telemetry == depth 2 "
-            f"under a {XN_FLAP[0]} s / {XN_FLAP[1]} flap of B, byte for "
+            f"under an outage of B until A's breaker opened "
+            f"({ef['outage_ticks']} ticks) and then a {XN_FLAP[0]} s / "
+            f"{XN_FLAP[1]} flap of B, byte for "
             f"byte per wire at B; on the first {XN_REF_TICKS} ticks the "
             f"reference peer (SendToBulk UNIMPLEMENTED, SendToStream) "
             f"== the bulk transport, {sum(er['counts'])} frames; flap: "
@@ -9103,7 +9147,90 @@ def run_multiprocess_phase(el, fresh, dev, card, routed=None,
     return m, k1_a + k1_b, ref_k1["step"] + ref_k1["router"]
 
 
-ALL_PHASES = tuple(range(1, 26))
+PROBE_SHARDS = 4            # 26(b): virtual shards of the card
+
+
+def run_dispatch_phase(dev, card) -> tuple:
+    """Phase 26 (module docstring). Returns (metrics, K4 launches of the
+    sharded probe plane, exchange probe included)."""
+    from kubedtn_tpu_torch.analysis.verify import dispatch
+    from kubedtn_tpu_torch.parallel import exchange as pex
+
+    t_phase = time.perf_counter()
+    m = {}
+
+    def per_tick(r, name):
+        # on the CPU (a rehearsal) nothing launches, syncs or profiles:
+        # those checks pass vacuously
+        on_card = r["launches"] is not None
+        n = r["ticks"]
+        calls = {k: v / n for k, v in r["calls"].items() if v}
+        launches = {k: v / n for k, v in (r["launches"] or {}).items() if v}
+        sites = r["syncs"] or []
+        syncs = sum(s["count"] for s in sites) / n
+        kernels = r["cuda_kernels"] or {}
+        top = [(re.sub(r"void |at::native::|\(anonymous namespace\)::", "",
+                       k)[:60], v / n)
+               for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]]
+        log(f"26{name}: per steady tick (a) wrapper calls {calls or 0}, "
+            f"(b) launches {launches or 0}, (c) CUDA kernels "
+            f"{r['cuda_kernels_per_tick'] or 0:.1f} (top {top}; copies "
+            f"{r['cuda_copies_per_tick'] or 0:.1f}), (d) dispatch-side "
+            f"syncs {syncs:.2f} at "
+            f"{[(s['path'], s['line'], s['function']) for s in sites]}; "
+            f"seconds {({k: round(v, 3) for k, v in r['seconds'].items()})}"
+            f" ({card})")
+        check(r["tick_errors"] == 0, f"26{name}: tick errors")
+        check(not on_card or r["calls"] == r["launches"],
+              f"26{name}: wrapper calls {r['calls']} != launches "
+              f"{r['launches']}: a kernel gave way to its plain version")
+        bad = [s for s in sites if s["waiver"] is None]
+        check(not bad, f"26{name}: sync sites no sync-ok waiver covers: "
+                       f"{bad}")
+        return {"calls_per_tick": calls, "launches_per_tick": launches,
+                "cuda_kernels_per_tick": r["cuda_kernels_per_tick"],
+                "cuda_copies_per_tick": r["cuda_copies_per_tick"],
+                "cuda_kernels": r["cuda_kernels"],
+                "seconds": r["seconds"],
+                "syncs_per_tick": syncs,
+                "sync_sites": [{k: s[k] for k in ("path", "line",
+                                                  "function", "count",
+                                                  "waiver")}
+                               for s in sites],
+                "delivered": sum(len(e) for e in r["egress"])}
+
+    runs = {}
+    for depth in (1, 2):
+        runs[depth] = dispatch.probe_plane(depth=depth, device=dev)
+        m[f"a_depth{depth}"] = per_tick(runs[depth], f"(a) depth {depth}")
+
+    def same(r, base, what):
+        check(r["egress"] == base["egress"],
+              f"26: delivered frames differ, {what}")
+        for f, v in base["counters"].items():
+            check(np.array_equal(r["counters"][f], v),
+                  f"26: counter {f} differs, {what}")
+
+    same(runs[2], runs[1], "depth 2 against depth 1")
+    check(m["a_depth1"]["delivered"] > 0, "26(a): nothing delivered")
+    t0 = time.perf_counter()
+    cpu = dispatch.probe_plane(depth=1, shards=PROBE_SHARDS, device="cpu")
+    m["cpu_probe_s"] = time.perf_counter() - t0
+    pex.reset_launches()
+    r4 = dispatch.probe_plane(depth=1, shards=PROBE_SHARDS, device=dev)
+    k4 = pex.LAUNCHES["ring_step"]
+    m["b_shards4"] = per_tick(r4, f"(b) {PROBE_SHARDS} shards")
+    got = (r4["launches"] or r4["calls"])["ring_step"]
+    check(got == cpu["calls"]["ring_step"] > 0,
+          f"26(b): K4 launched {got} times in the counted ticks, the CPU "
+          f"probe predicts {cpu['calls']['ring_step']}")
+    same(r4, runs[1], f"{PROBE_SHARDS} shards against unsharded")
+    m["b_shards4"]["k4_cpu_predicted"] = cpu["calls"]["ring_step"]
+    m["phase_s"] = time.perf_counter() - t_phase
+    return m, k4
+
+
+ALL_PHASES = tuple(range(1, 27))
 # phases that need the Clos state phase 3's main path leaves (the churned
 # Clos and its fresh copy): selecting one runs phases 2 and 3 first
 NEEDS_MAIN_PATH = {3, 4, 10, 11, 14, 22, 25}
@@ -9477,6 +9604,15 @@ def main(argv=None) -> int:
         detail["multiprocess"] = mp_m
         _free_card(dev)
         clock("25", t0)
+    if 26 in want:
+        t0 = time.perf_counter()
+        p0 = probe.launches
+        disp_m, k4_disp = run_dispatch_phase(dev, card)
+        plane_k4("dispatch_probe", k4_disp, p0)
+        log(f"26: phase {disp_m['phase_s']:.1f} s; K4 launches: the "
+            f"sharded probe plane {k4_paths['dispatch_probe']}")
+        detail["dispatch_probe"] = disp_m
+        clock("26", t0)
     if daemon_rate:
         t0 = time.perf_counter()
         detail["daemon_rate"] = run_daemon_rate(dev, card)
@@ -9537,4 +9673,23 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except SystemExit as e:
+        if e.code in (0, None):
+            raise
+        # a failed check or a refusal: say why and leave at once. Each
+        # phase has stopped its servers, planes and children on the way
+        # out; the interpreter's own teardown after a failed phase has
+        # crashed on the card (exit 139, torch.profiler's callbacks and
+        # the peers' threads mid-way), which would hide the exit code.
+        if not isinstance(e.code, int):
+            print(e.code, file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(e.code if isinstance(e.code, int) else 1)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)

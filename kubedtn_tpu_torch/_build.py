@@ -132,7 +132,7 @@ def library(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
-    _loaded[name] = lib
+    _loaded[name] = lib  # dtnlint: purity-ok(the loaded-library cache: a kernel's first launch builds and loads its library once per process, and no output depends on it)
     return lib
 
 

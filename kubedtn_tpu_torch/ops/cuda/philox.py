@@ -88,6 +88,7 @@ def uniforms(seed: int, capacity: int, steps: int,
     s = torch.arange(steps, dtype=torch.int64, device=device)[:, None]
     key = (int(seed) & MASK32, 0)
     first = philox4x32((e, s, 0, 0), key)
+    # dtnlint: key-ok(K3's in-kernel stream: counter blocks 0 and 1 under one key never overlap, and are the exact bits the kernel draws)
     second = philox4x32((e, s, 1, 0), key)
     lanes = first + second[:NU - 4]
     return torch.stack([bits_to_uniform(w) for w in lanes],

@@ -1491,6 +1491,7 @@ class WireDataPlane:
             self._exchange_count = 0
         return mesh
 
+    # dtnlint: sync-ok(the sampled exchange probe, one dispatch in 64 of a sharded plane: its waits bound the wall time of the ring it measures; ROADMAP lists it as perf work)
     def _run_exchange_probe(self, rows: int) -> None:
         """One run of the exchange probe on zero mailboxes of `rows`
         padded rows (a [rows, NPROP + 3 + NCORR] f32 payload and a
@@ -1860,12 +1861,11 @@ class WireDataPlane:
             "depth": self.pipeline_depth,
             "effective_depth": self.effective_pipeline_depth,
             "degrade_level": self.degrade_level,
-            # gauge snapshots: len/int reads are torn-read tolerant and
-            # must not block behind a wedged dispatch holding the lock
+            # dtnlint: lock-ok(metrics gauge snapshot: len/int reads are torn-read tolerant and must not block behind a wedged dispatch holding the tick lock)
             "inflight": len(self._inflight),
-            "drain_budget": self._drain_budget,
+            "drain_budget": self._drain_budget,  # dtnlint: lock-ok(gauge snapshot, see above)
             "ingress_backlog": self.last_backlog,
-            "holdback_wires": len(self._holdback),
+            "holdback_wires": len(self._holdback),  # dtnlint: lock-ok(gauge snapshot, see above)
         }
         return out
 
@@ -1908,8 +1908,9 @@ class WireDataPlane:
             "tick_errors": self.tick_errors,
             "ticks": self.ticks,
             "backlog": self.last_backlog,
+            # dtnlint: lock-ok(gauge snapshot: len/int reads are torn-read tolerant and must not block behind a wedged dispatch holding the tick lock)
             "holdback_wires": len(self._holdback),
-            "inflight": len(self._inflight),
+            "inflight": len(self._inflight),  # dtnlint: lock-ok(gauge snapshot, see above)
             "pipeline_depth": self.pipeline_depth,
             "effective_depth": self.effective_pipeline_depth,
             # serving = what the generic grpc.health.v1 probe reports:
@@ -2382,6 +2383,7 @@ class WireDataPlane:
         if gen != engine.props_gen or mirror is None \
                 or mirror.shape[0] != E:
             gen = engine.props_gen
+            # dtnlint: sync-ok(cached host mirror — one transfer per props generation, not per tick; the cache replaced the old per-tick gather)
             mirror = state.props.cpu().numpy()
             self._props_cache = (gen, mirror)
         props_rows = mirror[rows_np]
@@ -2517,6 +2519,7 @@ class WireDataPlane:
         return job
 
     @requires_lock("_tick_lock")
+    # dtnlint: sync-ok(the pipeline's designated sync point: _complete consumes a dispatched tick's device outputs)
     def _complete(self, job: _ShapeJob) -> int:
         """Back half of a tick's shaping: wait for one job's outputs (the
         pipeline's only sync point), run the rare TBF 50ms-queue-drop
@@ -3202,16 +3205,18 @@ class WireDataPlane:
                 # backpressure sheds the period sleep entirely: while
                 # drainable ingress backlog, holdback residue, or an
                 # in-flight dispatch remains, tick again immediately
+                # dtnlint: lock-ok(advisory backpressure peek on the runner thread: a stale read costs at most one period sleep; tick() re-reads under the lock)
                 if (self.last_backlog or self._holdback
-                        or self._inflight):
+                        or self._inflight):  # dtnlint: lock-ok(advisory peek, see above)
                     continue
                 budget = period - (now - t0)
                 # wake EARLY for the next scheduled release: the wheel's
                 # next_due_us is a safe lower bound
+                # dtnlint: lock-ok(advisory wake-early bound: _origin_s only rebases while the runner is stopped; a stale value widens the sleep by one period at most)
                 if self._origin_s is not None:
                     nd = self._wheel.next_due_us()
                     if nd is not None:
-                        due_in = self._origin_s + nd / 1e6 - now
+                        due_in = self._origin_s + nd / 1e6 - now  # dtnlint: lock-ok(advisory bound, see above)
                         budget = min(budget, max(due_in, 0.0))
                 if budget > 0:
                     # wakes early on new ingress (daemon signal) or stop

@@ -72,7 +72,7 @@ def init_sim(edges: EdgeState, q: int = 32) -> SimState:
         inflight=init_inflight(cap, q, dev),
         counters=init_counters(cap, dev),
         traffic=init_traffic_state(cap, dev),
-        clock_us=torch.zeros((), dtype=F32, device=dev),
+        clock_us=torch.zeros((), dtype=F32, device=dev),  # dtnlint: dtype-ok(device virtual clock, f32 SoA contract; the f64-anchor rule protects WALL-clock anchors, which live host-side in twin/snapshot)
     )
 
 

@@ -80,6 +80,7 @@ def _bucket_edges(device) -> torch.Tensor:
     stream, which would serialise the plane's pipeline)."""
     e = _EDGES.get(device)
     if e is None:
+        # dtnlint: purity-ok(a per-device cache of the constant bucket edges: every call returns the same values)
         e = _EDGES[device] = torch.tensor(BUCKET_EDGES_US,
                                           dtype=torch.float32,
                                           device=device)

@@ -22,11 +22,15 @@ ticks a whole number of flap periods apart, a tick whose send falls in
 the up half never fails (0 opens); one in the down half opens the
 breaker only when both retries land in down halves too. On the card
 the jitter is unseeded and the phase is the wall clock's, so 13(c)'s
-`opens >= 1` is a timing property of the check, not a fault of the port.
+`opens >= 1` was a timing property of the check, not a fault of the port.
+So 13(c) now takes B down from the start until A's breaker has opened and
+flaps it from then on; the last test here holds that feed in both
+packages.
 """
 
 import random
 import threading
+import time
 
 import pytest
 
@@ -72,10 +76,14 @@ class VClock:
             self.t = max(self.t, t)
 
 
-def flap_run(pkg: str, phase_s: float, seed: int) -> dict:
+def flap_run(pkg: str, phase_s: float, seed: int,
+             outage: bool = False) -> dict:
     """TICKS ticks of 4 frames TICK_S apart through `pkg`'s sender, the
-    peer flapping from t0 = -phase_s on the virtual clock. Returns the
-    sender's and breaker's counters and the RPC outcomes."""
+    peer flapping from t0 = -phase_s on the virtual clock. With `outage`,
+    as chip_smoke.py's 13(c) feeds it, the peer is down from the start
+    until the breaker has opened, and flaps from then on (phase_s behind
+    that moment). Returns the sender's and breaker's counters and the
+    RPC outcomes."""
     rt, fault, pb, chaos = PKGS[pkg]
     clock = VClock()
 
@@ -88,7 +96,10 @@ def flap_run(pkg: str, phase_s: float, seed: int) -> dict:
     d = FakeDaemon(client)
     inj = chaos.ChaosInjector(seed=13, clock=clock)
     inj.install_peer_faults(d)
-    inj.flap_peer(PEER, *FLAP, t0=-phase_s)
+    if outage:
+        inj.blackhole_peer(PEER)
+    else:
+        inj.flap_peer(PEER, *FLAP, t0=-phase_s)
     breaker = fault.CircuitBreaker(clock=clock)
     to_probe = breaker.time_to_probe
 
@@ -103,6 +114,14 @@ def flap_run(pkg: str, phase_s: float, seed: int) -> dict:
         for k in range(TICKS):
             clock.at_least(k * TICK_S)
             s.enqueue(_packets(pb, 4, 4 * k))
+            if outage:
+                deadline = time.monotonic() + WAIT_S
+                while s.breaker.opens == 0 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                assert s.breaker.opens >= 1, "the outage never opened it"
+                inj.heal_peer(PEER)
+                inj.flap_peer(PEER, *FLAP, t0=clock.t - phase_s)
+                outage = False
             assert s.wait_empty(WAIT_S)
         b = s.breaker
         return {"opens": b.opens, "half_opens": b.half_opens,
@@ -145,3 +164,21 @@ def test_whether_the_breaker_opens_is_the_flap_phase_and_the_jitter():
     assert none["blackholed"] >= TICKS and none["opens"] == 0
     assert some["blackholed"] >= TICKS and some["opens"] == 9
     assert none["retries"] >= TICKS and none["forward_errors"] == 0
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("phase_s", PHASES)
+def test_an_outage_before_the_flap_opens_the_breaker(pkg, phase_s, seed):
+    """chip_smoke.py's 13(c) feed: B down until A's breaker has opened,
+    then the flap. At every flap phase and jitter seed, including the
+    ones where the flap alone never opens it (phase 0, seed 0 and phase
+    30 ms above), the breaker opens, closes again once the peer answers,
+    and every frame arrives once and in order, in both packages."""
+    r = flap_run(pkg, phase_s, seed, outage=True)
+    assert r["opens"] >= 1 and r["retries"] >= 1
+    assert r["closes"] >= 1 and r["state"] == 0
+    assert r["sent"] == 4 * TICKS and r["forward_errors"] == 0
+    assert r["dropped"] == 0 and r["retries"] == r["blackholed"]
+    assert r["got"] == [i.to_bytes(4, "big") * 10
+                        for i in range(4 * TICKS)]

@@ -103,6 +103,23 @@ LIVE_PLANE_MODULES = (
     "kubedtn_tpu_torch.parallel.multihost",
 )
 
+# dtnlint for the port and the dispatch probe
+ANALYSIS_MODULES = (
+    "kubedtn_tpu_torch.analysis", "kubedtn_tpu_torch.analysis.__main__",
+    "kubedtn_tpu_torch.analysis.core", "kubedtn_tpu_torch.analysis.callgraph",
+    "kubedtn_tpu_torch.analysis.fix", "kubedtn_tpu_torch.analysis.diff",
+    "kubedtn_tpu_torch.analysis.passes",
+    "kubedtn_tpu_torch.analysis.passes.hygiene",
+    "kubedtn_tpu_torch.analysis.passes.lock_discipline",
+    "kubedtn_tpu_torch.analysis.passes.host_sync",
+    "kubedtn_tpu_torch.analysis.passes.key_discipline",
+    "kubedtn_tpu_torch.analysis.passes.traced_purity",
+    "kubedtn_tpu_torch.analysis.passes.dtype_drift",
+    "kubedtn_tpu_torch.analysis.verify",
+    "kubedtn_tpu_torch.analysis.verify.entrypoints",
+    "kubedtn_tpu_torch.analysis.verify.dispatch",
+)
+
 # the fleet supervisor's surfaces: (module, attribute path)
 FLEET_SURFACES = (
     ("kubedtn_tpu_torch.federation.placement", "PlacementLedger"),
@@ -133,6 +150,36 @@ def test_fleet_surfaces_exist(module, attr):
         obj = getattr(obj, part)
     assert callable(obj)
     assert obj.__module__.startswith("kubedtn_tpu_torch.")
+
+
+@pytest.mark.parametrize("want", ANALYSIS_MODULES)
+def test_analysis_modules_are_found(want):
+    assert want in port_modules()
+
+
+def test_analysis_loads_no_jax_in_a_fresh_process():
+    """Every module of kubedtn_tpu_torch.analysis imported in a fresh
+    process, and the suite run over the port's own tree: neither jax
+    nor the JAX package is loaded (the analysis parses source, and never
+    the JAX tree's)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from kubedtn_tpu_torch.analysis import run_suite\n"
+        "_p, f = run_suite(rules=('hygiene', 'lock'))\n"
+        "assert f and all(x.path.startswith('kubedtn_tpu_torch/') "
+        "for x in f)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'kubedtn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'kubedtn_tpu.')))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
 
 
 def test_import_loads_no_jax_in_a_fresh_process():

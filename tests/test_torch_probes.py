@@ -164,7 +164,11 @@ def test_pause_observability_equals_jax():
     assert ensure_jax_native() is None
     j = jsc.pause_observability(**PAUSE_KW)
     t = tsc.pause_observability(**PAUSE_KW, device="cpu")
-    assert set(t) == set(j) | {"device"}, set(t) ^ (set(j) | {"device"})
+    # both packages add `stalled_first_attempt` only when a round stalled
+    # and was measured again, which depends on the host's timing
+    cond = {"stalled_first_attempt"}
+    assert set(t) - cond == (set(j) - cond) | {"device"}, \
+        (set(t) - cond) ^ ((set(j) - cond) | {"device"})
     assert t["all_attributed"], t["forced"]
     assert t["staged_ok"] and t["staged_rounds"] >= 1
     assert t["compact_moved"] >= 1
